@@ -1,0 +1,111 @@
+"""Port CRF decode (plain PyTorch, CPU) against the JAX package.
+
+Labels must be equal to ``crf.decode_paths`` and to the Pallas decode
+(interpret mode) on these seeded fixtures, which have no f32 near-ties;
+alphas, betas and logZ agree at 1e-5; ``reverse_complement`` and
+``_apply_ub_bias`` are exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xna_basecaller_tpu.infer import basecall as jbasecall
+from xna_basecaller_tpu.ops import crf as jcrf
+from xna_basecaller_tpu.ops import crf_pallas
+from xna_basecaller_tpu_torch.infer import basecall as tbasecall
+from xna_basecaller_tpu_torch.ops import crf, crf_cuda
+
+CASES = [(6, 3), (4, 2)]
+
+
+def _scores(n_base, state_len, T=14, N=3, seed=0):
+    C = (n_base + 1) * n_base ** state_len
+    rng = np.random.default_rng(seed)
+    s = np.tanh(rng.standard_normal((T, N, C))) * 5.0
+    return s.astype(np.float32)
+
+
+@pytest.mark.parametrize("n_base,state_len", CASES)
+def test_scans_and_logz_match(n_base, state_len):
+    s = _scores(n_base, state_len)
+    st = torch.from_numpy(s)
+    betas = crf.backward_scores(st, n_base, state_len)
+    np.testing.assert_allclose(
+        betas.numpy(), np.asarray(jcrf.backward_scores(
+            jnp.asarray(s), n_base, state_len)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        crf.forward_scores(st, n_base, state_len).numpy(),
+        np.asarray(jcrf.forward_scores(jnp.asarray(s), n_base, state_len)),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        crf.logz_from_betas(betas).numpy(),
+        np.asarray(jcrf.logz_fwd(jnp.asarray(s), n_base, state_len)),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_base,state_len", CASES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_labels_match(n_base, state_len, seed):
+    s = _scores(n_base, state_len, T=20, N=4, seed=seed)
+    want = np.asarray(jcrf.decode_paths(jnp.asarray(s), n_base, state_len))
+    want_pal = np.asarray(crf_pallas.decode_paths_pallas(
+        jnp.asarray(s), n_base, state_len, interpret=True))
+    got = crf.decode_paths(torch.from_numpy(s), n_base, state_len)
+    assert got.dtype == torch.int8 and got.shape == (4, 20)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want_pal)
+    # the kernel chain's wrappers take the plain versions on the CPU
+    np.testing.assert_array_equal(
+        crf_cuda.decode_paths_cuda(torch.from_numpy(s), n_base,
+                                   state_len).numpy(), want)
+
+
+@pytest.mark.parametrize("n_base,state_len", CASES)
+def test_reverse_complement_exact(n_base, state_len):
+    s = _scores(n_base, state_len, seed=5)
+    np.testing.assert_array_equal(
+        crf.reverse_complement(torch.from_numpy(s), n_base,
+                               state_len).numpy(),
+        np.asarray(jcrf.reverse_complement(jnp.asarray(s), n_base,
+                                           state_len)))
+
+
+@pytest.mark.parametrize("ub_bias", [0.0, 0.7, -1.25])
+def test_apply_ub_bias_exact(ub_bias):
+    s = _scores(6, 3, seed=6)
+    np.testing.assert_array_equal(
+        tbasecall._apply_ub_bias(torch.from_numpy(s), 6, ub_bias).numpy(),
+        np.asarray(jbasecall._apply_ub_bias(jnp.asarray(s), 6, ub_bias)))
+
+
+@pytest.mark.parametrize("reverse,ub_bias", [(False, 0.0), (True, 0.5)])
+def test_score_and_decode_matches(reverse, ub_bias):
+    s = _scores(6, 3, T=16, N=2, seed=8)
+    want = np.asarray(jbasecall._score_and_decode(
+        jnp.asarray(s), 6, 3, reverse, ub_bias))
+    got = tbasecall._score_and_decode(torch.from_numpy(s), 6, 3, reverse,
+                                      ub_bias)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_traceback_follows_backpointers():
+    """K2c's plain version on hand-made backpointers: a move from state j
+    through column k lands on (k-1)*nsd + j//n_base."""
+    n_base, state_len = 4, 2          # 16 states, nsd = 4
+    T, N, ns = 3, 1, 16
+    bp = torch.zeros(T, N, ns, dtype=torch.uint8)
+    v_final = torch.zeros(N, ns)
+    v_final[0, 9] = 1.0               # start from state 9
+    bp[2, 0, 9] = 3                   # move: j -> 2*4 + 9//4 = 10
+    bp[1, 0, 10] = 0                  # stay at 10
+    bp[0, 0, 10] = 1                  # move
+    labels = crf.viterbi_traceback(bp, v_final, n_base, state_len)
+    assert labels.tolist() == [[1, 0, 3]]
+
+
+def test_path_to_str():
+    seqdist = crf.CTCCRF(3, "NACGTXY")
+    assert seqdist.path_to_str(np.array([0, 1, 0, 5, 6, 0, 4])) == "AXYT"
+    assert seqdist.n_state == 216 and seqdist.n_score == 1512
