@@ -12,8 +12,11 @@ import torch
 from xna_basecaller_tpu_torch.cli import main as port_cli
 from xna_basecaller_tpu_torch.cli.basecaller import NOT_PORTED
 from xna_basecaller_tpu_torch.core.config import EncoderConfig, ModelConfig
+from xna_basecaller_tpu_torch.data.ctc_data import save_ctc_data
+from xna_basecaller_tpu_torch.data.simulate import simulate_ctc_dataset
 from xna_basecaller_tpu_torch.models.crf_model import Model
 from xna_basecaller_tpu_torch.ops import _build, crf_cuda, lstm_cuda
+from xna_basecaller_tpu_torch.train.loop import Trainer
 from xna_basecaller_tpu_torch.utils.model_io import load_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,7 +62,8 @@ def test_no_jax_import_lines():
 def test_nothing_built_at_import():
     # importing every module builds no kernel (nvcc runs at first use)
     assert _build.build_log() == ""
-    assert set(_build.sources()) == {"crf_decode", "lstm_recurrence"}
+    assert set(_build.sources()) == {"crf_decode", "lstm_backward",
+                                     "lstm_recurrence"}
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
@@ -72,6 +76,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         load_model(str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_cli(["basecaller", str(tmp_path), str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(Model(cfg), [], [])
+    save_ctc_data(str(tmp_path / "data"),
+                  *simulate_ctc_dataset(4, chunk_len=300, target_len=20))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_cli(["train", str(tmp_path / "run"), "--directory",
+                  str(tmp_path / "data")])
     assert next(Model(cfg, device="cpu").parameters()).device.type == "cpu"
 
 
@@ -81,6 +92,12 @@ def test_wrappers_refuse_tensors_they_cannot_take():
         lstm_cuda.lstm_recurrence(meta, torch.empty(16, 64, device="meta"))
     with pytest.raises(ValueError):
         crf_cuda.backward_scan(torch.empty(3, 2, 80, device="meta"), 4, 2)
+    w = torch.empty(16, 64, device="meta")
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_forward_with_cells(meta, w)
+    ys = torch.empty(4, 2, 16, device="meta")
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_backward_dxp(ys, meta, w, ys, ys)
 
 
 @pytest.mark.parametrize("flag", sorted(NOT_PORTED))
@@ -98,7 +115,7 @@ def test_cli_refuses_ensembles_and_other_subcommands(tmp_path):
         port_cli(["basecaller", f"{tmp_path},{tmp_path}", str(tmp_path),
                   "--device", "cpu"])
     assert "ensembles" in str(exc.value)
-    for cmd in ("train", "duplex", "evaluate"):
+    for cmd in ("duplex", "evaluate"):
         with pytest.raises(SystemExit) as exc:
             port_cli([cmd, "x"])
         assert "not ported" in str(exc.value)

@@ -1,8 +1,8 @@
-"""CLI dispatcher: ``python -m xna_basecaller_tpu_torch basecaller ...``.
+"""CLI dispatcher: ``python -m xna_basecaller_tpu_torch basecaller|train ...``.
 
-Port of ``xna_basecaller_tpu/cli/__init__.py``.  Only ``basecaller`` is
-ported; the JAX package's other subcommands are listed so that calling one
-says it is not ported yet.
+Port of ``xna_basecaller_tpu/cli/__init__.py``.  ``basecaller`` and
+``train`` are ported; the JAX package's other subcommands are listed so
+that calling one says it is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import sys
 
 __version__ = "0.1.0"
 
-modules = ["basecaller"]
-not_ported = ["train", "evaluate", "view", "convert", "export", "download",
+modules = ["basecaller", "train"]
+not_ported = ["evaluate", "view", "convert", "export", "download",
               "duplex"]
 
 

@@ -1,7 +1,13 @@
-// K1: the LSTM recurrence over precomputed input projections, for Hopper.
+// K1 and K3a: the LSTM recurrence over precomputed input projections, for
+// Hopper.
 //
-// Replaces xna_basecaller_tpu/ops/lstm_pallas.py::lstm_recurrence_pallas
-// (kernel body _make_scan_kernel).  Per step t:
+// K1 replaces xna_basecaller_tpu/ops/lstm_pallas.py::lstm_recurrence_pallas
+// (kernel body _make_scan_kernel); K3a replaces its trainable forward
+// _pallas_fwd_with_cells (kernel body _make_fwd_cells_kernel), which is the
+// same recurrence that also writes the cell states cs[t] = c, in xp's dtype,
+// as the residuals of the backward (lstm_backward.cu).  One template flag
+// (kWriteCells) turns K1 into K3a, so the inference path writes no cells.
+// Per step t:
 //   gates = xp[t] + h @ W_hh      (f32 accumulation, f32 add)
 //   i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the four gate blocks
 //   c = f * c + i * g             (c in f32)
@@ -11,7 +17,8 @@
 //
 // Bound on the card (flagship, per layer: T=720, N=256, H=768, bf16):
 // 2*T*N*H*4H = 0.87 TFLOP over 989 TFLOP/s is 0.88 ms; xp + ys = 1.42 GB
-// over 3.35 TB/s is 0.42 ms.  In practice the chain of 720 dependent
+// over 3.35 TB/s is 0.42 ms (K3a: + cs, 0.28 GB more at N=256; at the
+// training batch N=64 the product is 0.22 TFLOP, 0.22 ms).  In practice the chain of 720 dependent
 // steps dominates: each step is a small [N,H]x[H,4H] product that cannot
 // start before the previous step's h is complete everywhere, and every
 // block must read all of h_{t-1} for its batch rows from L2.
@@ -44,14 +51,11 @@
 // per group of rows (rows are independent), with xp and ys strided by the
 // full batch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "lstm_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace xna;
 
 constexpr int kThreads = 256;
 constexpr int kGroupRows = 256;     // batch rows per launch
@@ -74,10 +78,6 @@ constexpr int kUnitsF = 8;
 constexpr int kColsF = 4 * kUnitsF;
 constexpr int kChunkF = 32;         // h columns staged per pass
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
 // One cell: the four gate pre-activations (xp + h @ W, added in f32) and
 // the cell state c (updated in place) -> h in f32.
 __device__ __forceinline__ float lstm_cell(float gi, float gf, float gg,
@@ -85,75 +85,6 @@ __device__ __forceinline__ float lstm_cell(float gi, float gf, float gg,
   // no contraction into an FMA: the same roundings as the plain version
   c = __fadd_rn(__fmul_rn(sigmoid(gf), c), __fmul_rn(sigmoid(gi), tanhf(gg)));
   return __fmul_rn(sigmoid(go), tanhf(c));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))),
-                  "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// A operand of mma m16n8k16: the 16 x 16 tile at `a` (row-major, ld
-// elements), one row address per lane.
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* a,
-                                       int ld) {
-  const int lane = threadIdx.x % 32;
-  const unsigned p = smem_addr(a + (lane % 16) * ld + (lane / 16) * 8);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(p));
-}
-
-// B operands of two m16n8k16 products: the 16 (k) x 16 (n) tile at `b`,
-// stored k-major (row-major [k][n], ld elements), transposed on the way:
-// r[0..1] for columns 0-7, r[2..3] for columns 8-15.
-__device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* b,
-                                       int ld) {
-  const int lane = threadIdx.x % 32, m = lane / 8;
-  const unsigned p = smem_addr(b + ((m % 2) * 8 + lane % 8) * ld + (m / 2) * 8);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(p));
-}
-
-// d += a @ b on one 16 x 8 tile, bf16 operands, f32 accumulation.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Monotonic grid barrier: every block adds one, then waits until the
-// counter reaches `target` (= steps done * gridDim.x).  Valid only when all
-// blocks are co-resident, which the cooperative launch guarantees.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen) : "l"(counter) : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Gate columns of `units` hidden units from u0 into w_s [H][ld]: column
@@ -182,10 +113,12 @@ __device__ void stage_h(const bf16* h, bf16* dst, int r0, int rows,
   }
 }
 
+template <bool kWriteCells>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ w_hh,
-                 bf16* __restrict__ ys, bf16* hbuf, unsigned int* counter,
-                 int T, int N, int ld_n, int H, int reverse) {
+                 bf16* __restrict__ ys, bf16* __restrict__ cs, bf16* hbuf,
+                 unsigned int* counter, int T, int N, int ld_n, int H,
+                 int reverse) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* w_s = reinterpret_cast<bf16*>(smem);                  // [H][kLdW]
   bf16* ring = w_s + (size_t)H * kLdW;             // [kStages][kRows][kLdH]
@@ -301,15 +234,20 @@ lstm_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ w_hh,
           __bfloat162float(x[3 * kUnits]) + g[3 * kUnits], c_reg[i]));
       h_next[(size_t)(r0 + n) * H + u0 + u] = hv;
       y_t[(size_t)n * H + u] = hv;
+      if (kWriteCells)
+        cs[((size_t)t * ld_n + r0 + n) * H + u0 + u] =
+            __float2bfloat16_rn(c_reg[i]);
     }
     grid_barrier(counter, (unsigned int)(s + 1) * gridDim.x);
   }
 }
 
+template <bool kWriteCells>
 __global__ void __launch_bounds__(kThreads)
 lstm_f32_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
-                float* __restrict__ ys, float* hbuf, unsigned int* counter,
-                int T, int N, int ld_n, int H, int reverse) {
+                float* __restrict__ ys, float* __restrict__ cs, float* hbuf,
+                unsigned int* counter, int T, int N, int ld_n, int H,
+                int reverse) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* w_s = reinterpret_cast<float*>(smem);        // [H][kColsF]
   float* g_s = w_s + (size_t)H * kColsF;              // [N][kColsF]
@@ -370,27 +308,10 @@ lstm_f32_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
           x[3 * H] + g[3 * kUnitsF], c_s[idx]);
       h_next[(size_t)n * H + u0 + u] = hv;
       y_t[(size_t)n * H + u] = hv;
+      if (kWriteCells) cs[((size_t)t * ld_n + n) * H + u0 + u] = c_s[idx];
     }
     grid_barrier(counter, (unsigned int)(s + 1) * gridDim.x);
   }
-}
-
-// 0 when `blocks` blocks of `fn` with `smem` bytes can all be resident;
-// -3 when the shared-memory request is refused, -1 when they cannot.
-int co_resident(const void* fn, size_t smem, int blocks) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();   // clear the refusal
-    return -3;
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess) return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fn, kThreads, smem)) != cudaSuccess) return e;
-  return per_sm * sms < blocks ? -1 : 0;
 }
 
 }  // namespace
@@ -399,11 +320,12 @@ extern "C" {
 
 // xp [T, ld_n, 4H] and ys [T, ld_n, H] point at the first of this launch's
 // N <= kGroupRows batch rows; w_hh [H, 4H]; all of one dtype (bf16 when
-// is_bf16, else f32), contiguous.  hbuf: [2, N, H] of that dtype whose
-// first half is zero (h_0).  counter: one zeroed uint32.  Returns 0, a
-// cudaError_t, or -1 (grid cannot be co-resident), -2 (unsupported shape),
-// -3 (shared-memory request refused: H too large).
-int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys,
+// is_bf16, else f32), contiguous.  cs: null for K1; for K3a, [T, ld_n, H]
+// of that dtype like ys, which receives the cell states.  hbuf: [2, N, H]
+// of that dtype whose first half is zero (h_0).  counter: one zeroed
+// uint32.  Returns 0, a cudaError_t, or -1 (grid cannot be co-resident),
+// -2 (unsupported shape), -3 (shared-memory request refused: H too large).
+int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
                         void* hbuf, void* counter, int T, int N, int ld_n,
                         int H, int reverse, int is_bf16, void* stream) {
   if (T < 1 || N < 1 || N > kGroupRows || ld_n < N || H < 16 || H % 16 != 0)
@@ -416,13 +338,16 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys,
     const size_t smem = (size_t)H * kLdW * 2 +
                         (size_t)kStages * kRows * kLdH * 2 +
                         (size_t)kRows * kCols * 2;
-    const void* fn = reinterpret_cast<const void*>(&lstm_bf16_kernel);
-    if ((rc = co_resident(fn, smem, blocks)) != 0) return rc;
+    const void* fn = cs ? reinterpret_cast<const void*>(&lstm_bf16_kernel<true>)
+                        : reinterpret_cast<const void*>(&lstm_bf16_kernel<false>);
+    if ((rc = co_resident(fn, smem, blocks, kThreads)) != 0) return rc;
     const bf16* a0 = static_cast<const bf16*>(xp);
     const bf16* a1 = static_cast<const bf16*>(w_hh);
     bf16* a2 = static_cast<bf16*>(ys);
-    bf16* a3 = static_cast<bf16*>(hbuf);
-    void* args[] = {&a0, &a1, &a2, &a3, &ctr, &T, &N, &ld_n, &H, &reverse};
+    bf16* a3 = static_cast<bf16*>(cs);
+    bf16* a4 = static_cast<bf16*>(hbuf);
+    void* args[] = {&a0, &a1, &a2, &a3, &a4, &ctr, &T, &N, &ld_n, &H,
+                    &reverse};
     rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
                                      smem, st);
   } else {
@@ -430,13 +355,16 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys,
     const size_t smem = (size_t)H * kColsF * 4 + (size_t)N * kColsF * 4 +
                         (size_t)N * kUnitsF * 4 +
                         (size_t)kThreads * (kChunkF + 1) * 4;
-    const void* fn = reinterpret_cast<const void*>(&lstm_f32_kernel);
-    if ((rc = co_resident(fn, smem, blocks)) != 0) return rc;
+    const void* fn = cs ? reinterpret_cast<const void*>(&lstm_f32_kernel<true>)
+                        : reinterpret_cast<const void*>(&lstm_f32_kernel<false>);
+    if ((rc = co_resident(fn, smem, blocks, kThreads)) != 0) return rc;
     const float* a0 = static_cast<const float*>(xp);
     const float* a1 = static_cast<const float*>(w_hh);
     float* a2 = static_cast<float*>(ys);
-    float* a3 = static_cast<float*>(hbuf);
-    void* args[] = {&a0, &a1, &a2, &a3, &ctr, &T, &N, &ld_n, &H, &reverse};
+    float* a3 = static_cast<float*>(cs);
+    float* a4 = static_cast<float*>(hbuf);
+    void* args[] = {&a0, &a1, &a2, &a3, &a4, &ctr, &T, &N, &ld_n, &H,
+                    &reverse};
     rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
                                      smem, st);
   }

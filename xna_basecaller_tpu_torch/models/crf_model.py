@@ -10,8 +10,12 @@ Port of ``xna_basecaller_tpu/models/crf_model.py`` as an ``nn.Module``:
 layout.  The conv stack runs in f32 (TF32 off, see ``pin_f32_precision``);
 the LSTMs and the head run in ``compute_dtype`` (bf16 by default), with
 the recurrence in the CUDA kernel K1 on the card (``ops/lstm_cuda.py``);
-the decode always runs in f32.  Weights keep the JAX layout (``w_ih
-[in,4H]``, ``w_hh [H,4H]``, head ``w [F, C']``) except the convolutions'.
+the decode and the loss always run in f32.  ``inference=False`` is the
+training forward: the differentiable recurrence (K3a forward, K3b
+backward) and, given a ``torch.Generator``, dropout.  The parameters stay
+f32 and are cast to the compute dtype on the way in, so their gradients
+come back in f32.  Weights keep the JAX layout (``w_ih [in,4H]``, ``w_hh
+[H,4H]``, head ``w [F, C']``) except the convolutions'.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ from xna_basecaller_tpu_torch.ops.conv import (
     conv_stack, conv_stack_forward, init_conv_,
 )
 from xna_basecaller_tpu_torch.ops.lstm import init_lstm_params
-from xna_basecaller_tpu_torch.ops.lstm_cuda import lstm_stack_forward
+from xna_basecaller_tpu_torch.ops.lstm_cuda import (
+    lstm_forward_trainable, lstm_stack_forward,
+)
 from xna_basecaller_tpu_torch.utils.device import resolve_device
 
 
@@ -81,6 +87,18 @@ def crf_head_forward(head: Linear, head_ext: Linear | None, x: torch.Tensor,
         blanks = scores.new_full((T, N, C // cfg.n_base, 1), enc.blank_score)
         scores = torch.cat([blanks, scores], -1).reshape(T, N, -1)
     return scores
+
+
+def apply_dropout(x: torch.Tensor, rate: float,
+                  generator: torch.Generator | None) -> torch.Tensor:
+    """Keep each element with probability 1 - rate, scaled by 1/(1 - rate)
+    (``crf_model.py:139-143`` in JAX); the identity without a generator or
+    at rate 0."""
+    if generator is None or rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 class Model(nn.Module):
@@ -140,15 +158,37 @@ class Model(nn.Module):
     def stride(self) -> int:
         return self.cfg.encoder.stride
 
-    def forward(self, signal: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    def forward(self, signal: torch.Tensor, compute_dtype=torch.bfloat16,
+                inference: bool = True,
+                dropout: torch.Generator | None = None) -> torch.Tensor:
         """Raw signal [N, T_sig] (or [N, T_sig, 1]), any float dtype ->
-        CRF scores [T, N, n_score] in f32."""
+        CRF scores [T, N, n_score] in f32.
+
+        ``inference=False`` runs the trainable recurrence; ``dropout``, a
+        generator on the model's device, then drops ``drop_rate_bottom``
+        after the conv stack and after each LSTM but the last, and
+        ``drop_rate`` before the head (``crf_model.py:139-146, 154,
+        183-185`` in JAX)."""
+        enc = self.cfg.encoder
         if signal.ndim == 3:
             signal = signal[..., 0]
         x = conv_stack_forward(self.conv, signal.float()[:, None, :],
-                               self.cfg.encoder.activation)
+                               enc.activation)
+        x = apply_dropout(x, enc.drop_rate_bottom, dropout)
         x = x.permute(2, 0, 1).to(compute_dtype).contiguous()   # [T, N, C]
         layers = [layer.params(compute_dtype) for layer in self.rnn]
-        x = lstm_stack_forward(layers, self.directions, x)
+        if inference:
+            x = lstm_stack_forward(layers, self.directions, x)
+        else:
+            for i, (params, rev) in enumerate(zip(layers, self.directions)):
+                x = lstm_forward_trainable(params, x, reverse=rev)
+                if i < len(layers) - 1:   # the last one's sits in the head
+                    x = apply_dropout(x, enc.drop_rate_bottom, dropout)
+        x = apply_dropout(x, enc.drop_rate, dropout)
         return crf_head_forward(self.head, self.head_ext, x, self.cfg)
+
+    def loss(self, scores, targets, lengths, **kw):
+        return self.seqdist.ctc_loss(scores, targets, lengths, **kw)
+
+    def decode_batch(self, scores) -> list[str]:
+        return self.seqdist.decode_batch(scores)

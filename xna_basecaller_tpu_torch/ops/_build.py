@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers), so
 one ``nvcc`` call per source takes seconds.  Sources are compiled at first
 use, never at import, for ``sm_90a`` (Hopper), all in parallel, into
 ``build/`` beside this package's sources; a library's file name carries a
-hash of its source and flags, so an edited source is rebuilt.  The
+hash of its source, the shared headers and the flags, so an edited source
+or header is rebuilt.  The
 compiler's output, with the ``-Xptxas -v`` register and spill lines, is
 kept in ``build_log()``.
 """
@@ -45,8 +46,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its name carries a hash of the source, of the
+    shared headers (``csrc/*.cuh``) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,9 +1,15 @@
-"""k-mer CTC-CRF decode in plain PyTorch.
+"""k-mer CTC-CRF in plain PyTorch: the decode and the training loss.
 
-Port of the decode side of ``xna_basecaller_tpu/ops/crf.py``: the
-log-semiring forward and backward scans, the Viterbi decode over the log
-edge posteriors, ``reverse_complement`` and ``CTCCRF.path_to_str``.  The
-loss, the Max semiring, q-scores and the beam decoder are not ported yet.
+Port of ``xna_basecaller_tpu/ops/crf.py``: the log-semiring forward and
+backward scans, the Viterbi decode over the log edge posteriors,
+``reverse_complement``, and the loss side of the CRF: ``logz`` (a
+``torch.autograd.Function`` whose backward is the explicit edge
+posteriors, as ``logz_fwd``'s custom VJP), ``posteriors``, ``normalise``,
+``prepare_ctc_scores``, the stay/move lattice logZ with its explicit
+backward, and ``ctc_loss``.  The loss is the counterpart of the JAX
+package's XLA branch (``XNACALL_PALLAS_LOSS=0``): its scans run as
+per-step torch operations on every device here.  The Max semiring,
+q-scores and the beam decoder are not ported yet.
 
 Scores are [T, N, C] with C = n_state * (n_base + 1); reshaped to
 [T, N, n_state, n_base + 1], column 0 is the stay transition and column
@@ -22,6 +28,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+_NEG_INF = -1e38   # finite "zero" of the log semiring; avoids inf - inf
 
 
 def _lse(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -145,6 +153,156 @@ def decode_paths(scores: torch.Tensor, n_base: int, state_len: int):
     return viterbi_traceback(bp, v_final, n_base, state_len)
 
 
+def posteriors(scores: torch.Tensor, n_base: int, state_len: int,
+               alphas: torch.Tensor | None = None) -> torch.Tensor:
+    """Posterior transition probabilities [T, N, C], d logZ / d scores, as
+    the explicit edge marginals exp(alpha_t[pred(j, k)] + Ms[t, j, k] +
+    beta_{t+1}[j] - logZ) (``crf.py:133-149``).  ``alphas`` are the
+    forward partials when the caller has them."""
+    T, N, C = scores.shape
+    Ms, ns = _split(scores, n_base, state_len)
+    if alphas is None:
+        alphas = forward_scores(scores, n_base, state_len)
+    betas = backward_scores(scores, n_base, state_len)
+    logz = _lse(alphas[-1], -1)
+    a = alphas[:-1]
+    pred = _expand_pred(a.reshape(T * N, ns), n_base, ns).reshape(
+        T, N, ns, n_base)
+    edge = torch.cat([a[..., None], pred], -1) + Ms \
+        + betas[1:][..., None] - logz[None, :, None, None]
+    return torch.exp(edge).reshape(T, N, C)
+
+
+class _LogZ(torch.autograd.Function):
+    """logZ [N] of the CRF by the forward scan; the backward is the edge
+    posteriors times the cotangent (``logz_fwd``'s custom VJP, whose
+    backward recomputes the alphas that this one keeps)."""
+
+    @staticmethod
+    def forward(ctx, scores, n_base: int, state_len: int):
+        alphas = forward_scores(scores, n_base, state_len)
+        ctx.save_for_backward(scores, alphas)
+        ctx.shape = (n_base, state_len)
+        return _lse(alphas[-1], -1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        scores, alphas = ctx.saved_tensors
+        post = posteriors(scores, *ctx.shape, alphas=alphas)
+        return post * ct[None, :, None], None, None
+
+
+def logz(scores: torch.Tensor, n_base: int, state_len: int) -> torch.Tensor:
+    """Partition function of the CRF, [T, N, C] -> [N] (alpha_0 = beta_T =
+    0 for every state), differentiable."""
+    return _LogZ.apply(scores, n_base, state_len)
+
+
+def normalise(scores: torch.Tensor, n_base: int, state_len: int):
+    """Globally normalise the scores so that logZ == 0 (reference
+    crf/model.py:48-49)."""
+    T = scores.shape[0]
+    return scores - (logz(scores, n_base, state_len) / T)[None, :, None]
+
+
+def prepare_ctc_scores(scores: torch.Tensor, targets: torch.Tensor,
+                       n_base: int, state_len: int):
+    """Gather the stay/move lattice scores of target sequences (reference
+    crf/model.py:102-116): targets [N, L] CTC codes (blank 0, bases
+    1..n_base) -> stay [T, N, n] and move [T, N, n-1], n = L - state_len + 1.
+    One ``torch.gather`` over the score columns."""
+    T = scores.shape[0]
+    zt = (targets.long() - 1).clamp(min=0)
+    n = targets.shape[1] - (state_len - 1)
+    stay_state = sum(zt[:, i:n + i] * n_base ** (state_len - i - 1)
+                     for i in range(state_len))
+    stay_idx = stay_state * (n_base + 1)                 # [N, n]
+    move_idx = stay_idx[:, 1:] + zt[:, :n - 1] + 1       # [N, n-1]
+    idx = torch.cat([stay_idx, move_idx], 1)
+    both = torch.gather(scores, 2, idx[None].expand(T, -1, -1))
+    return both[:, :, :n], both[:, :, n:]
+
+
+def _ctc_step(alpha, stay_t, move_t):
+    """One lattice step: stay at a position or advance by one."""
+    stayed = alpha + stay_t
+    moved = alpha[:, :-1] + move_t
+    upper = _lse(torch.stack([stayed[:, 1:], moved], -1), -1)
+    return torch.cat([stayed[:, :1], upper], 1)
+
+
+class _CTCLatticeLogZ(torch.autograd.Function):
+    """logZ [N] of the stay/move lattice, read at position length-1, with
+    the explicit backward of ``crf.py::_ctc_lattice_bwd``: the edge
+    posteriors of stay and move times the cotangent.  The forward keeps the
+    alphas that the JAX backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, stay, move, lengths):
+        T, N, n = stay.shape
+        alpha = stay.new_full((N, n), _NEG_INF)
+        alpha[:, 0] = 0.0
+        alphas = torch.empty_like(stay)      # alpha_t before step t
+        for t in range(T):
+            alphas[t] = alpha
+            alpha = _ctc_step(alpha, stay[t], move[t])
+        idx = (lengths.long() - 1).clamp(0, n - 1)[:, None]
+        out = alpha.gather(1, idx)[:, 0]
+        ctx.save_for_backward(stay, move, lengths, alphas, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        stay, move, lengths, alphas, lz = ctx.saved_tensors
+        T, N, n = stay.shape
+        pos = torch.arange(n, device=stay.device)[None, :]
+        beta = torch.full((N, n), _NEG_INF, dtype=stay.dtype,
+                          device=stay.device)
+        beta = beta.masked_fill(pos == (lengths.long() - 1)[:, None], 0.0)
+        betas = torch.empty_like(stay)       # beta_{t+1}
+        for t in range(T - 1, -1, -1):
+            betas[t] = beta
+            stay_term = stay[t] + beta
+            move_term = move[t] + beta[:, 1:]
+            beta = torch.cat([torch.logaddexp(stay_term[:, :-1], move_term),
+                              stay_term[:, -1:]], 1)
+        norm = ct[None, :, None]
+        d_stay = torch.exp(alphas + stay + betas - lz[None, :, None]) * norm
+        d_move = torch.exp(alphas[:, :, :-1] + move + betas[:, :, 1:]
+                           - lz[None, :, None]) * norm
+        return d_stay, d_move, None
+
+
+def ctc_lattice_logz(stay: torch.Tensor, move: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """logZ of the stay/move alignment lattice (seqdist ctc_simple.logZ, as
+    the reference calls it at crf/model.py:122): paths start at position 0,
+    each frame stays or advances one position, and end at length-1."""
+    return _CTCLatticeLogZ.apply(stay, move, lengths)
+
+
+def ctc_loss(scores: torch.Tensor, targets: torch.Tensor,
+             target_lengths: torch.Tensor, n_base: int, state_len: int,
+             loss_clip: float | None = None, reduction: str = "mean",
+             normalise_scores: bool = True) -> torch.Tensor:
+    """CTC-CRF loss -(logZ_ctc - logZ_full) / target_length (reference
+    crf/model.py:118-131), in f32.  ``targets`` [N, L] CTC codes,
+    ``target_lengths`` [N]."""
+    scores = scores.float()
+    if normalise_scores:
+        scores = normalise(scores, n_base, state_len)
+    stay, move = prepare_ctc_scores(scores, targets, n_base, state_len)
+    lz = ctc_lattice_logz(stay, move, target_lengths + 1 - state_len)
+    loss = -(lz / target_lengths)
+    if loss_clip:
+        loss = loss.clamp(0.0, loss_clip)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction in ("none", None):
+        return loss
+    raise ValueError(f"Unknown reduction type {reduction}")
+
+
 def reverse_complement(scores: torch.Tensor, n_base: int, state_len: int):
     """Reverse-complement a score tensor for R-strand decoding: reverses
     time and the k-mer base order within each state, and complements by
@@ -164,7 +322,8 @@ def reverse_complement(scores: torch.Tensor, n_base: int, state_len: int):
 
 @dataclass(frozen=True)
 class CTCCRF:
-    """Alphabet bookkeeping of the CRF (the JAX ``CTCCRF``, decode side)."""
+    """The JAX ``CTCCRF`` bundle: alphabet bookkeeping, logZ, the loss and
+    the batch decode."""
 
     state_len: int
     alphabet: str
@@ -180,6 +339,27 @@ class CTCCRF:
     @property
     def n_score(self) -> int:
         return len(self.alphabet) * self.n_state
+
+    def logZ(self, scores):
+        return logz(scores, self.n_base, self.state_len)
+
+    def normalise(self, scores):
+        return normalise(scores, self.n_base, self.state_len)
+
+    def posteriors(self, scores):
+        return posteriors(scores, self.n_base, self.state_len)
+
+    def ctc_loss(self, scores, targets, target_lengths, **kw):
+        return ctc_loss(scores, targets, target_lengths, self.n_base,
+                        self.state_len, **kw)
+
+    def decode_batch(self, scores) -> list[str]:
+        """Decode [T, N, C] scores to one string per row: through the CUDA
+        kernels K2a/b/c for scores on the card, the plain decode on the
+        CPU."""
+        from xna_basecaller_tpu_torch.ops.crf_cuda import decode_paths_cuda
+        paths = decode_paths_cuda(scores, self.n_base, self.state_len)
+        return [self.path_to_str(p) for p in paths.cpu().numpy()]
 
     def path_to_str(self, path) -> str:
         alpha = np.frombuffer("".join(self.alphabet).encode(), dtype="u1")

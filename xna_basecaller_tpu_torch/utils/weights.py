@@ -1,6 +1,8 @@
-"""Carry JAX weights across: ``params_from_jax`` maps the JAX package's
-parameter tree, or its flat checkpoint (``weights_N.npz``), to this
-package's ``Model.state_dict()``.
+"""Carry weights across packages: ``params_from_jax`` maps the JAX
+package's parameter tree, or its flat checkpoint (``weights_N.npz``), to
+this package's ``Model.state_dict()``, and ``params_to_jax`` maps a
+state_dict back to the flat checkpoint, so that each package loads the
+other's ``weights_N.npz``.
 
 JAX checkpoint keys (``train/checkpoint.py:23-68`` there) are '/'-joined
 tree paths:
@@ -62,3 +64,30 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
             raise KeyError(f"unexpected JAX parameter {key!r}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in state.items()}
+
+
+def jax_key(name: str) -> str:
+    """The JAX checkpoint key of a state_dict entry, e.g. ``conv.0.weight``
+    -> ``conv/0/w``, ``rnn.1.w_hh`` -> ``rnn/1/w_hh``, ``head.b`` ->
+    ``head/b``."""
+    parts = name.split(".")
+    if parts[0] == "conv" and len(parts) == 3 \
+            and parts[2] in ("weight", "bias"):
+        return f"conv/{parts[1]}/{parts[2][0]}"
+    if parts[0] == "rnn" and len(parts) == 3:
+        return "/".join(parts)
+    if parts[0] in ("head", "head_ext") and len(parts) == 2:
+        return "/".join(parts)
+    raise KeyError(f"unexpected parameter {name!r}")
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A state_dict -> the JAX package's flat checkpoint mapping ('/'-joined
+    keys, f32 arrays, convolution weights as [k, in, out])."""
+    flat = {}
+    for name, t in state.items():
+        arr = t.detach().float().cpu().numpy()
+        if name.startswith("conv.") and name.endswith(".weight"):
+            arr = arr.transpose(2, 1, 0)
+        flat[jax_key(name)] = np.ascontiguousarray(arr)
+    return flat
