@@ -19,18 +19,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      against their plain versions on the tensors of one training batch
      (T=720, N=64, H=768; layers 0 and 1, so both directions), in bf16
      and f32;
-  6. one f32 training step of a small model on the card against the same
-     step on the CPU (plain versions): loss, grad_norm, parameters;
-  7. set every launch count to 0, train the flagship model for 8 steps
+  6. hold the loss kernels K4 (forward scan), K5a (backward scan, K2a's
+     kernel), K5b (edge posteriors), K6a and K6b (the stay/move lattice)
+     against their plain versions on the tensors of one training batch
+     (T=720, N=64, 1512 columns, 448 lattice positions), and ``ctc_loss``
+     with its gradient through the kernels against the plain path on the
+     CPU;
+  7. one f32 training step of a small model on the card (every kernel of
+     the step) against the same step on the CPU (plain versions): loss,
+     grad_norm, parameters;
+  8. set every launch count to 0, train the flagship model for 8 steps
      and one validation through the ``train`` CLI on simulated ctc-data,
      read the counts, check the losses, the moved weights and that
      ``weights_1.npz`` loads back;
-  8. time each kernel, its plain version and its library yardstick with
+  9. time each kernel, its plain version and its library yardstick with
      CUDA events, the batch's other stages (conv, input projection, head,
      decode), one batch through model and decode, the pipeline's
      samples/s over the same reads four times, and one training step with
      its breakdown;
-  9. print the ``kernels`` JSON line, then the result line.
+  10. print the ``kernels`` JSON line, then the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 Without a CUDA device (or without the package beside it) it exits non-zero
@@ -158,8 +165,104 @@ def check_trainable_kernels(model, chunks, targets, lengths):
     return errs, keep
 
 
+def scan_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (1 + |want|): |a - b| <= 1e-5 + 1e-5 |b| as one
+    ratio."""
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def check_loss_kernels(model, chunks, targets, lengths):
+    """Phase 6: K4, K5a, K5b, K6a and K6b against their plain versions on
+    the card, on one training batch's tensors (the scores of the model's
+    training forward, T=720, N=64, 1512 columns; the lattice of its
+    targets, 448 positions), then ``ctc_loss`` and its gradient through
+    the kernels against the plain path on the CPU.  Returns the errors and
+    the tensors for the timings."""
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda
+
+    nb, sl = model.cfg.n_base, model.cfg.state_len
+    lengths = lengths.clamp(min=sl + 1)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        scores = model(chunks, inference=False).float().contiguous()
+        T, N, C = scores.shape
+        # cotangents of the size the loss's mean over rows gives them
+        ct, ct_lat = (torch.randn(N, generator=g).to(scores.device) / N
+                      for _ in range(2))
+        alphas, logz = crf_cuda.forward_scan(scores, nb, sl)
+        alphas_p = crf.forward_scores(scores, nb, sl)
+        logz_p = crf.logz_from_alphas(alphas_p)
+        betas = crf_cuda.backward_scan(scores, nb, sl)
+        betas_p = crf.backward_scores(scores, nb, sl)
+        post = crf_cuda.edge_posteriors(scores, alphas_p, betas_p, logz_p, ct)
+        post_p = crf.edge_posteriors(scores, alphas_p, betas_p, logz_p, ct)
+        norm = crf.normalise(scores, nb, sl)
+        stay, move = (t.contiguous() for t in crf.prepare_ctc_scores(
+            norm, targets, nb, sl))
+        lat_len = lengths + 1 - sl
+        lat_a, lat_z = crf_cuda.lattice_forward(stay, move, lat_len)
+        lat_a_p, lat_z_p = crf.lattice_forward(stay, move, lat_len)
+        d_stay, d_move = crf_cuda.lattice_backward(
+            stay, move, lat_len, lat_a_p, lat_z_p, ct_lat)
+        d_stay_p, d_move_p = crf.lattice_backward(
+            stay, move, lat_len, lat_a_p, lat_z_p, ct_lat)
+    torch.cuda.synchronize()
+    errs = {
+        "K4 alphas (max |a-b|/(1+|b|), 1e-5)": scan_rel(alphas, alphas_p),
+        "K4 logZ (max rel, 1e-5)": ((logz - logz_p).abs()
+                                    / logz_p.abs()).max().item(),
+        "K5a betas (max |a-b|/(1+|b|), 1e-5)": scan_rel(betas, betas_p),
+        "K5b posteriors x ct (rel to largest, 1e-4)": rel_err(post, post_p),
+        "K6a alphas (max |a-b|/(1+|b|), 1e-5)": scan_rel(lat_a, lat_a_p),
+        "K6a logZ (max rel, 1e-5)": ((lat_z - lat_z_p).abs()
+                                     / lat_z_p.abs()).max().item(),
+        "K6b d_stay (rel to largest, 1e-4)": rel_err(d_stay, d_stay_p),
+        "K6b d_move (rel to largest, 1e-4)": rel_err(d_move, d_move_p),
+    }
+    # the loss and its gradient: kernels on the card, plain path on the CPU
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = scores.to(dev, copy=True).requires_grad_()
+        loss = model.loss(x, targets.to(dev), lengths.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), x.grad.cpu())
+    errs["ctc_loss (rel, 1e-5)"] = abs(out["cuda"][0] - out["cpu"][0]) \
+        / abs(out["cpu"][0])
+    # A posterior is exp() of alpha + score + beta - logZ, terms as large as
+    # |logZ| (~5e3 here): one ulp of rounding there (4.9e-4 at 4096-8192),
+    # which the card's and the CPU's exp/log can leave, moves it by that
+    # factor.  So the card-vs-CPU gradient is held to two such ulps, and to
+    # the CPU tests' 1e-4 where that is larger (short chunks).
+    ulp = 2.0 ** (math.floor(math.log2(logz_p.abs().max().item())) - 23)
+    grad_tol = max(1e-4, 2 * ulp)
+    errs[f"ctc_loss gradient (rel to largest, {grad_tol:.3e})"] = rel_err(
+        out["cuda"][1], out["cpu"][1])
+    print(f"loss kernels vs plain on one training batch (T={T}, N={N}, "
+          f"C={C}, n={stay.shape[2]}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f}, max "
+          f"|grad| {out['cpu'][1].abs().max().item():.3e}")
+    tols = {k: float(k.rsplit(", ", 1)[1].rstrip(")")) for k in errs}
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        alphas, logz, betas, post, lat_a, lat_z, d_stay, d_move))
+    bad = [k for k, v in errs.items() if not v <= tols[k]]
+    if not finite or bad:
+        fail(f"loss kernels disagree with their plain versions: {bad}")
+    max_abs = {
+        "K4": (alphas - alphas_p).abs().max().item(),
+        "K5a": (betas - betas_p).abs().max().item(),
+        "K5b": (post - post_p).abs().max().item(),
+        "K6a": (lat_a - lat_a_p).abs().max().item(),
+        "K6b": max((d_stay - d_stay_p).abs().max().item(),
+                   (d_move - d_move_p).abs().max().item()),
+    }
+    keep = (scores, alphas_p, betas_p, logz_p, ct, stay, move, lat_len,
+            lat_a_p, lat_z_p, ct_lat)
+    return max_abs, keep
+
+
 def check_step_against_cpu():
-    """Phase 6: one f32 training step of a small model (64 features, 2
+    """Phase 7: one f32 training step of a small model (64 features, 2
     layers, chunks of 1200) on the card and on the CPU from the same
     weights and batch."""
     from xna_basecaller_tpu_torch.core.config import (
@@ -201,7 +304,7 @@ def check_step_against_cpu():
 
 
 def drive_training(workroot: str):
-    """Phase 7: the training path through the ``train`` CLI; returns the
+    """Phase 8: the training path through the ``train`` CLI; returns the
     launch counts of the run, the number of steps and the step times."""
     import csv
     import os
@@ -220,12 +323,17 @@ def drive_training(workroot: str):
     # the 97/3 split of load_datasets leaves exactly VALID_CHUNKS
     save_ctc_data(data, *simulate_ctc_dataset(
         n_train + VALID_CHUNKS, chunk_len=3600, target_len=400, seed=SEED))
+    # K5a is K2a's kernel: one counter for both
     wrappers = {"K1": lstm_cuda.lstm_recurrence,
                 "K2a": crf_cuda.backward_scan,
                 "K2b": crf_cuda.forward_viterbi,
                 "K2c": crf_cuda.viterbi_traceback,
                 "K3a": lstm_cuda.lstm_forward_with_cells,
-                "K3b": lstm_cuda.lstm_backward_dxp}
+                "K3b": lstm_cuda.lstm_backward_dxp,
+                "K4": crf_cuda.forward_scan,
+                "K5b": crf_cuda.edge_posteriors,
+                "K6a": crf_cuda.lattice_forward,
+                "K6b": crf_cuda.lattice_backward}
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -252,8 +360,12 @@ def drive_training(workroot: str):
     if not math.isfinite(float(val[-1]["validation_loss"])):
         fail("the validation loss is not finite")
     n_layers = ModelConfig().encoder.num_rnn_layers
+    n_valid = math.ceil(VALID_CHUNKS / TRAIN_BATCH)
+    # validation runs the loss without gradients: K4 and K6a only
     need = {"K3a": n_layers * steps, "K3b": n_layers * steps,
-            "K1": n_layers, "K2a": 1, "K2b": 1, "K2c": 1}
+            "K1": n_layers * n_valid, "K2a": steps + n_valid,
+            "K2b": n_valid, "K2c": n_valid, "K4": steps + n_valid,
+            "K5b": steps, "K6a": steps + n_valid, "K6b": steps}
     for k, n in need.items():
         if launches[k] < n:
             fail(f"{k} launched {launches[k]} times on the training path, "
@@ -271,12 +383,13 @@ def drive_training(workroot: str):
     return launches, steps, np.diff(times)
 
 
-def time_training(model, batch, keep, card):
-    """Phase 8 (training side): K3a and K3b with their plain versions and
+def time_training(model, batch, keep, loss_keep, card):
+    """Phase 9 (training side): K3a and K3b with their plain versions and
     torch.nn.LSTM's training forward and backward as yardsticks, the
-    port's layer forward and backward, and one training step with its
-    breakdown."""
-    from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+    port's layer forward and backward, the loss kernels K4-K6b with their
+    plain versions (no PyTorch call computes these functions), and one
+    training step with its breakdown."""
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda, lstm, lstm_cuda
     from xna_basecaller_tpu_torch.train.loop import (
         make_optimizer, train_step,
     )
@@ -294,6 +407,29 @@ def time_training(model, batch, keep, card):
                 dys, xp, w, ys, cs, rev), 5),
             elapsed_ms(lambda: lstm.lstm_backward_dxp(
                 dys, xp, w, ys, cs, rev), 1))
+        (sc, alphas, betas, logz, ct, stay, move, lat_len, lat_a,
+         lat_z, ct_lat) = loss_keep
+        nb, sl = model.cfg.n_base, model.cfg.state_len
+        t["K4"] = (
+            elapsed_ms(lambda: crf_cuda.forward_scan(sc, nb, sl), 5),
+            elapsed_ms(lambda: crf.forward_scores(sc, nb, sl), 1))
+        t["K5a"] = (
+            elapsed_ms(lambda: crf_cuda.backward_scan(sc, nb, sl), 5),
+            elapsed_ms(lambda: crf.backward_scores(sc, nb, sl), 1))
+        t["K5b"] = (
+            elapsed_ms(lambda: crf_cuda.edge_posteriors(
+                sc, alphas, betas, logz, ct), 5),
+            elapsed_ms(lambda: crf.edge_posteriors(
+                sc, alphas, betas, logz, ct), 3))
+        t["K6a"] = (
+            elapsed_ms(lambda: crf_cuda.lattice_forward(stay, move, lat_len),
+                       5),
+            elapsed_ms(lambda: crf.lattice_forward(stay, move, lat_len), 1))
+        t["K6b"] = (
+            elapsed_ms(lambda: crf_cuda.lattice_backward(
+                stay, move, lat_len, lat_a, lat_z, ct_lat), 5),
+            elapsed_ms(lambda: crf.lattice_backward(
+                stay, move, lat_len, lat_a, lat_z, ct_lat), 1))
     T, N, H = ys.shape
     chunks, targets, lengths = batch
     x = torch.randn(T, N, H, device="cuda", dtype=torch.bfloat16,
@@ -329,10 +465,10 @@ def time_training(model, batch, keep, card):
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(5):
         step()
     torch.cuda.synchronize()
-    t_step = (time.perf_counter() - t0) / 3 * 1e3
+    t_step = (time.perf_counter() - t0) / 5 * 1e3
     fwd = lambda: model(chunks, inference=False)  # noqa: E731
     scores = fwd().detach().requires_grad_()
     masked_loss(scores).backward()
@@ -346,16 +482,18 @@ def time_training(model, batch, keep, card):
     t_opt = elapsed_ms(opt.step, 5)
     n_samples = chunks.shape[0] * chunks.shape[1]
     parts = {"model forward (conv, 5 x (projection + K3a), head)": t_fwd,
-             "loss forward + backward (plain torch)": t_loss,
+             "loss forward + backward (K4, K6a; K6b, K5a, K5b; torch "
+             "glue)": t_loss,
              "model backward (head, 5 x (K3b + dW + projection backward), "
              "conv)": t_fwd_bwd - t_fwd,
              "optimizer (clip + AdamW)": t_opt}
+    kernels = ("K3a", "K3b", "K4", "K5a", "K5b", "K6a", "K6b")
     for k, v in {**{f"{k} (ms, plain ms)": v for k, v in t.items()
-                    if k in ("K3a", "K3b")},
+                    if k in kernels},
                  **{k: v for k, v in t.items()
-                    if k not in ("K3a", "K3b")}}.items():
+                    if k not in kernels}}.items():
         print(f"time {k}: {v} ms on {card}")
-    print(f"train step: {t_step:.3f} ms (host clock, 3 steps) on {card}; "
+    print(f"train step: {t_step:.3f} ms (host clock, 5 steps) on {card}; "
           "parts by CUDA events: " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in parts.items())
           + f", sum {sum(parts.values()):.3f} ms")
@@ -521,12 +659,13 @@ def main() -> int:
         fail("the main path did not return one non-empty sequence per read")
     print(f"pipeline: {stats['samples_per_s']:.4e} samples/s on {card}")
 
-    # -- 5.-7. the training path -----------------------------------------
+    # -- 5.-8. the training path -----------------------------------------
     sim = simulate_ctc_dataset(TRAIN_BATCH, chunk_len=chunksize,
                                target_len=400, seed=SEED + 1)
     tbatch = tuple(torch.from_numpy(a.astype(dt)).to(dev) for a, dt in zip(
         sim[:3], (np.float32, np.int64, np.int64)))
     k3_errs, k3_inputs = check_trainable_kernels(model, *tbatch)
+    loss_errs, loss_inputs = check_loss_kernels(model, *tbatch)
     check_step_against_cpu()
     workroot = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "runs", "chip_smoke")
@@ -538,7 +677,7 @@ def main() -> int:
     print(f"training path step times (host clock, losses_1.csv): "
           f"{[round(float(v) * 1e3, 1) for v in step_s]} ms")
 
-    # -- 5. timing at the main path's shapes ------------------------------
+    # -- 9. timing at the main paths' shapes -----------------------------
     T, N = scores.shape[:2]
     H = enc.features
     ns = cfg.n_state
@@ -597,9 +736,11 @@ def main() -> int:
                             batchsize=batchsize)
     for k, v in timings.items():
         print(f"time {k}: {v} ms on {card}")
-    t_train = time_training(model, tbatch, k3_inputs, card)
+    t_train = time_training(model, tbatch, k3_inputs, loss_inputs, card)
     timings["K3a"] = (*t_train["K3a"], t_train["nn.LSTM training forward"])
     timings["K3b"] = (*t_train["K3b"], t_train["nn.LSTM backward"])
+    for k in ("K4", "K5a", "K5b", "K6a", "K6b"):
+        timings[k] = (*t_train[k], None)
     print(f"device-only: {batchsize * chunksize / t_batch * 1e3:.4e} "
           f"samples/s ({t_batch:.3f} ms per batch of {batchsize} x "
           f"{chunksize}) on {card}")
@@ -627,6 +768,23 @@ def main() -> int:
                   T * N * ns * (7 * 7 + 7 + 4 * 7 + 2), PEAK_F32)
     # one backpointer byte per frame along each path, v_final, the labels
     b_k2c = bound(T * N + 4 * N * ns + T * N, N * (ns + 3 * T), PEAK_F32)
+    # the loss kernels at the training shapes
+    n_lat = loss_inputs[5].shape[2]
+    # K4: alpha lse over 7 (add, max, sub, exp, sum each + log, add)
+    b_k4 = bound(4 * (Tt * Nt * C + (Tt + 1) * Nt * ns + Nt),
+                 Tt * Nt * ns * (5 * (nb + 1) + 2), PEAK_F32)
+    b_k5a = bound(4 * (Tt * Nt * C + (Tt + 1) * Nt * ns),
+                  Tt * Nt * ns * (5 * nb + 13), PEAK_F32)
+    # K5b: scores, alphas_t, betas_{t+1}, logZ, ct in, posteriors out;
+    # three adds, exp and the multiply per edge
+    b_k5b = bound(4 * (2 * Tt * Nt * C + 2 * Tt * Nt * ns + 2 * Nt),
+                  5 * Tt * Nt * C, PEAK_F32)
+    lat = Tt * Nt * n_lat
+    # K6a: stay, move, lengths in, alphas, logZ out; a two-way lse (10 ops)
+    b_k6a = bound(4 * (3 * lat - Tt * Nt + 2 * Nt), 10 * lat, PEAK_F32)
+    # K6b: stay, move, alphas, lengths, logZ, ct in, d_stay, d_move out;
+    # two posteriors (5 ops each) and a logaddexp (9)
+    b_k6b = bound(4 * (5 * lat - 2 * Tt * Nt + 3 * Nt), 19 * lat, PEAK_F32)
     meta = {
         "K1": ("lstm_recurrence", "lstm_recurrence.cu",
                "xna_basecaller_tpu/ops/lstm_pallas.py:92", b_k1,
@@ -646,8 +804,25 @@ def main() -> int:
         "K3b": ("lstm_backward", "lstm_backward.cu",
                 "xna_basecaller_tpu/ops/lstm_pallas.py:409", b_k3b,
                 k3_errs["K3b"]),
+        "K4": ("crf_forward", "crf_loss.cu",
+               "xna_basecaller_tpu/ops/crf_pallas.py:77", b_k4,
+               loss_errs["K4"]),
+        "K5a": ("crf_backward_kernel (K2a's kernel)", "crf_decode.cu",
+                "xna_basecaller_tpu/ops/crf_pallas.py:89", b_k5a,
+                loss_errs["K5a"]),
+        "K5b": ("crf_posterior", "crf_loss.cu",
+                "xna_basecaller_tpu/ops/crf_pallas.py:415", b_k5b,
+                loss_errs["K5b"]),
+        "K6a": ("lattice_forward", "crf_loss.cu",
+                "xna_basecaller_tpu/ops/crf_pallas.py:466", b_k6a,
+                loss_errs["K6a"]),
+        "K6b": ("lattice_backward", "crf_loss.cu",
+                "xna_basecaller_tpu/ops/crf_pallas.py:487", b_k6b,
+                loss_errs["K6b"]),
     }
-    launches.update({k: train_launches[k] for k in ("K3a", "K3b")})
+    launches.update({k: train_launches[k] for k in (
+        "K3a", "K3b", "K4", "K5b", "K6a", "K6b")})
+    launches["K5a"] = train_launches["K2a"]
     kernels = []
     for k, (name, src, replaces, (b_ms, b_by), err) in meta.items():
         ms, plain_ms, lib_ms = timings[k]

@@ -13,7 +13,13 @@ carries dh and dc over every step, so a rounding flipped early in bf16
 moves later steps by a few bf16 ulps of the largest gradient); betas and
 logZ rtol 1e-5;
 backpointers, labels and v_final of the same inputs exact, except for
-the f32 near-ties that the decode tests of chip_smoke.py count.
+the f32 near-ties that the decode tests of chip_smoke.py count.  The loss
+kernels: alphas, betas and logZ (K4, K6a) rtol 1e-5; the edge posteriors
+(K5b, from the same alphas and betas) rtol 1e-4 with atol 1e-7; the
+lattice gradients (K6b) and the gradient of ``ctc_loss`` (kernels on the
+card against the plain path on the CPU) within 1e-4 of their largest
+element, because each is exp() of a difference of log-sums that
+magnifies the last bits of the scans.
 """
 
 import numpy as np
@@ -142,3 +148,119 @@ def test_trainable_recurrence_autograd_on_card(cuda):
             grads.append((a.grad, b.grad))
         for got, want in zip(*grads):
             assert _max_rel(got, want) <= 1e-3
+
+
+_LOSS_WRAPPERS = ("forward_scan", "backward_scan", "edge_posteriors",
+                  "lattice_forward", "lattice_backward")
+
+
+def _loss_launches():
+    return {k: getattr(crf_cuda, k).launches for k in _LOSS_WRAPPERS}
+
+
+@pytest.mark.parametrize("n_base,state_len", [(6, 3), (4, 2)])
+def test_loss_crf_kernels_match_plain(cuda, n_base, state_len):
+    """K4 (alphas, logZ) and K5b (edge posteriors, with and without the
+    cotangent) against their plain versions on the card."""
+    T, N = 60, 5
+    s = _scores(n_base, state_len, T, N, seed=2, device=cuda)
+    before = _loss_launches()
+    alphas, logz = crf_cuda.forward_scan(s, n_base, state_len)
+    torch.cuda.synchronize()
+    want = crf.forward_scores(s, n_base, state_len)
+    want_z = crf.logz_from_alphas(want)
+    torch.testing.assert_close(alphas, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logz, want_z, rtol=1e-5, atol=0)
+    betas = crf.backward_scores(s, n_base, state_len)
+    ct = torch.randn(N, generator=torch.Generator().manual_seed(3)).to(cuda)
+    for c in (None, ct):
+        post = crf_cuda.edge_posteriors(s, want, betas, want_z, c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            post, crf.edge_posteriors(s, want, betas, want_z, c),
+            rtol=1e-4, atol=1e-7)
+    after = _loss_launches()
+    assert after["forward_scan"] == before["forward_scan"] + 1
+    assert after["edge_posteriors"] == before["edge_posteriors"] + 2
+
+
+# 448: the flagship lattice; 1100: wider than one block's 512 threads;
+# 7: narrower than a warp
+@pytest.mark.parametrize("n", [448, 1100, 7])
+def test_lattice_kernels_match_plain(cuda, n):
+    """K6a (alphas, logZ) and K6b (d_stay, d_move) against their plain
+    versions, on rows whose lengths differ (one row of length 1)."""
+    T, N = n + 40, 4
+    g = torch.Generator().manual_seed(n)
+    stay = torch.randn(T, N, n, generator=g).to(cuda)
+    move = torch.randn(T, N, n - 1, generator=g).to(cuda)
+    lengths = torch.tensor([n, n - 3, max(n // 2, 1), 1], device=cuda)
+    ct = torch.randn(N, generator=g).to(cuda)
+    before = _loss_launches()
+    alphas, logz = crf_cuda.lattice_forward(stay, move, lengths)
+    torch.cuda.synchronize()
+    want_a, want_z = crf.lattice_forward(stay, move, lengths)
+    torch.testing.assert_close(alphas, want_a, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logz, want_z, rtol=1e-5, atol=0)
+    d_stay, d_move = crf_cuda.lattice_backward(stay, move, lengths, want_a,
+                                               want_z, ct)
+    torch.cuda.synchronize()
+    want_ds, want_dm = crf.lattice_backward(stay, move, lengths, want_a,
+                                            want_z, ct)
+    assert _max_rel(d_stay, want_ds) <= 1e-4
+    assert _max_rel(d_move, want_dm) <= 1e-4
+    after = _loss_launches()
+    assert after["lattice_forward"] == before["lattice_forward"] + 1
+    assert after["lattice_backward"] == before["lattice_backward"] + 1
+
+
+def test_lattice_kernels_refuse_wider_than_their_limit(cuda):
+    T, N, n = 4, 2, 6145
+    stay = torch.zeros(T, N, n, device=cuda)
+    move = torch.zeros(T, N, n - 1, device=cuda)
+    lengths = torch.full((N,), n, device=cuda)
+    with pytest.raises(RuntimeError, match="6144"):
+        crf_cuda.lattice_forward(stay, move, lengths)
+    with pytest.raises(RuntimeError, match="6144"):
+        crf_cuda.lattice_backward(stay, move, lengths, stay,
+                                  torch.zeros(N, device=cuda),
+                                  torch.ones(N, device=cuda))
+
+
+@pytest.mark.parametrize("alphabet,state_len", [("NACGTXY", 3), ("NACGT", 2)])
+def test_ctc_loss_through_kernels_matches_plain_path(cuda, alphabet,
+                                                     state_len):
+    """crf.ctc_loss and its gradient with respect to the scores: through
+    the five loss kernels on the card, the plain path on the CPU.  Without
+    gradients only K4 and K6a run."""
+    n_base, T, N, L = len(alphabet) - 1, 120, 4, 40
+    rng = np.random.default_rng(state_len)
+    C = (n_base + 1) * n_base ** state_len
+    s = (np.tanh(rng.standard_normal((T, N, C))) * 5).astype(np.float32)
+    lengths = np.array([L, L - 7, L - 1, state_len + 3], np.int64)
+    targets = np.zeros((N, L), np.int64)
+    for i, k in enumerate(lengths):
+        targets[i, :k] = rng.integers(1, n_base + 1, size=k)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.from_numpy(s).to(dev).requires_grad_()
+        before = _loss_launches()
+        loss = crf.ctc_loss(x, torch.from_numpy(targets).to(dev),
+                            torch.from_numpy(lengths).to(dev), n_base,
+                            state_len)
+        loss.backward()
+        moved = {k: v - before[k] for k, v in _loss_launches().items()}
+        out[dev] = (loss.item(), x.grad.cpu(), moved)
+    assert out["cuda"][2] == dict.fromkeys(_LOSS_WRAPPERS, 1)
+    assert out["cpu"][2] == dict.fromkeys(_LOSS_WRAPPERS, 0)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    assert _max_rel(out["cuda"][1], out["cpu"][1]) <= 1e-4
+    before = _loss_launches()
+    with torch.no_grad():
+        crf.ctc_loss(torch.from_numpy(s).to(cuda),
+                     torch.from_numpy(targets).to(cuda),
+                     torch.from_numpy(lengths).to(cuda), n_base, state_len)
+    moved = {k: v - before[k] for k, v in _loss_launches().items()}
+    assert moved == {"forward_scan": 1, "backward_scan": 0,
+                     "edge_posteriors": 0, "lattice_forward": 1,
+                     "lattice_backward": 0}

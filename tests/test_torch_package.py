@@ -62,8 +62,8 @@ def test_no_jax_import_lines():
 def test_nothing_built_at_import():
     # importing every module builds no kernel (nvcc runs at first use)
     assert _build.build_log() == ""
-    assert set(_build.sources()) == {"crf_decode", "lstm_backward",
-                                     "lstm_recurrence"}
+    assert set(_build.sources()) == {"crf_decode", "crf_loss",
+                                     "lstm_backward", "lstm_recurrence"}
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
@@ -98,6 +98,17 @@ def test_wrappers_refuse_tensors_they_cannot_take():
     ys = torch.empty(4, 2, 16, device="meta")
     with pytest.raises(ValueError):
         lstm_cuda.lstm_backward_dxp(ys, meta, w, ys, ys)
+    scores = torch.empty(3, 2, 80, device="meta")
+    with pytest.raises(ValueError):
+        crf_cuda.forward_scan(scores, 4, 2)
+    alphas, n2 = torch.empty(4, 2, 16, device="meta"), torch.empty(2)
+    with pytest.raises(ValueError):
+        crf_cuda.edge_posteriors(scores, alphas, alphas, n2)
+    stay, move = meta[..., :5], meta[..., :4]
+    with pytest.raises(ValueError):
+        crf_cuda.lattice_forward(stay, move, n2)
+    with pytest.raises(ValueError):
+        crf_cuda.lattice_backward(stay, move, n2, stay, n2, n2)
 
 
 @pytest.mark.parametrize("flag", sorted(NOT_PORTED))

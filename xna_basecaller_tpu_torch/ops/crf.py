@@ -6,10 +6,13 @@ backward scans, the Viterbi decode over the log edge posteriors,
 ``torch.autograd.Function`` whose backward is the explicit edge
 posteriors, as ``logz_fwd``'s custom VJP), ``posteriors``, ``normalise``,
 ``prepare_ctc_scores``, the stay/move lattice logZ with its explicit
-backward, and ``ctc_loss``.  The loss is the counterpart of the JAX
-package's XLA branch (``XNACALL_PALLAS_LOSS=0``): its scans run as
-per-step torch operations on every device here.  The Max semiring,
-q-scores and the beam decoder are not ported yet.
+backward, and ``ctc_loss``.  The two autograd Functions run the CUDA
+kernels of ``ops/crf_cuda.py`` for tensors on the card, as the JAX
+package's default (Pallas) loss does, and their plain versions here for
+tensors on the CPU: ``forward_scores`` (K4), ``backward_scores`` (K5a),
+``edge_posteriors`` (K5b), ``lattice_forward`` (K6a) and
+``lattice_backward`` (K6b).  The Max semiring, q-scores and the beam
+decoder are not ported yet.
 
 Scores are [T, N, C] with C = n_state * (n_base + 1); reshaped to
 [T, N, n_state, n_base + 1], column 0 is the stay transition and column
@@ -69,7 +72,8 @@ def _split(scores: torch.Tensor, n_base: int, state_len: int):
 
 
 def forward_scores(scores: torch.Tensor, n_base: int, state_len: int):
-    """All forward partials alpha_t: [T, N, C] -> [T+1, N, n_state]."""
+    """All forward partials alpha_t: [T, N, C] -> [T+1, N, n_state], with
+    alpha_0 = 0.  Plain version of K4."""
     Ms, ns = _split(scores, n_base, state_len)
     alpha = scores.new_zeros(scores.shape[1], ns)
     out = [alpha]
@@ -83,7 +87,7 @@ def forward_scores(scores: torch.Tensor, n_base: int, state_len: int):
 
 def backward_scores(scores: torch.Tensor, n_base: int, state_len: int):
     """All backward partials beta_t: [T, N, C] -> [T+1, N, n_state], with
-    beta_T = 0.  Plain version of K2a."""
+    beta_T = 0.  Plain version of K2a, which is K5a too."""
     Ms, ns = _split(scores, n_base, state_len)
     T = scores.shape[0]
     betas = scores.new_empty(T + 1, scores.shape[1], ns)
@@ -153,43 +157,66 @@ def decode_paths(scores: torch.Tensor, n_base: int, state_len: int):
     return viterbi_traceback(bp, v_final, n_base, state_len)
 
 
-def posteriors(scores: torch.Tensor, n_base: int, state_len: int,
-               alphas: torch.Tensor | None = None) -> torch.Tensor:
-    """Posterior transition probabilities [T, N, C], d logZ / d scores, as
-    the explicit edge marginals exp(alpha_t[pred(j, k)] + Ms[t, j, k] +
-    beta_{t+1}[j] - logZ) (``crf.py:133-149``).  ``alphas`` are the
-    forward partials when the caller has them."""
+def logz_from_alphas(alphas: torch.Tensor) -> torch.Tensor:
+    """logZ [N] = logsumexp(alpha_T), the end of the forward scan."""
+    return _lse(alphas[-1], -1)
+
+
+def edge_posteriors(scores: torch.Tensor, alphas: torch.Tensor,
+                    betas: torch.Tensor, logz: torch.Tensor,
+                    ct: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K5b: the edge marginals exp(alpha_t[pred(j, k)] +
+    Ms[t, j, k] + beta_{t+1}[j] - logZ) [T, N, C] (``crf.py:133-149``),
+    times the cotangent ``ct`` [N] when given.  ``alphas`` and ``betas``
+    are the [T+1, N, n_state] partials, ``logz`` [N]."""
     T, N, C = scores.shape
-    Ms, ns = _split(scores, n_base, state_len)
-    if alphas is None:
-        alphas = forward_scores(scores, n_base, state_len)
-    betas = backward_scores(scores, n_base, state_len)
-    logz = _lse(alphas[-1], -1)
+    ns = alphas.shape[-1]
+    n_base = C // ns - 1
+    Ms = scores.reshape(T, N, ns, n_base + 1)
     a = alphas[:-1]
     pred = _expand_pred(a.reshape(T * N, ns), n_base, ns).reshape(
         T, N, ns, n_base)
     edge = torch.cat([a[..., None], pred], -1) + Ms \
         + betas[1:][..., None] - logz[None, :, None, None]
-    return torch.exp(edge).reshape(T, N, C)
+    post = torch.exp(edge)
+    if ct is not None:
+        post = post * ct[None, :, None, None]
+    return post.reshape(T, N, C)
+
+
+def posteriors(scores: torch.Tensor, n_base: int, state_len: int,
+               alphas: torch.Tensor | None = None) -> torch.Tensor:
+    """Posterior transition probabilities [T, N, C], d logZ / d scores.
+    ``alphas`` are the forward partials when the caller has them."""
+    if alphas is None:
+        alphas = forward_scores(scores, n_base, state_len)
+    betas = backward_scores(scores, n_base, state_len)
+    return edge_posteriors(scores, alphas, betas, logz_from_alphas(alphas))
 
 
 class _LogZ(torch.autograd.Function):
-    """logZ [N] of the CRF by the forward scan; the backward is the edge
-    posteriors times the cotangent (``logz_fwd``'s custom VJP, whose
-    backward recomputes the alphas that this one keeps)."""
+    """logZ [N] of the CRF by the forward scan (K4); the backward is the
+    edge posteriors times the cotangent (K5a's backward scan, then K5b), as
+    ``logz_fwd``'s custom VJP, whose backward recomputes the alphas that
+    this one keeps.  The kernels run for CUDA tensors, the plain versions
+    for CPU ones."""
 
     @staticmethod
     def forward(ctx, scores, n_base: int, state_len: int):
-        alphas = forward_scores(scores, n_base, state_len)
-        ctx.save_for_backward(scores, alphas)
+        from xna_basecaller_tpu_torch.ops import crf_cuda
+        scores = scores.contiguous()
+        alphas, lz = crf_cuda.forward_scan(scores, n_base, state_len)
+        ctx.save_for_backward(scores, alphas, lz)
         ctx.shape = (n_base, state_len)
-        return _lse(alphas[-1], -1)
+        return lz
 
     @staticmethod
     def backward(ctx, ct):
-        scores, alphas = ctx.saved_tensors
-        post = posteriors(scores, *ctx.shape, alphas=alphas)
-        return post * ct[None, :, None], None, None
+        from xna_basecaller_tpu_torch.ops import crf_cuda
+        scores, alphas, lz = ctx.saved_tensors
+        betas = crf_cuda.backward_scan(scores, *ctx.shape)
+        return crf_cuda.edge_posteriors(scores, alphas, betas, lz, ct), \
+            None, None
 
 
 def logz(scores: torch.Tensor, n_base: int, state_len: int) -> torch.Tensor:
@@ -231,45 +258,66 @@ def _ctc_step(alpha, stay_t, move_t):
     return torch.cat([stayed[:, :1], upper], 1)
 
 
+def lattice_forward(stay: torch.Tensor, move: torch.Tensor,
+                    lengths: torch.Tensor):
+    """Plain version of K6a: the stay/move lattice's forward scan.  Returns
+    (alphas [T, N, n], alpha_t before step t; logZ [N] read at position
+    clamp(length-1, 0, n-1) of alpha_T)."""
+    T, N, n = stay.shape
+    alpha = stay.new_full((N, n), _NEG_INF)
+    alpha[:, 0] = 0.0
+    alphas = torch.empty_like(stay)
+    for t in range(T):
+        alphas[t] = alpha
+        alpha = _ctc_step(alpha, stay[t], move[t])
+    idx = (lengths.long() - 1).clamp(0, n - 1)[:, None]
+    return alphas, alpha.gather(1, idx)[:, 0]
+
+
+def lattice_backward(stay: torch.Tensor, move: torch.Tensor,
+                     lengths: torch.Tensor, alphas: torch.Tensor,
+                     logz: torch.Tensor, ct: torch.Tensor):
+    """Plain version of K6b: the lattice's backward scan (beta_T = 0 at
+    position length-1) and the edge posteriors of stay and move times the
+    cotangent ``ct`` [N] (``crf.py::_ctc_lattice_bwd``).  Returns (d_stay
+    [T, N, n], d_move [T, N, n-1])."""
+    T, N, n = stay.shape
+    pos = torch.arange(n, device=stay.device)[None, :]
+    beta = torch.full((N, n), _NEG_INF, dtype=stay.dtype,
+                      device=stay.device)
+    beta = beta.masked_fill(pos == (lengths.long() - 1)[:, None], 0.0)
+    betas = torch.empty_like(stay)       # beta_{t+1}
+    for t in range(T - 1, -1, -1):
+        betas[t] = beta
+        stay_term = stay[t] + beta
+        move_term = move[t] + beta[:, 1:]
+        beta = torch.cat([torch.logaddexp(stay_term[:, :-1], move_term),
+                          stay_term[:, -1:]], 1)
+    norm = ct[None, :, None]
+    d_stay = torch.exp(alphas + stay + betas - logz[None, :, None]) * norm
+    d_move = torch.exp(alphas[:, :, :-1] + move + betas[:, :, 1:]
+                       - logz[None, :, None]) * norm
+    return d_stay, d_move
+
+
 class _CTCLatticeLogZ(torch.autograd.Function):
-    """logZ [N] of the stay/move lattice, read at position length-1, with
-    the explicit backward of ``crf.py::_ctc_lattice_bwd``: the edge
-    posteriors of stay and move times the cotangent.  The forward keeps the
-    alphas that the JAX backward recomputes."""
+    """logZ [N] of the stay/move lattice, read at position length-1 (K6a),
+    with the explicit backward of ``crf.py::_ctc_lattice_bwd`` (K6b): the
+    edge posteriors of stay and move times the cotangent.  The forward
+    keeps the alphas that the JAX backward recomputes."""
 
     @staticmethod
     def forward(ctx, stay, move, lengths):
-        T, N, n = stay.shape
-        alpha = stay.new_full((N, n), _NEG_INF)
-        alpha[:, 0] = 0.0
-        alphas = torch.empty_like(stay)      # alpha_t before step t
-        for t in range(T):
-            alphas[t] = alpha
-            alpha = _ctc_step(alpha, stay[t], move[t])
-        idx = (lengths.long() - 1).clamp(0, n - 1)[:, None]
-        out = alpha.gather(1, idx)[:, 0]
-        ctx.save_for_backward(stay, move, lengths, alphas, out)
-        return out
+        from xna_basecaller_tpu_torch.ops import crf_cuda
+        stay, move = stay.contiguous(), move.contiguous()
+        alphas, lz = crf_cuda.lattice_forward(stay, move, lengths)
+        ctx.save_for_backward(stay, move, lengths, alphas, lz)
+        return lz
 
     @staticmethod
     def backward(ctx, ct):
-        stay, move, lengths, alphas, lz = ctx.saved_tensors
-        T, N, n = stay.shape
-        pos = torch.arange(n, device=stay.device)[None, :]
-        beta = torch.full((N, n), _NEG_INF, dtype=stay.dtype,
-                          device=stay.device)
-        beta = beta.masked_fill(pos == (lengths.long() - 1)[:, None], 0.0)
-        betas = torch.empty_like(stay)       # beta_{t+1}
-        for t in range(T - 1, -1, -1):
-            betas[t] = beta
-            stay_term = stay[t] + beta
-            move_term = move[t] + beta[:, 1:]
-            beta = torch.cat([torch.logaddexp(stay_term[:, :-1], move_term),
-                              stay_term[:, -1:]], 1)
-        norm = ct[None, :, None]
-        d_stay = torch.exp(alphas + stay + betas - lz[None, :, None]) * norm
-        d_move = torch.exp(alphas[:, :, :-1] + move + betas[:, :, 1:]
-                           - lz[None, :, None]) * norm
+        from xna_basecaller_tpu_torch.ops import crf_cuda
+        d_stay, d_move = crf_cuda.lattice_backward(*ctx.saved_tensors, ct)
         return d_stay, d_move, None
 
 
