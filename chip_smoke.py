@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``xna_basecaller_tpu_torch``) on one NVIDIA
 GPU, at the full width of the flagship model (conv 768, 5 x LSTM(768),
-1512-column CRF, chunks of 3600; random weights from a seed): its two
-paths, basecalling (batch 256) and training (batch 64).
+1512-column CRF, chunks of 3600; random weights from a seed): its three
+paths, basecalling (batch 256), the int8 ``--quantize`` basecall (batch
+256) and training (batch 64).
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. print the card's name and power limit, build every kernel in
@@ -10,11 +11,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      build log with the ptxas register and spill lines;
   2. hold each kernel against its plain PyTorch version on the card, on the
      tensors the main path gives it for one batch of simulated reads:
-     K1 (LSTM recurrence) in bf16 and f32, K2a/K2b/K2c (CRF decode);
+     K1 (LSTM recurrence) in bf16 and f32, K7 (the int8 recurrence, layer
+     0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode);
   3. check the model's scores and labels against the plain CPU path on a
-     small input;
+     small input, in f32 and quantized; the quantized model's scores
+     against the bf16 model's on one batch; ``int8_matmul`` (cuBLASLt)
+     against the CPU;
   4. set every launch count to 0, basecall simulated reads through
      ``infer.basecall.run_basecaller``, read the counts, check every read;
+     then the same with ``quantize=True`` (K7 five times a batch, K1 not
+     at all);
   5. hold K3a (trainable LSTM forward) and K3b (its backward recursion)
      against their plain versions on the tensors of one training batch
      (T=720, N=64, H=768; layers 0 and 1, so both directions), in bf16
@@ -33,10 +39,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      read the counts, check the losses, the moved weights and that
      ``weights_1.npz`` loads back;
   9. time each kernel, its plain version and its library yardstick with
-     CUDA events, the batch's other stages (conv, input projection, head,
-     decode), one batch through model and decode, the pipeline's
-     samples/s over the same reads four times, and one training step with
-     its breakdown;
+     CUDA events (the cuDNN yardsticks of K3a and K3b as medians of 21
+     calls), the batch's other stages (conv, input projection, head,
+     decode; for the quantized batch the int8 projection, the int8 head
+     and K1 on K7's input), one batch through model and decode, the
+     pipeline's samples/s over the same reads four times, both unquantized
+     and quantized, and one training step with its breakdown;
   10. print the ``kernels`` JSON line, then the result line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -51,6 +59,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -60,9 +69,10 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
-# FLOP/s, f32 FLOP/s outside the tensor cores
+# FLOP/s, dense int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 
 N_READS, MEAN_LEN, SEED = 16, 120_000, 0
@@ -86,6 +96,29 @@ def elapsed_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` calls after one warm-up,
+    each call timed alone by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def p99(t: torch.Tensor) -> float:
+    """The 99th percentile of the elements of ``t`` (an order statistic)."""
+    flat = t.flatten().float()
+    return flat.kthvalue(math.ceil(0.99 * flat.numel())).values.item()
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -163,6 +196,108 @@ def check_trainable_kernels(model, chunks, targets, lengths):
                     keep = (xp, w, dys, ys_p, cs_p, rev)
         del taps, scores
     return errs, keep
+
+
+def check_int8_kernel(model, x):
+    """Phase 2 (K7): the int8 recurrence against its plain version on the
+    card, on the quantized path's tensors of layer 0 (reverse) for one
+    batch: xp is the int8 input projection of the conv output x, W_hh
+    quantized per column, in bf16 and in f32.  Returns the bf16 error and
+    the bf16 inputs for the timings."""
+    from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+
+    layer, rev = model.rnn[0], model.directions[0]
+    err_bf16, keep = None, None
+    # max abs as K1's; in bf16 at most 1e-3 of ys differing at all: the
+    # parity rule (bf16 h at even steps), without which ~30 % differ
+    for name, dtype, tol in (("bf16", torch.bfloat16, 5e-2),
+                             ("f32", torch.float32, 1e-4)):
+        p = layer.params(dtype)
+        xp = (lstm.int8_matmul(x.to(dtype), *lstm.quantize_w_hh(p["w_ih"]))
+              + p["bias"]).to(dtype)
+        w_q, scale = lstm.quantize_w_hh(p["w_hh"])
+        got = lstm_cuda.lstm_recurrence_int8(xp, w_q, scale, rev)
+        want = lstm.lstm_recurrence_int8(xp, w_q, scale, rev)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        share = (got != want).float().mean().item()
+        hq = (torch.round(got.float() * 127) != torch.round(
+            want.float() * 127)).float().mean().item()
+        print(f"K7 {name} {tuple(xp.shape)} reverse={rev}: max_abs "
+              f"{err:.3e} (tolerance {tol}), share of ys differing "
+              f"{share:.3e}" + (" (tolerance 1e-3)" if name == "bf16" else "")
+              + f", share of h_q = round(127 ys) differing {hq:.3e}")
+        if not bool(torch.isfinite(got.float()).all()) or err > tol \
+                or (name == "bf16" and share > 1e-3):
+            fail(f"K7 {name} disagrees with its plain version")
+        if name == "bf16":
+            err_bf16, keep = err, (xp, w_q, scale, p["w_hh"], rev)
+    return err_bf16, keep
+
+
+def check_quantized_model(model, cpu_model, codes, scores):
+    """Phase 3 (quantized): ``int8_matmul`` on the card against the CPU on
+    the same input; the f32 quantized model on the card against the plain
+    CPU path on 2 chunks; the quantized model's scores (int8 upload, bf16)
+    against the bf16 model's on one batch."""
+    from xna_basecaller_tpu_torch.models.crf_model import (
+        QUANT_SCALE, crf_head_forward,
+    )
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda, lstm
+    from xna_basecaller_tpu_torch.ops.conv import conv_stack_forward
+
+    cfg = model.cfg
+    nb, sl = cfg.n_base, cfg.state_len
+    # the same int32 products and f32 scalings on both sides: 1e-6 of the
+    # largest element, as the CPU tests hold int8_matmul against JAX
+    x = conv_stack_forward(
+        model.conv, (codes[:2].float() * (1.0 / QUANT_SCALE))[:, None, :],
+        cfg.encoder.activation)
+    x = x.permute(2, 0, 1).contiguous()
+    p = model.rnn[0].params(torch.float32)
+    w_q, w_s = lstm.quantize_w_hh(p["w_ih"])
+    r_proj = rel_err(lstm.int8_matmul(x, w_q, w_s).cpu(),
+                     lstm.int8_matmul(x.cpu(), w_q.cpu(), w_s.cpu()))
+    r_head = rel_err(
+        crf_head_forward(model.head, model.head_ext, x, cfg, int8=True).cpu(),
+        crf_head_forward(cpu_model.head, cpu_model.head_ext, x.cpu(), cfg,
+                         int8=True))
+    print(f"int8_matmul card vs CPU, layer 0's projection {tuple(x.shape)} "
+          f"x {tuple(w_q.shape)}: max_rel {r_proj:.3e}; int8 CRF head "
+          f"max_rel {r_head:.3e} (tolerance 1e-6)")
+    if r_proj > 1e-6 or r_head > 1e-6:
+        fail("int8_matmul on the card disagrees with the CPU")
+    # The quantized path is discontinuous: an ulp anywhere (the conv's sum
+    # order, the CPU's exp) can flip one h_q, which moves the gates by a
+    # quantum of the weights and flips more h_q downstream; at T=720 with
+    # random weights that reaches most frames.  So the card is held to the
+    # JAX package's own bounds for the int8 path (test_pallas.py:462-465):
+    # mean |d| < 0.05 and 99th percentile < 0.5 on scores in [-5, 5]; the
+    # share of label frames that differ is reported.
+    sc_gpu = model(codes[:2], compute_dtype=torch.float32, lstm_int8=True)
+    sc_cpu = cpu_model(codes[:2].cpu(), compute_dtype=torch.float32,
+                       lstm_int8=True)
+    d = (sc_gpu.cpu() - sc_cpu).abs()
+    mean, q99 = d.mean().item(), p99(d)
+    lab = (crf_cuda.decode_paths_cuda(sc_gpu, nb, sl).cpu()
+           != crf.decode_paths(sc_cpu, nb, sl)).float().mean().item()
+    print(f"f32 quantized model on the card vs the plain CPU path, 2 chunks: "
+          f"scores mean_abs {mean:.3e} (tolerance 0.05), p99 {q99:.3e} (0.5),"
+          f" max_abs {d.max().item():.3e}; label frames differing {lab:.3e} "
+          f"(reported)")
+    if not bool(torch.isfinite(sc_gpu).all()) or mean >= 0.05 or q99 >= 0.5:
+        fail("the f32 quantized model on the card disagrees with the CPU")
+    sc_q = model(codes, lstm_int8=True)
+    d = (sc_q - scores).abs()
+    mean, q99 = d.mean().item(), p99(d)
+    print(f"quantized model (int8 upload, int8 projections and head, K7) vs "
+          f"the bf16 model, one batch {tuple(sc_q.shape)}: mean_abs "
+          f"{mean:.3e} (tolerance 0.05), p99 {q99:.3e} (0.5), max_abs "
+          f"{d.max().item():.3e}")
+    if sc_q.shape != scores.shape or not bool(torch.isfinite(sc_q).all()) \
+            or mean >= 0.05 or q99 >= 0.5:
+        fail("the quantized model's scores are not within the JAX bounds "
+             "of the bf16 model's")
 
 
 def scan_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -437,9 +572,10 @@ def time_training(model, batch, keep, loss_keep, card):
     x.requires_grad_()
     ref = torch.nn.LSTM(H, H).to("cuda", torch.bfloat16).train()
     out, _ = ref(x)
-    t["nn.LSTM training forward"] = elapsed_ms(lambda: ref(x), 5)
-    t["nn.LSTM backward"] = elapsed_ms(
-        lambda: out.backward(dys, retain_graph=True), 5)
+    # cuDNN's times spread between runs: medians of 21 calls
+    t["nn.LSTM training forward"] = median_ms(lambda: ref(x), 21)
+    t["nn.LSTM backward"] = median_ms(
+        lambda: out.backward(dys, retain_graph=True), 21)
     p = model.rnn[0].params(torch.bfloat16)
     t["projection + K3a"] = elapsed_ms(
         lambda: lstm_cuda.lstm_forward_trainable(p, x, rev), 5)
@@ -513,7 +649,7 @@ def main() -> int:
     )
     from xna_basecaller_tpu_torch.infer.basecall import run_basecaller
     from xna_basecaller_tpu_torch.models.crf_model import (
-        Model, crf_head_forward,
+        QUANT_SCALE, Model, crf_head_forward,
     )
     from xna_basecaller_tpu_torch.ops import _build, crf, crf_cuda, lstm
     from xna_basecaller_tpu_torch.ops import lstm_cuda
@@ -547,6 +683,9 @@ def main() -> int:
     if len(chunks) < 2 * batchsize:
         fail(f"only {len(chunks)} chunks: fewer than two full batches")
     batch = torch.from_numpy(chunks[:batchsize].astype(np.float16)).to(dev)
+    # the same batch as the quantized path uploads it
+    codes = torch.from_numpy(np.clip(np.rint(
+        chunks[:batchsize] * QUANT_SCALE), -127, 127).astype(np.int8)).to(dev)
     print(f"reads {N_READS}, samples {sum(len(r.signal) for r in reads)}, "
           f"chunks {len(chunks)}, batches {n_batches}")
 
@@ -578,6 +717,7 @@ def main() -> int:
             results[f"K1_{name}_err"] = err.max().item()
             if name == "bf16":
                 k1_inputs = (xp, p["w_hh"])
+        k7_err, k7_inputs = check_int8_kernel(model, x)
 
         scores = model(batch)                                 # [720,256,1512]
         if scores.shape != (720, batchsize, cfg.n_score) \
@@ -631,12 +771,14 @@ def main() -> int:
               f"differing {lab_diff:.3e} (tolerance 1e-2)")
         if sc_err > 1e-3 or lab_diff > 1e-2:
             fail("the model on the card disagrees with the CPU path")
+        check_quantized_model(model, cpu_model, codes, scores)
 
     # -- 4. the main path, through run_basecaller -----------------------
     wrappers = {"K1": lstm_cuda.lstm_recurrence,
                 "K2a": crf_cuda.backward_scan,
                 "K2b": crf_cuda.forward_viterbi,
-                "K2c": crf_cuda.viterbi_traceback}
+                "K2c": crf_cuda.viterbi_traceback,
+                "K7": lstm_cuda.lstm_recurrence_int8}
     for w in wrappers.values():
         w.launches = 0
     fastq = io.StringIO()
@@ -658,6 +800,31 @@ def main() -> int:
                                         for s in seqs):
         fail("the main path did not return one non-empty sequence per read")
     print(f"pipeline: {stats['samples_per_s']:.4e} samples/s on {card}")
+
+    # -- 4b. the quantized path, through run_basecaller(quantize=True) --
+    for w in wrappers.values():
+        w.launches = 0
+    fastq_q = io.StringIO()
+    stats_q = run_basecaller(model, iter(reads), fastq_q, chunksize=chunksize,
+                             overlap=overlap, batchsize=batchsize,
+                             quantize=True)
+    q_launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"quantized path: {stats_q} launches {q_launches} "
+          f"(batches {n_batches})")
+    need = {"K7": enc.num_rnn_layers * n_batches, "K1": 0,
+            "K2a": n_batches, "K2b": n_batches, "K2c": n_batches}
+    for k, n in need.items():
+        if q_launches[k] != n:
+            fail(f"{k} launched {q_launches[k]} times on the quantized path, "
+                 f"expected {n}")
+    seqs = fastq_q.getvalue().split("\n")[1::4]
+    if stats_q["reads"] != N_READS or len(seqs) != N_READS \
+            or not all(seqs) or not all(set(s) <= set("ACGTXY")
+                                        for s in seqs):
+        fail("the quantized path did not return one non-empty sequence per "
+             "read")
+    print(f"quantized pipeline: {stats_q['samples_per_s']:.4e} samples/s on "
+          f"{card}")
 
     # -- 5.-8. the training path -----------------------------------------
     sim = simulate_ctc_dataset(TRAIN_BATCH, chunk_len=chunksize,
@@ -701,6 +868,15 @@ def main() -> int:
         timings["K1"] = (t_k1, t_k1_plain, t_cudnn)
         timings["K1 input projection + K1"] = t_proj_k1
 
+        xq, w_q, scale_q, w_hh_q, rev_q = k7_inputs
+        timings["K7"] = (
+            elapsed_ms(lambda: lstm_cuda.lstm_recurrence_int8(
+                xq, w_q, scale_q, rev_q), 5),
+            elapsed_ms(lambda: lstm.lstm_recurrence_int8(
+                xq, w_q, scale_q, rev_q), 1), None)
+        timings["K1 on K7's xp (bf16 W_hh)"] = elapsed_ms(
+            lambda: lstm_cuda.lstm_recurrence(xq, w_hh_q, rev_q), 5)
+
         timings["K2a"] = (
             elapsed_ms(lambda: crf_cuda.backward_scan(scores, nb, sl), 5),
             elapsed_ms(lambda: crf.backward_scores(scores, nb, sl), 1), None)
@@ -731,9 +907,35 @@ def main() -> int:
             return crf_cuda.decode_paths_cuda(sc, nb, sl)
         t_batch = elapsed_ms(batch_on_device, 3)
         timings["batch (model + decode)"] = t_batch
+
+        # the quantized batch's own stages
+        timings["int8 input projection (one layer: quantize w_ih, "
+                "int8_matmul, bias)"] = elapsed_ms(
+            lambda: (lstm.int8_matmul(xb, *lstm.quantize_w_hh(p["w_ih"]))
+                     + p["bias"]).to(torch.bfloat16), 5)
+        timings["int8 head product (quantize w, int8_matmul)"] = elapsed_ms(
+            lambda: lstm.int8_matmul(xb, *lstm.quantize_w_hh(
+                model.head.w.to(torch.bfloat16))), 5)
+        timings["int8 CRF head (products + f32 epilogue)"] = elapsed_ms(
+            lambda: crf_head_forward(model.head, model.head_ext, xb, cfg,
+                                     int8=True), 5)
+        timings["quantized conv stack (dequantize + f32 conv)"] = elapsed_ms(
+            lambda: conv_stack_forward(
+                model.conv,
+                (codes.float() * (1.0 / QUANT_SCALE))[:, None, :],
+                enc.activation), 3)
+
+        def quantized_batch_on_device():
+            sc = model(codes, lstm_int8=True)
+            return crf_cuda.decode_paths_cuda(sc, nb, sl)
+        t_qbatch = elapsed_ms(quantized_batch_on_device, 3)
+        timings["quantized batch (model + decode)"] = t_qbatch
     steady = run_basecaller(model, iter(reads * 4), io.StringIO(),
                             chunksize=chunksize, overlap=overlap,
                             batchsize=batchsize)
+    steady_q = run_basecaller(model, iter(reads * 4), io.StringIO(),
+                              chunksize=chunksize, overlap=overlap,
+                              batchsize=batchsize, quantize=True)
     for k, v in timings.items():
         print(f"time {k}: {v} ms on {card}")
     t_train = time_training(model, tbatch, k3_inputs, loss_inputs, card)
@@ -747,6 +949,12 @@ def main() -> int:
     print(f"pipeline, same reads x4 "
           f"({math.ceil(4 * len(chunks) / batchsize)} batches): "
           f"{steady['samples_per_s']:.4e} samples/s on {card}")
+    print(f"quantized device-only: "
+          f"{batchsize * chunksize / t_qbatch * 1e3:.4e} samples/s "
+          f"({t_qbatch:.3f} ms per batch of {batchsize} x {chunksize}) on "
+          f"{card}")
+    print(f"quantized pipeline, same reads x4: "
+          f"{steady_q['samples_per_s']:.4e} samples/s on {card}")
 
     # bounds from this run's shapes; ops counted per state and step
     C = scores.shape[2]
@@ -760,6 +968,9 @@ def main() -> int:
                   4.0 * Tt * Nt * H * 4 * H, PEAK_BF16)
     b_k1 = bound(2 * (xp.numel() + w_hh.numel() + T * N * H),
                  2.0 * T * N * H * 4 * H, PEAK_BF16)
+    # K7: xp and ys in bf16, W_q int8, scale f32; the int8 product per step
+    b_k7 = bound(2 * (xq.numel() + T * N * H) + w_q.numel()
+                 + 4 * scale_q.numel(), 2.0 * T * N * H * 4 * H, PEAK_INT8)
     # lse over n_base moves (5 ops each + log, add) and the stay pair (~11)
     b_k2a = bound(4 * (T * N * C + (T + 1) * N * ns),
                   T * N * ns * (5 * nb + 13), PEAK_F32)
@@ -819,10 +1030,13 @@ def main() -> int:
         "K6b": ("lattice_backward", "crf_loss.cu",
                 "xna_basecaller_tpu/ops/crf_pallas.py:487", b_k6b,
                 loss_errs["K6b"]),
+        "K7": ("lstm_recurrence_int8", "lstm_int8.cu",
+               "xna_basecaller_tpu/ops/lstm_pallas.py:221", b_k7, k7_err),
     }
     launches.update({k: train_launches[k] for k in (
         "K3a", "K3b", "K4", "K5b", "K6a", "K6b")})
     launches["K5a"] = train_launches["K2a"]
+    launches["K7"] = q_launches["K7"]
     kernels = []
     for k, (name, src, replaces, (b_ms, b_by), err) in meta.items():
         ms, plain_ms, lib_ms = timings[k]

@@ -19,7 +19,9 @@ kernels: alphas, betas and logZ (K4, K6a) rtol 1e-5; the edge posteriors
 lattice gradients (K6b) and the gradient of ``ctc_loss`` (kernels on the
 card against the plain path on the CPU) within 1e-4 of their largest
 element, because each is exp() of a difference of log-sums that
-magnifies the last bits of the scans.
+magnifies the last bits of the scans.  The int8 recurrence (K7): as K1,
+f32 1e-4 and bf16 2e-2 absolute, and in bf16 at most 1e-3 of ys differing
+at all (the bf16 h at even steps; without that rule about 30 % differ).
 """
 
 import numpy as np
@@ -60,6 +62,29 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     want = lstm.lstm_recurrence(xp, w, reverse)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+# 130 rows: a second, 2-row batch tile; H=96: a part-width h chunk;
+# 300 rows: two launches (at most 256 rows each)
+@pytest.mark.parametrize("N", [5, 130, 300])
+@pytest.mark.parametrize("H", [64, 96])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_int8_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
+    """K7 against its plain version, on the int8 weights and scales of
+    ``quantize_w_hh``; T odd, so the last step is an even one."""
+    xp, w = _lstm_inputs(41, N, H, seed=N + H, device=cuda, dtype=dtype)
+    w_q, scale = lstm.quantize_w_hh(w)
+    before = lstm_cuda.lstm_recurrence_int8.launches
+    got = lstm_cuda.lstm_recurrence_int8(xp, w_q, scale, reverse)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_int8.launches == before + -(-N // 256)
+    want = lstm.lstm_recurrence_int8(xp, w_q, scale, reverse)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() <= 1e-3
 
 
 def _scores(n_base, state_len, T, N, seed, device):

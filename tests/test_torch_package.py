@@ -63,7 +63,8 @@ def test_nothing_built_at_import():
     # importing every module builds no kernel (nvcc runs at first use)
     assert _build.build_log() == ""
     assert set(_build.sources()) == {"crf_decode", "crf_loss",
-                                     "lstm_backward", "lstm_recurrence"}
+                                     "lstm_backward", "lstm_int8",
+                                     "lstm_recurrence"}
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
@@ -109,12 +110,15 @@ def test_wrappers_refuse_tensors_they_cannot_take():
         crf_cuda.lattice_forward(stay, move, n2)
     with pytest.raises(ValueError):
         crf_cuda.lattice_backward(stay, move, n2, stay, n2, n2)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_recurrence_int8(
+            meta, torch.empty(16, 64, dtype=torch.int8, device="meta"),
+            torch.empty(64, device="meta"))
 
 
 @pytest.mark.parametrize("flag", sorted(NOT_PORTED))
 def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
-    value = {"--sam": [], "--qscores": [], "--ub-only": [],
-             "--quantize": []}.get(flag, ["1"])
+    value = {"--sam": [], "--qscores": [], "--ub-only": []}.get(flag, ["1"])
     with pytest.raises(SystemExit) as exc:
         port_cli(["basecaller", str(tmp_path), str(tmp_path), flag, *value,
                   "--device", "cpu"])

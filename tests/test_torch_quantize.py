@@ -1,0 +1,254 @@
+"""The int8 ``--quantize`` path of the port (CPU) against the JAX package's
+TPU path, with its Pallas kernel K7 (``lstm_recurrence_pallas_int8``) in
+interpret mode and ``is_tpu`` patched as ``test_pallas.py`` runs them, on
+inputs drawn from a numpy seed.
+
+Tolerances: ``quantize_w_hh`` and the dequantization of the int8 signal
+bit-equal (the same f32 operations in the same order); ``int8_matmul``
+rtol 1e-6 (an exact int32 product, then the same two f32 multiplies); the
+plain K7 f32 atol 1e-4 and bf16 2e-2 (about one bf16 ulp at 1: sigmoid and
+tanh may differ by an ulp between the two libraries, which can flip one
+h_q and move the gates by one quantum of the weights), and in bf16 at most
+1e-3 of its elements differing at all (the parity rule of K7's docstring:
+without it about 30 % differ); the model's f32
+scores atol 1e-4; the FASTQ of ``run_basecaller`` and of the CLI
+identical in f32.
+"""
+
+import functools
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xna_basecaller_tpu.cli import main as jax_cli
+from xna_basecaller_tpu.core import config as jconfig
+from xna_basecaller_tpu.core.config import (
+    BasecallerConfig, EncoderConfig, ModelConfig,
+)
+from xna_basecaller_tpu.infer import basecall as jbasecall
+from xna_basecaller_tpu.models import crf_model as jmodel
+from xna_basecaller_tpu.ops import lstm_pallas
+from xna_basecaller_tpu.train import checkpoint as ckpt
+from xna_basecaller_tpu_torch.cli import main as port_cli
+from xna_basecaller_tpu_torch.core import config as tconfig
+from xna_basecaller_tpu_torch.data.simulate import simulate_reads
+from xna_basecaller_tpu_torch.infer import basecall as tbasecall
+from xna_basecaller_tpu_torch.models.crf_model import QUANT_SCALE, Model
+from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+from xna_basecaller_tpu_torch.utils.model_io import load_model
+from xna_basecaller_tpu_torch.utils.weights import params_from_jax
+
+OPTS = dict(chunksize=1200, overlap=200, batchsize=4)
+
+
+@pytest.fixture(scope="module")
+def tpu_interpret():
+    """The JAX package's TPU path on the CPU: every pl.pallas_call in
+    interpret mode and ``is_tpu()`` true, with the jit caches cleared around
+    it (``test_pallas.py:438-460``).  For the whole module, so that tests of
+    one shape share JAX's traces."""
+    import jax.experimental.pallas as pl
+    from xna_basecaller_tpu.utils import platform
+
+    orig = pl.pallas_call
+
+    def patched(*args, **kw):
+        kw["interpret"] = True
+        return orig(*args, **kw)
+
+    jax.clear_caches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", patched)
+        mp.setattr(platform, "is_tpu", lambda: True)
+        yield
+    jax.clear_caches()
+
+
+def _t(a) -> torch.Tensor:
+    """A JAX array as a torch tensor of the same dtype (bf16 included)."""
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_quantize_w_hh_bit_equal(dtype):
+    w = np.random.default_rng(0).standard_normal((48, 192)).astype(
+        np.float32) / 7
+    w[:, 5] = 0.0          # an all-zero column takes the 1e-8 floor
+    want_q, want_s = lstm_pallas.quantize_w_hh(jnp.asarray(w).astype(dtype))
+    got_q, got_s = lstm.quantize_w_hh(_t(jnp.asarray(w).astype(dtype)))
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_int8_matmul_matches_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((7, 5, 64)).astype(np.float32)
+    w_q, w_s = lstm_pallas.quantize_w_hh(
+        jnp.asarray(rng.standard_normal((64, 96)).astype(np.float32)))
+    want = np.asarray(lstm_pallas.int8_matmul(jnp.asarray(x), w_q, w_s))
+    got = lstm.int8_matmul(torch.from_numpy(x), _t(w_q), _t(w_s))
+    assert got.dtype == torch.float32 and got.shape == (7, 5, 96)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+
+
+def test_int8_signal_is_dequantized_as_jax_does():
+    """Model.forward dequantizes an int8 signal by the f32 reciprocal of
+    QUANT_SCALE, bit for bit as JAX does; before, it ran the conv stack on
+    the raw codes."""
+    assert QUANT_SCALE == jmodel.QUANT_SCALE
+    sig = np.random.default_rng(2).standard_normal((2, 400)).astype(
+        np.float32)
+    codes = np.clip(np.rint(sig * QUANT_SCALE), -127, 127).astype(np.int8)
+    deq = np.asarray(jnp.asarray(codes).astype(jnp.float32)
+                     * (1.0 / jmodel.QUANT_SCALE))
+    cfg = tconfig.from_dict(jconfig.to_dict(ModelConfig(
+        encoder=EncoderConfig(features=32, num_rnn_layers=1))))
+    model = Model(cfg, device="cpu", seed=3)
+    with torch.no_grad():
+        got = model(torch.from_numpy(codes), compute_dtype=torch.float32)
+        want = model(torch.from_numpy(deq), compute_dtype=torch.float32)
+        raw = model(torch.from_numpy(codes.astype(np.float32)),
+                    compute_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(got, raw)
+
+
+# T odd and even; N = 70 pads JAX's batch to 128 rows (_batch_pad_rows)
+@pytest.mark.parametrize("T,N,H", [(9, 5, 32), (12, 70, 64)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, 1e-4),
+                                        (jnp.bfloat16, 2e-2)])
+def test_int8_recurrence_matches_pallas(tpu_interpret, T, N, H, reverse,
+                                        dtype, atol):
+    """The plain K7 against ``lstm_recurrence_pallas_int8``, the layer's
+    xp and quantized weights given to both; reverse layers flip time
+    around the JAX kernel (``lstm_pallas.py:308-316``)."""
+    rng = np.random.default_rng(T * N + H)
+    xp = jnp.asarray(rng.standard_normal((T, N, 4 * H)).astype(
+        np.float32)).astype(dtype)
+    w_q, scale = lstm_pallas.quantize_w_hh(jnp.asarray(
+        (rng.standard_normal((H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    ).astype(dtype))
+    walk = jnp.flip(xp, 0) if reverse else xp
+    want = lstm_pallas.lstm_recurrence_pallas_int8(walk, w_q, scale)
+    want = np.asarray((jnp.flip(want, 0) if reverse else want).astype(
+        jnp.float32))
+    before = lstm_cuda.lstm_recurrence_int8.launches
+    got = lstm_cuda.lstm_recurrence_int8(_t(xp), _t(w_q), _t(scale),
+                                         reverse)
+    assert lstm_cuda.lstm_recurrence_int8.launches == before
+    assert got.dtype == _t(xp).dtype and got.shape == (T, N, H)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+    if dtype == jnp.bfloat16:
+        # the unroll's parity (bf16 h at even steps) holds nearly every
+        # element equal; rounding h at every step, or at none, leaves about
+        # 30 % of them a bf16 ulp or more apart
+        assert (got.float().numpy() != want).mean() <= 1e-3
+
+
+def test_model_forward_int8_matches_jax(tpu_interpret):
+    """f32 scores of forward(lstm_int8=True) against JAX's TPU path (int8
+    projections, K7, the int8 head with its extra linear) within 1e-4
+    (scores in [-5, 5])."""
+    cfg = ModelConfig(encoder=EncoderConfig(features=32, num_rnn_layers=2,
+                                            extra_linear=True))
+    params = jmodel.init_params(jax.random.key(4), cfg)
+    sig = np.random.default_rng(5).standard_normal((3, 600)).astype(
+        np.float32)
+    want = np.asarray(jmodel.forward(params, jnp.asarray(sig), cfg,
+                                     compute_dtype=jnp.float32,
+                                     inference=True, lstm_int8=True))
+    model = Model(tconfig.from_dict(jconfig.to_dict(cfg)), device="cpu",
+                  seed=None)
+    model.load_state_dict(params_from_jax(params))
+    before = lstm_cuda.lstm_recurrence.launches
+    with torch.no_grad():
+        got = model(torch.from_numpy(sig), compute_dtype=torch.float32,
+                    lstm_int8=True)
+    assert lstm_cuda.lstm_recurrence.launches == before
+    assert got.shape == want.shape == (120, 3, cfg.n_score)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def _model_dir(tmp_path, quantize: bool):
+    cfg = ModelConfig(encoder=EncoderConfig(features=32, num_rnn_layers=2),
+                      basecaller=BasecallerConfig(quantize=quantize))
+    params = jmodel.Model(cfg).init(jax.random.key(0))
+    tmp_path.mkdir(exist_ok=True)
+    jconfig.save(cfg, str(tmp_path))
+    ckpt.save_checkpoint(str(tmp_path), 1, params)
+    return str(tmp_path), jmodel.Model(cfg), params
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_run_basecaller_quantize_fastq_matches_jax(tpu_interpret, tmp_path,
+                                                   reverse):
+    d, jm, jparams = _model_dir(tmp_path, quantize=False)
+    reads = list(simulate_reads(3, mean_len=3000, seed=6))
+    fq_jax, fq_port = io.StringIO(), io.StringIO()
+    jbasecall.run_basecaller(jm, jparams, iter(reads), fq_jax,
+                             compute_dtype=jnp.float32, quantize=True,
+                             reverse=reverse, **OPTS)
+    model, _ = load_model(d, device="cpu")
+    stats = tbasecall.run_basecaller(model, iter(reads), fq_port,
+                                     compute_dtype=torch.float32,
+                                     quantize=True, reverse=reverse, **OPTS)
+    assert stats["reads"] == 3
+    assert fq_port.getvalue() == fq_jax.getvalue()
+    seqs = fq_port.getvalue().split("\n")[1::4]
+    assert all(len(s) > 0 and set(s) <= set("ACGTXY") for s in seqs)
+
+
+@pytest.mark.parametrize("how", ["flag", "config"])
+def test_cli_quantize_matches_jax_cli(tpu_interpret, tmp_path, capsys,
+                                      monkeypatch, how):
+    """``--quantize``, or ``quantize = true`` under [basecaller] in the
+    model's config.toml and no flag: the port's CLI runs the int8 path and
+    writes the same FASTQ as the JAX CLI."""
+    h5py = pytest.importorskip("h5py")
+    d, _, _ = _model_dir(tmp_path / "model", quantize=how == "config")
+    reads_dir = tmp_path / "reads"
+    reads_dir.mkdir()
+    rng = np.random.default_rng(7)
+    with h5py.File(reads_dir / "batch0.fast5", "w") as fh:
+        for i, rid in enumerate(["aaa", "bbb"]):
+            g = fh.create_group(f"read_{rid}")
+            g.attrs["read_id"] = rid
+            raw = g.create_group("Raw")
+            sig = rng.integers(460, 540, size=6000).astype(np.int16)
+            sig[:300] = 900
+            raw.create_dataset("Signal", data=sig)
+            raw.attrs["read_number"] = i + 1
+            ch = g.create_group("channel_id")
+            ch.attrs["range"] = 1400.0
+            ch.attrs["digitisation"] = 8192.0
+            ch.attrs["offset"] = 10.0
+            ch.attrs["sampling_rate"] = 4000.0
+    # both CLIs decode in f32 here, where their FASTQ must be identical
+    monkeypatch.setattr(jbasecall, "basecall", functools.partial(
+        jbasecall.basecall, compute_dtype=jnp.float32))
+    port_basecall, asked = tbasecall.basecall, []
+
+    def basecall_f32(*a, **kw):
+        asked.append(kw.get("quantize"))
+        return port_basecall(*a, compute_dtype=torch.float32, **kw)
+
+    monkeypatch.setattr(tbasecall, "basecall", basecall_f32)
+    args = [d, str(reads_dir), "--chunksize", "1200", "--overlap", "200",
+            "--batchsize", "4"] + (["--quantize"] if how == "flag" else [])
+    jax_cli(["basecaller", *args])
+    want = capsys.readouterr().out
+    port_cli(["basecaller", *args, "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert asked == [True]
+    assert got == want
+    assert {l[1:] for l in got.splitlines() if l.startswith("@")} \
+        == {"aaa", "bbb"}

@@ -20,8 +20,8 @@ NOT_PORTED = {
     "--qscores": "qscores", "--superbatch": "superbatch",
     "--save-ctc": "save_ctc", "--ctc-min-coverage": "ctc_min_coverage",
     "--ctc-min-accuracy": "ctc_min_accuracy", "--ub-only": "ub_only",
-    "--mods-model": "mods_model", "--quantize": "quantize",
-    "--read-group": "read_group", "--profile": "profile",
+    "--mods-model": "mods_model", "--read-group": "read_group",
+    "--profile": "profile",
 }
 
 
@@ -70,7 +70,8 @@ def main(args):
                 model, reads, chunksize=cfg.basecaller.chunksize,
                 overlap=cfg.basecaller.overlap,
                 batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
-                cancel=cancel, ub_bias=args.ub_bias):
+                cancel=cancel, ub_bias=args.ub_bias,
+                quantize=args.quantize or cfg.basecaller.quantize):
             n_reads += 1
             n_samples += len(read.signal)
             seq, qstring = attrs["sequence"], attrs["qstring"]
@@ -122,6 +123,10 @@ def argparser():
     parser.add_argument("--ub-bias", default=0.0, type=float,
                         help="decode-time score bias on UB-emitting "
                              "transitions")
+    parser.add_argument("--quantize", action="store_true",
+                        help="int8 upload, int8 LSTM and CRF head (also on "
+                             "with quantize = true under [basecaller] in "
+                             "the model's config.toml)")
     parser.add_argument("--max-reads", default=0, type=int)
     parser.add_argument("--summary", default=None,
                         help="write per-read summary tsv here")
@@ -134,6 +139,6 @@ def argparser():
         not_ported.add_argument(flag, default=None, type=int)
     for flag in ("--ctc-min-coverage", "--ctc-min-accuracy"):
         not_ported.add_argument(flag, default=None, type=float)
-    for flag in ("--sam", "--qscores", "--ub-only", "--quantize"):
+    for flag in ("--sam", "--qscores", "--ub-only"):
         not_ported.add_argument(flag, action="store_true")
     return parser

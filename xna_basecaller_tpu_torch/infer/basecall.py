@@ -6,10 +6,11 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
 * Host stages (chunking, batch packing, stitching) run in background
   threads over bounded queues; every batch is padded to one fixed
   (batchsize, chunksize) shape.
-* The upload stage sends the batch as f16 (f32 in the f32 parity mode)
-  from pinned memory; the compute stage runs the model and the decode on
-  the device; the fetch stage brings back only the int8 label paths
-  [N, T'] with ``.cpu()``.  All device work goes to one CUDA stream, the
+* The upload stage sends the batch as f16 (f32 in the f32 parity mode;
+  with ``quantize``, the int8 codes ``round(sig * QUANT_SCALE)``) from
+  pinned memory; the compute stage runs the model and the decode on the
+  device; the fetch stage brings back only the int8 label paths [N, T']
+  with ``.cpu()``.  All device work goes to one CUDA stream, the
   device's default stream, so the stages need no other synchronisation.
 * The decode on a CUDA tensor runs the kernels of ``ops/crf_cuda.py``; on
   a CPU tensor the plain ``ops/crf.py::decode_paths``.
@@ -18,9 +19,11 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
 * R-strand decoding reverse-complements the scores on the device and
   stitches with reverse=True; ``ub_bias`` is added after the reverse
   complement and before the decode.
+* ``quantize`` is the int8 path of ``--quantize``: the int8 upload, int8
+  input projections and CRF head, and the int8 recurrence K7
+  (``Model.forward(lstm_int8=True)``).
 
-Not ported yet: ``--quantize``, q-scores, the beam decoder, superbatches
-and ensembles.
+Not ported yet: q-scores, the beam decoder, superbatches and ensembles.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from xna_basecaller_tpu_torch.data import chunkops
+from xna_basecaller_tpu_torch.models.crf_model import QUANT_SCALE
 from xna_basecaller_tpu_torch.ops import crf as crf_ops
 from xna_basecaller_tpu_torch.ops.crf_cuda import decode_paths_cuda
 from xna_basecaller_tpu_torch.utils.pipeline import (
@@ -73,14 +77,18 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
              overlap: int = 500, batchsize: int = 256,
              reverse: bool = False, compute_dtype=torch.bfloat16,
              legacy_char_stitch: bool = False, cancel=None,
-             stitch_workers: int = 4, ub_bias: float = 0.0) -> Iterator:
+             stitch_workers: int = 4, ub_bias: float = 0.0,
+             quantize: bool = False) -> Iterator:
     """Basecall reads lazily on the model's device; yields (read, attrs).
 
     ``reads`` yield objects with ``.signal`` (1-D float32) and ``.read_id``.
-    ``cancel`` (a threading.Event) stops the read producer early."""
+    ``cancel`` (a threading.Event) stops the read producer early.
+    ``quantize`` uploads ``clip(rint(sig * QUANT_SCALE), -127, 127)`` as
+    int8 and runs the model's int8 path (``lstm_int8=True``)."""
     device = next(model.parameters()).device
     stride = model.stride
-    up_dtype = np.float32 if compute_dtype == torch.float32 else np.float16
+    up_dtype = np.int8 if quantize else (
+        np.float32 if compute_dtype == torch.float32 else np.float16)
     n_base, state_len = model.seqdist.n_base, model.seqdist.state_len
 
     def gen_chunks():
@@ -97,6 +105,8 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
     def gen_uploads():
         for keys, batch in batches:
             padded, n = _pad_batch(np.asarray(batch), batchsize)
+            if quantize:
+                padded = np.clip(np.rint(padded * QUANT_SCALE), -127, 127)
             host = torch.from_numpy(np.ascontiguousarray(padded, up_dtype))
             if device.type == "cuda":
                 host = host.pin_memory()
@@ -109,7 +119,8 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         # stage's .cpu() waits for each batch's labels
         with torch.inference_mode():
             for keys, n, dev in uploads:
-                scores = model(dev, compute_dtype=compute_dtype)
+                scores = model(dev, compute_dtype=compute_dtype,
+                               lstm_int8=quantize)
                 yield keys, n, _score_and_decode(
                     scores, n_base, state_len, reverse, float(ub_bias))
 
@@ -153,17 +164,18 @@ def _left_pack(paths: np.ndarray) -> np.ndarray:
 def run_basecaller(model, reads, fastq_out, summary_out=None,
                    chunksize: int = 3600, overlap: int = 500,
                    batchsize: int = 256, reverse: bool = False,
-                   **basecall_opts) -> dict:
+                   quantize: bool = False, **basecall_opts) -> dict:
     """Drive the full pipeline, writing FASTQ (+ summary); returns timing
-    stats with the headline samples/s.  Extra keyword options (e.g.
-    ``legacy_char_stitch``, ``compute_dtype``, ``ub_bias``) go to
-    :func:`basecall`."""
+    stats with the headline samples/s.  ``quantize`` runs the int8 path;
+    extra keyword options (e.g. ``legacy_char_stitch``, ``compute_dtype``,
+    ``ub_bias``) go to :func:`basecall`."""
     t0 = perf_counter()
     n_reads = 0
     n_samples = 0
     for read, attrs in basecall(
             model, reads, chunksize=chunksize, overlap=overlap,
-            batchsize=batchsize, reverse=reverse, **basecall_opts):
+            batchsize=batchsize, reverse=reverse, quantize=quantize,
+            **basecall_opts):
         n_reads += 1
         n_samples += len(read.signal)
         fastq_out.write(

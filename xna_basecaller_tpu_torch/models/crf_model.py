@@ -10,11 +10,14 @@ Port of ``xna_basecaller_tpu/models/crf_model.py`` as an ``nn.Module``:
 layout.  The conv stack runs in f32 (TF32 off, see ``pin_f32_precision``);
 the LSTMs and the head run in ``compute_dtype`` (bf16 by default), with
 the recurrence in the CUDA kernel K1 on the card (``ops/lstm_cuda.py``);
-the decode and the loss always run in f32.  ``inference=False`` is the
-training forward: the differentiable recurrence (K3a forward, K3b
-backward) and, given a ``torch.Generator``, dropout.  The parameters stay
-f32 and are cast to the compute dtype on the way in, so their gradients
-come back in f32.  Weights keep the JAX layout (``w_ih [in,4H]``, ``w_hh
+the decode and the loss always run in f32.  ``lstm_int8=True`` is the
+``--quantize`` path: int8 input projections and head (``int8_matmul``) and
+the int8 recurrence K7; an int8 signal (``round(sig * QUANT_SCALE)``, as
+the basecaller uploads it with ``quantize``) is dequantized first.
+``inference=False`` is the training forward: the differentiable
+recurrence (K3a forward, K3b backward) and, given a ``torch.Generator``,
+dropout.  The parameters stay f32 and are cast to the compute dtype on
+the way in, so their gradients come back in f32.  Weights keep the JAX layout (``w_ih [in,4H]``, ``w_hh
 [H,4H]``, head ``w [F, C']``) except the convolutions'.
 """
 
@@ -30,11 +33,17 @@ from xna_basecaller_tpu_torch.ops import crf as crf_ops
 from xna_basecaller_tpu_torch.ops.conv import (
     conv_stack, conv_stack_forward, init_conv_,
 )
-from xna_basecaller_tpu_torch.ops.lstm import init_lstm_params
+from xna_basecaller_tpu_torch.ops.lstm import (
+    init_lstm_params, int8_matmul, quantize_w_hh,
+)
 from xna_basecaller_tpu_torch.ops.lstm_cuda import (
-    lstm_forward_trainable, lstm_stack_forward,
+    lstm_forward_trainable, lstm_stack_forward, lstm_stack_forward_int8,
 )
 from xna_basecaller_tpu_torch.utils.device import resolve_device
+
+# int8 step of the quantized upload (``crf_model.py:32-35`` in JAX): the
+# normalised signal spans +-5.3 sigma at a step of 1/24
+QUANT_SCALE = 24.0
 
 
 def pin_f32_precision() -> None:
@@ -69,15 +78,25 @@ class Linear(nn.Module):
 
 
 def crf_head_forward(head: Linear, head_ext: Linear | None, x: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, int8: bool = False) -> torch.Tensor:
     """LinearCRFEncoder: x [T, N, F] -> scores [T, N, n_score] in f32.
 
     The products run in x's dtype; tanh, the scale and the blank expansion
-    run in f32 on the product plus the bias (in x's dtype)."""
+    run in f32 on the product plus the bias (in x's dtype).  ``int8=True``
+    (the ``--quantize`` path, ``crf_model.py:87-101`` in JAX) runs each
+    product as an ``int8_matmul`` of x and the weight quantized per column
+    (f32 out; the extra linear's is cast back to x's dtype before its
+    bias)."""
     enc = cfg.encoder
+    if int8:
+        def dense(v, lin):
+            return int8_matmul(v, *quantize_w_hh(lin.w.to(x.dtype)))
+    else:
+        def dense(v, lin):
+            return v @ lin.w.to(x.dtype)
     if head_ext is not None:
-        x = x @ head_ext.w.to(x.dtype) + head_ext.b.to(x.dtype)
-    scores = (x @ head.w.to(x.dtype)).float() + head.b.to(x.dtype).float()
+        x = dense(x, head_ext).to(x.dtype) + head_ext.b.to(x.dtype)
+    scores = dense(x, head).float() + head.b.to(x.dtype).float()
     scores = torch.tanh(scores)
     if enc.scale is not None:
         scores = scores * enc.scale
@@ -160,16 +179,24 @@ class Model(nn.Module):
 
     def forward(self, signal: torch.Tensor, compute_dtype=torch.bfloat16,
                 inference: bool = True,
-                dropout: torch.Generator | None = None) -> torch.Tensor:
-        """Raw signal [N, T_sig] (or [N, T_sig, 1]), any float dtype ->
-        CRF scores [T, N, n_score] in f32.
+                dropout: torch.Generator | None = None,
+                lstm_int8: bool = False) -> torch.Tensor:
+        """Raw signal [N, T_sig] (or [N, T_sig, 1]), any float dtype or the
+        int8 codes of the quantized upload -> CRF scores [T, N, n_score] in
+        f32.
 
         ``inference=False`` runs the trainable recurrence; ``dropout``, a
         generator on the model's device, then drops ``drop_rate_bottom``
         after the conv stack and after each LSTM but the last, and
         ``drop_rate`` before the head (``crf_model.py:139-146, 154,
-        183-185`` in JAX)."""
+        183-185`` in JAX).  ``lstm_int8`` with ``inference`` runs the int8
+        stack (K7) and the int8 head, as JAX's TPU path does; JAX's CPU path
+        keeps the float scan there (``crf_model.py:158``), while the port's
+        CPU path runs K7's plain version."""
         enc = self.cfg.encoder
+        if signal.dtype == torch.int8:
+            # the reciprocal's multiply, not a division, as JAX computes it
+            signal = signal.float() * (1.0 / QUANT_SCALE)
         if signal.ndim == 3:
             signal = signal[..., 0]
         x = conv_stack_forward(self.conv, signal.float()[:, None, :],
@@ -178,14 +205,17 @@ class Model(nn.Module):
         x = x.permute(2, 0, 1).to(compute_dtype).contiguous()   # [T, N, C]
         layers = [layer.params(compute_dtype) for layer in self.rnn]
         if inference:
-            x = lstm_stack_forward(layers, self.directions, x)
+            stack = lstm_stack_forward_int8 if lstm_int8 \
+                else lstm_stack_forward
+            x = stack(layers, self.directions, x)
         else:
             for i, (params, rev) in enumerate(zip(layers, self.directions)):
                 x = lstm_forward_trainable(params, x, reverse=rev)
                 if i < len(layers) - 1:   # the last one's sits in the head
                     x = apply_dropout(x, enc.drop_rate_bottom, dropout)
         x = apply_dropout(x, enc.drop_rate, dropout)
-        return crf_head_forward(self.head, self.head_ext, x, self.cfg)
+        return crf_head_forward(self.head, self.head_ext, x, self.cfg,
+                                int8=lstm_int8 and inference)
 
     def loss(self, scores, targets, lengths, **kw):
         return self.seqdist.ctc_loss(scores, targets, lengths, **kw)

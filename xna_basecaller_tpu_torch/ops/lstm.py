@@ -18,11 +18,20 @@ The trainable recurrence has two more plain versions, of K3a and K3b:
 states in ``xp``'s dtype, as ``_CELL_RESID_COMPUTE_DTYPE`` stores them by
 default in JAX) and ``lstm_backward_dxp`` (the analytic reverse recursion
 of ``lstm_pallas.py::_make_bwd_kernel``, step for step).
+
+The int8 path of ``--quantize`` (``lstm_pallas.py:190-323``):
+``quantize_w_hh`` (per-column symmetric int8 weights), ``int8_matmul`` (int8
+x int8 -> int32 products with a dynamic per-tensor activation scale; the
+input projections and the CRF head) and ``lstm_recurrence_int8``, the plain
+version of the CUDA kernel K7, which requantizes h to int8 every step.
 """
 
 from __future__ import annotations
 
 import torch
+
+# |acc| <= 127 * 127 * K: integer-valued f32 sums are exact below 2 ** 24
+_EXACT_F32_DEPTH = 2 ** 24 // (127 * 127)
 
 
 def _orthogonal(n: int, generator: torch.Generator) -> torch.Tensor:
@@ -135,3 +144,80 @@ def lstm_backward_dxp(dys: torch.Tensor, xp: torch.Tensor,
         dh_c = dgates.float() @ w.T
         dc_c = dc * f
     return dxp
+
+
+def quantize_w_hh(w: torch.Tensor):
+    """Per-column symmetric int8 quantization (``lstm_pallas.py:197-202``):
+    w [K, M] -> (w_q int8 [K, M], scale f32 [M]) with w ~= w_q * scale.
+    ``scale = max(max_k |w|, 1e-8) / 127``; ``w_q = clip(round(w / scale))``
+    rounds half to even, as ``jnp.round`` does."""
+    w = w.float()
+    scale = torch.clamp(w.abs().amax(0), min=1e-8) / 127.0
+    w_q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    return w_q, scale
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """x [..., K] float, w_q int8 [K, M], w_scale f32 [M] -> f32 [..., M]
+    (``lstm_pallas.py:205-218``): x is quantized with one dynamic scale,
+    ``xs = max(max |x|, 1e-8) * (1/127)`` over the whole tensor, the
+    product accumulates exactly in int32, and ``out = acc * (xs *
+    w_scale)``, in JAX's op order.
+
+    The product is ``torch._int_mm``: cuBLASLt on the card, which needs
+    more than 16 rows and K, M multiples of 8 (the flagship's 768, 3072
+    and 1296 are), and raises otherwise; any shape on the CPU."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, K).float()
+    if x.is_cuda and (xf.shape[0] <= 16 or K % 8 or w_q.shape[1] % 8):
+        raise ValueError(
+            f"int8_matmul on the card needs more than 16 rows and K, M "
+            f"multiples of 8, got {xf.shape[0]} x {K} @ {tuple(w_q.shape)}")
+    xs = torch.clamp(xf.abs().amax(), min=1e-8) * (1.0 / 127.0)
+    x_q = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
+    # w_q column-major ([M, K] contiguous, seen transposed): the TN operand
+    # layout of cuBLASLt's int8 GEMM
+    acc = torch._int_mm(x_q, w_q.t().contiguous().t())
+    return (acc.float() * (xs * w_scale)).reshape(*lead, -1)
+
+
+def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
+                         scale: torch.Tensor,
+                         reverse: bool = False) -> torch.Tensor:
+    """Plain version of K7 (``lstm_pallas.py::_make_int8_kernel``): xp
+    [T, N, 4H] f32 or bf16, w_q int8 [H, 4H], scale f32 [4H] -> ys
+    [T, N, H] in xp's dtype.  Per step, in f32:
+
+        h_q = clip(round(h * 127), -127, 127)
+        gates = xp[t] + (h_q @ w_q) * deq,   deq = scale * f32(1/127)
+        c = f * c + i * g,  h = o * tanh(c),  ys[t] = h in xp's dtype
+
+    The product is exact: integer-valued f32 sums stay below 2 ** 24 for
+    H <= 1040.
+
+    The TPU kernel runs two steps per grid iteration and keeps h between
+    iterations in a scratch of xp's dtype (``lstm_pallas.py:234-252,
+    278``), so in bf16 the h that step s requantizes was rounded to bf16
+    when s is even and is the f32 h when s is odd (s counts steps in walk
+    order, from the end for ``reverse``).  This version and K7 do the same;
+    in f32 nothing is rounded."""
+    T, N, H4 = xp.shape
+    H = H4 // 4
+    if H > _EXACT_F32_DEPTH:
+        raise ValueError(f"lstm_recurrence_int8: H={H} > "
+                         f"{_EXACT_F32_DEPTH} (the exact f32 product)")
+    w = w_q.float()
+    deq = scale * (1.0 / 127.0)
+    h = torch.zeros(N, H, dtype=torch.float32, device=xp.device)
+    c = torch.zeros_like(h)
+    ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
+    for s, t in enumerate(_walk(T, reverse)):
+        hh = h.to(xp.dtype).float() if s % 2 == 0 else h
+        h_q = torch.round(hh * 127.0).clamp(-127, 127)
+        gates = xp[t].float() + (h_q @ w) * deq
+        i, f, g, o = gates.chunk(4, dim=1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys[t] = h.to(xp.dtype)
+    return ys

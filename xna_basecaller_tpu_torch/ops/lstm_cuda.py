@@ -10,6 +10,13 @@ LSTM layers and stack that run them.
 - K3b, ``lstm_backward_dxp`` (``csrc/lstm_backward.cu``), replaces
   ``_pallas_bwd_dxp`` (``_make_bwd_kernel``): the analytic reverse
   recursion, which gives the gradient of xp.
+- K7, ``lstm_recurrence_int8`` (``csrc/lstm_int8.cu``), replaces
+  ``lstm_recurrence_pallas_int8`` (``_make_int8_kernel``): the inference
+  recurrence of ``--quantize``, int8 W_hh and h on the int8 tensor cores.
+  ``lstm_forward_int8`` and ``lstm_stack_forward_int8`` are the layer and
+  the stack of that path (``lstm_forward_pallas_int8``,
+  ``lstm_stack_forward_pallas_int8``): the input projection as an
+  ``int8_matmul``, then K7.
 
 Their bounds on the card and what their designs do about them are set out
 at the top of the CUDA sources: one persistent cooperative launch per layer
@@ -35,9 +42,12 @@ import torch
 
 from xna_basecaller_tpu_torch.ops import _build
 from xna_basecaller_tpu_torch.ops.lstm import (
-    input_projection, lstm_backward_dxp as lstm_backward_dxp_plain,
+    input_projection, int8_matmul,
+    lstm_backward_dxp as lstm_backward_dxp_plain,
     lstm_recurrence as lstm_recurrence_plain,
+    lstm_recurrence_int8 as lstm_recurrence_int8_plain,
     lstm_recurrence_with_cells as lstm_recurrence_with_cells_plain,
+    quantize_w_hh,
 )
 
 _MESSAGES = {
@@ -45,6 +55,8 @@ _MESSAGES = {
     -2: "shape not supported by the kernel (H must be a multiple of 16)",
     -3: "the kernel's shared-memory request was refused (H too large)",
 }
+_MESSAGES_INT8 = {**_MESSAGES, -2: "shape not supported by the kernel (H "
+                                   "must be a multiple of 32)"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -55,9 +67,12 @@ def _lib(name: str, fn_name: str, argtypes):
     return lib, fn
 
 
-def _check(what: str, shapes: dict[str, tuple], **tensors):
-    """Raise unless every tensor is contiguous, on CUDA, of one dtype (f32
-    or bf16) and of the shape given for it."""
+def _check(what: str, shapes: dict[str, tuple],
+           fixed: dict[str, torch.dtype] | None = None, **tensors):
+    """Raise unless every tensor is contiguous, on CUDA and of the shape
+    given for it, those named in ``fixed`` of the dtype given there, and the
+    others all of one dtype, f32 or bf16."""
+    fixed = fixed or {}
     dtype = None
     for name, t in tensors.items():
         if not t.is_cuda or not t.is_contiguous():
@@ -66,6 +81,11 @@ def _check(what: str, shapes: dict[str, tuple], **tensors):
         if t.shape != shapes[name]:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")
+        if name in fixed:
+            if t.dtype != fixed[name]:
+                raise ValueError(f"{what}: {name} must be {fixed[name]}, "
+                                 f"got {t.dtype}")
+            continue
         dtype = dtype or t.dtype
         if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"{what}: tensors must all be f32 or all bf16, "
@@ -78,7 +98,8 @@ def _recurrence_shapes(what: str, xp: torch.Tensor, w_hh: torch.Tensor):
     T, N, H4 = xp.shape
     H = H4 // 4
     return T, N, H, {"xp": (T, N, 4 * H), "w_hh": (H, 4 * H),
-                     "ys": (T, N, H), "cs": (T, N, H), "dys": (T, N, H)}
+                     "ys": (T, N, H), "cs": (T, N, H), "dys": (T, N, H),
+                     "w_q": (H, 4 * H), "scale": (4 * H,)}
 
 
 def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
@@ -170,9 +191,43 @@ def lstm_backward_dxp(dys: torch.Tensor, xp: torch.Tensor,
     return dxp
 
 
+def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
+                         scale: torch.Tensor,
+                         reverse: bool = False) -> torch.Tensor:
+    """K7: xp [T, N, 4H] f32 or bf16, w_q int8 [H, 4H], scale f32 [4H]
+    (``quantize_w_hh``) -> ys [T, N, H] in xp's dtype.  On the card, one
+    launch per group of at most 256 batch rows; H a multiple of 32."""
+    if xp.device.type == "cpu":
+        return lstm_recurrence_int8_plain(xp, w_q, scale, reverse)
+    what = "lstm_recurrence_int8"
+    T, N, H, shapes = _recurrence_shapes(what, xp, w_q)
+    _check(what, shapes, {"w_q": torch.int8, "scale": torch.float32},
+           xp=xp, w_q=w_q, scale=scale)
+    ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
+    lib, fn = _lib("lstm_int8", "xna_lstm_int8",
+                   [_P] * 6 + [_I] * 6 + [_P])
+    group_rows = lib.xna_lstm_int8_group_rows
+    group_rows.argtypes, group_rows.restype = [], _I
+    group = group_rows()
+    size = xp.element_size()
+    stream = torch.cuda.current_stream().cuda_stream
+    for n0 in range(0, N, group):
+        rows = min(group, N - n0)
+        hbuf = torch.zeros(2, rows, H, dtype=torch.int8, device=xp.device)
+        counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
+        rc = fn(xp.data_ptr() + n0 * 4 * H * size, w_q.data_ptr(),
+                scale.data_ptr(), ys.data_ptr() + n0 * H * size,
+                hbuf.data_ptr(), counter.data_ptr(), T, rows, N, H,
+                int(reverse), int(xp.dtype == torch.bfloat16), stream)
+        _build.check(lib, rc, f"{what} kernel", _MESSAGES_INT8)
+        lstm_recurrence_int8.launches += 1
+    return ys
+
+
 lstm_recurrence.launches = 0
 lstm_forward_with_cells.launches = 0
 lstm_backward_dxp.launches = 0
+lstm_recurrence_int8.launches = 0
 
 
 class LSTMRecurrence(torch.autograd.Function):
@@ -223,4 +278,25 @@ def lstm_stack_forward(layers, directions, x: torch.Tensor):
     """The alternating-direction stack (``lstm_pallas.py:184-187``)."""
     for params, rev in zip(layers, directions):
         x = lstm_forward(params, x, reverse=rev)
+    return x
+
+
+def lstm_forward_int8(params, x: torch.Tensor, reverse: bool = False):
+    """One layer of the int8 path (``lstm_forward_pallas_int8``): the input
+    projection as an ``int8_matmul`` of x and the quantized w_ih, plus the
+    bias, in x's dtype; then K7 over the quantized w_hh.  The weights are
+    quantized as given (in the compute dtype, as JAX casts them first).
+    The projection is per row, so it is taken before the walk, which reads
+    time in reverse for ``reverse``."""
+    wp_q, wp_scale = quantize_w_hh(params["w_ih"])
+    xp = (int8_matmul(x, wp_q, wp_scale) + params["bias"]).to(x.dtype)
+    w_q, scale = quantize_w_hh(params["w_hh"])
+    return lstm_recurrence_int8(xp, w_q, scale, reverse)
+
+
+def lstm_stack_forward_int8(layers, directions, x: torch.Tensor):
+    """The alternating-direction stack of the int8 path
+    (``lstm_pallas.py:320-323``)."""
+    for params, rev in zip(layers, directions):
+        x = lstm_forward_int8(params, x, reverse=rev)
     return x
