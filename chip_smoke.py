@@ -39,8 +39,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      read the counts, check the losses, the moved weights and that
      ``weights_1.npz`` loads back;
   9. time each kernel, its plain version and its library yardstick with
-     CUDA events (the cuDNN yardsticks of K3a and K3b as medians of 21
-     calls), the batch's other stages (conv, input projection, head,
+     CUDA events: K1, K3a and K3b beside the port's like-for-like layer
+     and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
+     taken in turns, with the card's clock and power sampled beside them,
+     and the rows sweep of the LSTM kernels (per-step time = a + b x
+     rows); the batch's other stages (conv, input projection, head,
      decode; for the quantized batch the int8 projection, the int8 head
      and K1 on K7's input), one batch through model and decode, the
      pipeline's samples/s over the same reads four times, both unquantized
@@ -113,6 +116,61 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(fns: dict, reps: int = 21) -> dict:
+    """Median device time of each function over ``reps`` calls, each call
+    timed alone by CUDA events, all taken in turns in one stretch: the
+    order reverses every round (a, b, b, a, ...), so that a drift of the
+    card's clock or power falls on every function alike."""
+    names = list(fns)
+    for n in names:
+        fns[n]()
+    torch.cuda.synchronize()
+    times = {n: [] for n in names}
+    for r in range(reps):
+        for n in names if r % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[n]()
+            end.record()
+            end.synchronize()
+            times[n].append(start.elapsed_time(end))
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+class CardSampler:
+    """``nvidia-smi``'s SM clock, power draw and power limit, sampled every
+    100 ms while the ``with`` block runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        if rows:
+            clk, draw, limit = (sorted(c) for c in zip(*rows))
+            self.summary = (
+                f"{len(rows)} samples: SM clock {clk[0]:.0f}-{clk[-1]:.0f} "
+                f"MHz (median {statistics.median(clk):.0f}), power draw "
+                f"{draw[0]:.1f}-{draw[-1]:.1f} W (median "
+                f"{statistics.median(draw):.1f}), power limit {limit[-1]:.2f}"
+                " W")
+        else:
+            self.summary = "not sampled"
+        return False
 
 
 def p99(t: torch.Tensor) -> float:
@@ -518,30 +576,137 @@ def drive_training(workroot: str):
     return launches, steps, np.diff(times)
 
 
-def time_training(model, batch, keep, loss_keep, card):
-    """Phase 9 (training side): K3a and K3b with their plain versions and
-    torch.nn.LSTM's training forward and backward as yardsticks, the
-    port's layer forward and backward, the loss kernels K4-K6b with their
-    plain versions (no PyTorch call computes these functions), and one
-    training step with its breakdown."""
-    from xna_basecaller_tpu_torch.ops import crf, crf_cuda, lstm, lstm_cuda
+def lstm_yardsticks(model, keep, k1_inputs, xb, card):
+    """Phase 9 (LSTM kernels): K1, K3a and K3b each beside the port's
+    like-for-like layer and its cuDNN yardstick (``torch.nn.LSTM`` with
+    flattened weights, layer 0's weights), as medians of 21 calls taken in
+    turns in one stretch: K1 at the basecall batch, K3a and K3b at the
+    training batch; and each plain version once.  Returns {kernel: (ms,
+    plain ms, library ms)}."""
+    from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+
+    xp3, w3, dys, ys3, cs3, rev = keep
+    xp1, w1 = k1_inputs
+    T, N, H = ys3.shape
+    p = model.rnn[0].params(torch.bfloat16)
+
+    def cudnn_lstm(train: bool):
+        ref = torch.nn.LSTM(H, H).to("cuda", torch.bfloat16).train(train)
+        with torch.no_grad():
+            ref.weight_ih_l0.copy_(p["w_ih"].T)
+            ref.weight_hh_l0.copy_(p["w_hh"].T)
+            ref.bias_ih_l0.copy_(p["bias"])
+            ref.bias_hh_l0.zero_()
+        ref.flatten_parameters()
+        return ref
+
+    ref = cudnn_lstm(False)
+    with warnings.catch_warnings(record=True) as caught, \
+            torch.inference_mode():
+        warnings.simplefilter("always")
+        ref(xb)
+    print(f"warnings of one cuDNN call after flatten_parameters: "
+          f"{[str(w.message)[:120] for w in caught]}")
+    # in bf16 cuDNN still warns on every call that the weights are not one
+    # chunk, after flatten_parameters too
+    warnings.filterwarnings("ignore", message="RNN module weights")
+    with torch.inference_mode():
+        inf = in_turns({
+            "K1": lambda: lstm_cuda.lstm_recurrence(xp1, w1),
+            "projection + K1": lambda: lstm_cuda.lstm_forward(p, xb),
+            "nn.LSTM inference": lambda: ref(xb)})
+        k1_plain = elapsed_ms(lambda: lstm.lstm_recurrence(xp1, w1), 1)
+    ref_t = cudnn_lstm(True)
+    x = torch.randn(T, N, H, device="cuda", dtype=torch.bfloat16,
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    x.requires_grad_()
+    with torch.no_grad():
+        k3a = lambda: lstm_cuda.lstm_forward_with_cells(xp3, w3, rev)  # noqa: E731
+        k3b = lambda: lstm_cuda.lstm_backward_dxp(  # noqa: E731
+            dys, xp3, w3, ys3, cs3, rev)
+        k3a_plain = elapsed_ms(
+            lambda: lstm.lstm_recurrence_with_cells(xp3, w3, rev), 1)
+        k3b_plain = elapsed_ms(
+            lambda: lstm.lstm_backward_dxp(dys, xp3, w3, ys3, cs3, rev), 1)
+    fwd = in_turns({
+        "K3a": k3a,
+        "projection + K3a": lambda: lstm_cuda.lstm_forward_trainable(
+            p, x, rev),
+        "nn.LSTM training forward": lambda: ref_t(x)})
+    out_p = lstm_cuda.lstm_forward_trainable(p, x, rev)
+    out_r, _ = ref_t(x)
+    bwd = in_turns({
+        "K3b": k3b,
+        "K3b + dW + projection backward": lambda: out_p.backward(
+            dys, retain_graph=True),
+        "nn.LSTM backward": lambda: out_r.backward(dys, retain_graph=True)})
+    del out_p, out_r
+    model.zero_grad(set_to_none=True)
+    for what, got in (("K1 at the basecall batch", inf),
+                      ("K3a at the training batch", fwd),
+                      ("K3b at the training batch", bwd)):
+        print(f"time {what}, medians of 21 in turns: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in got.items()) + f" on {card}")
+    return {"K1": (inf["K1"], k1_plain, inf["nn.LSTM inference"]),
+            "K3a": (fwd["K3a"], k3a_plain, fwd["nn.LSTM training forward"]),
+            "K3b": (bwd["K3b"], k3b_plain, bwd["nn.LSTM backward"])}
+
+
+def rows_sweep(card):
+    """Phase 9: where each step's time goes.  K1, K3a and K3b at T=720,
+    H=768, bf16 (random inputs from the seed) for N in 16, 32, 64 (the
+    clustered launch of at most 64 rows) and 128 (K1 also 256: one tiled
+    launch for K1 and K3a, two clustered ones for K3b), each the median of
+    5 calls.  The time per step and launch at N <= 64, fitted as a + b x
+    rows, splits a fixed cost per step from the cost of the rows."""
+    from xna_basecaller_tpu_torch.ops import lstm_cuda
+
+    T, H = 720, 768
+    g = torch.Generator("cuda").manual_seed(SEED)
+    w = (torch.randn(H, 4 * H, device="cuda", generator=g)
+         / H ** 0.5).to(torch.bfloat16)
+    for name, wrapper, sizes in (
+            ("K1", lstm_cuda.lstm_recurrence, (16, 32, 64, 128, 256)),
+            ("K3a", lstm_cuda.lstm_forward_with_cells, (16, 32, 64, 128)),
+            ("K3b", lstm_cuda.lstm_backward_dxp, (16, 32, 64, 128))):
+        points = []
+        for N in sizes:
+            xp = torch.randn(T, N, 4 * H, device="cuda", generator=g).to(
+                torch.bfloat16)
+            with torch.no_grad():
+                if name == "K3b":
+                    ys, cs = lstm_cuda.lstm_forward_with_cells(xp, w)
+                    dys = (torch.randn(T, N, H, device="cuda", generator=g)
+                           * 1e-2).to(torch.bfloat16)
+                    fn = lambda: wrapper(dys, xp, w, ys, cs)  # noqa: E731
+                else:
+                    fn = lambda: wrapper(xp, w)  # noqa: E731
+                before = wrapper.launches
+                fn()
+                launches = wrapper.launches - before
+                ms = median_ms(fn, 5)
+            rows = -(-N // launches)
+            points.append((N, rows, launches, ms, ms / (T * launches) * 1e3))
+        fit = [q for q in points if q[0] <= 64]
+        b, a = np.polyfit([q[1] for q in fit], [q[4] for q in fit], 1)
+        print(f"rows sweep {name} (T={T}, H={H}, bf16): " + "; ".join(
+            f"N={n}: {ms:.3f} ms, {launches} launch(es) of {rows} rows, "
+            f"{us:.2f} us per step" for n, rows, launches, ms, us in points)
+            + f"; fit per step at N <= 64 = {a:.2f} us + {b * 1e3:.2f} ns x "
+            f"rows on {card}")
+
+
+def time_training(model, batch, loss_keep, card):
+    """Phase 9 (training side): the loss kernels K4-K6b with their plain
+    versions (no PyTorch call computes these functions), and one training
+    step with its breakdown."""
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda
     from xna_basecaller_tpu_torch.train.loop import (
         make_optimizer, train_step,
     )
 
-    xp, w, dys, ys, cs, rev = keep
     t = {}
     with torch.no_grad():
-        t["K3a"] = (
-            elapsed_ms(lambda: lstm_cuda.lstm_forward_with_cells(xp, w, rev),
-                       5),
-            elapsed_ms(lambda: lstm.lstm_recurrence_with_cells(xp, w, rev),
-                       1))
-        t["K3b"] = (
-            elapsed_ms(lambda: lstm_cuda.lstm_backward_dxp(
-                dys, xp, w, ys, cs, rev), 5),
-            elapsed_ms(lambda: lstm.lstm_backward_dxp(
-                dys, xp, w, ys, cs, rev), 1))
         (sc, alphas, betas, logz, ct, stay, move, lat_len, lat_a,
          lat_z, ct_lat) = loss_keep
         nb, sl = model.cfg.n_base, model.cfg.state_len
@@ -565,25 +730,7 @@ def time_training(model, batch, keep, loss_keep, card):
                 stay, move, lat_len, lat_a, lat_z, ct_lat), 5),
             elapsed_ms(lambda: crf.lattice_backward(
                 stay, move, lat_len, lat_a, lat_z, ct_lat), 1))
-    T, N, H = ys.shape
     chunks, targets, lengths = batch
-    x = torch.randn(T, N, H, device="cuda", dtype=torch.bfloat16,
-                    generator=torch.Generator("cuda").manual_seed(SEED))
-    x.requires_grad_()
-    ref = torch.nn.LSTM(H, H).to("cuda", torch.bfloat16).train()
-    out, _ = ref(x)
-    # cuDNN's times spread between runs: medians of 21 calls
-    t["nn.LSTM training forward"] = median_ms(lambda: ref(x), 21)
-    t["nn.LSTM backward"] = median_ms(
-        lambda: out.backward(dys, retain_graph=True), 21)
-    p = model.rnn[0].params(torch.bfloat16)
-    t["projection + K3a"] = elapsed_ms(
-        lambda: lstm_cuda.lstm_forward_trainable(p, x, rev), 5)
-
-    def layer_fwd_bwd():
-        lstm_cuda.lstm_forward_trainable(p, x, rev).backward(dys)
-    t["projection + K3a + K3b + dW + projection backward"] = elapsed_ms(
-        layer_fwd_bwd, 3)
 
     # one training step and its parts
     opt = make_optimizer(model, lambda _: 5e-4)
@@ -623,12 +770,8 @@ def time_training(model, batch, keep, loss_keep, card):
              "model backward (head, 5 x (K3b + dW + projection backward), "
              "conv)": t_fwd_bwd - t_fwd,
              "optimizer (clip + AdamW)": t_opt}
-    kernels = ("K3a", "K3b", "K4", "K5a", "K5b", "K6a", "K6b")
-    for k, v in {**{f"{k} (ms, plain ms)": v for k, v in t.items()
-                    if k in kernels},
-                 **{k: v for k, v in t.items()
-                    if k not in kernels}}.items():
-        print(f"time {k}: {v} ms on {card}")
+    for k, v in t.items():
+        print(f"time {k} (ms, plain ms): {v} ms on {card}")
     print(f"train step: {t_step:.3f} ms (host clock, 5 steps) on {card}; "
           "parts by CUDA events: " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in parts.items())
@@ -848,26 +991,15 @@ def main() -> int:
     T, N = scores.shape[:2]
     H = enc.features
     ns = cfg.n_state
-    timings = {}
     p = layer0.params(torch.bfloat16)
-    ref = torch.nn.LSTM(H, H).to(dev, torch.bfloat16)   # yardstick only
-    with torch.no_grad():
-        ref.weight_ih_l0.copy_(p["w_ih"].T)
-        ref.weight_hh_l0.copy_(p["w_hh"].T)
-        ref.bias_ih_l0.copy_(p["bias"])
-        ref.bias_hh_l0.zero_()
-    # cuDNN does not flatten bf16 weights and warns on every call
-    warnings.filterwarnings("ignore", message="RNN module weights")
+    xp, w_hh = k1_inputs
+    xb = x.to(torch.bfloat16)
+    # the LSTM kernels, their yardsticks and the rows sweep in one window
+    with CardSampler() as sampler:
+        timings = lstm_yardsticks(model, k3_inputs, k1_inputs, xb, card)
+        rows_sweep(card)
+    print(f"card during the LSTM window: {sampler.summary}")
     with torch.inference_mode():
-        xp, w_hh = k1_inputs
-        t_k1 = elapsed_ms(lambda: lstm_cuda.lstm_recurrence(xp, w_hh), 5)
-        t_k1_plain = elapsed_ms(lambda: lstm.lstm_recurrence(xp, w_hh), 1)
-        xb = x.to(torch.bfloat16)
-        t_proj_k1 = elapsed_ms(lambda: lstm_cuda.lstm_forward(p, xb), 5)
-        t_cudnn = elapsed_ms(lambda: ref(xb), 5)
-        timings["K1"] = (t_k1, t_k1_plain, t_cudnn)
-        timings["K1 input projection + K1"] = t_proj_k1
-
         xq, w_q, scale_q, w_hh_q, rev_q = k7_inputs
         timings["K7"] = (
             elapsed_ms(lambda: lstm_cuda.lstm_recurrence_int8(
@@ -938,9 +1070,7 @@ def main() -> int:
                               batchsize=batchsize, quantize=True)
     for k, v in timings.items():
         print(f"time {k}: {v} ms on {card}")
-    t_train = time_training(model, tbatch, k3_inputs, loss_inputs, card)
-    timings["K3a"] = (*t_train["K3a"], t_train["nn.LSTM training forward"])
-    timings["K3b"] = (*t_train["K3b"], t_train["nn.LSTM backward"])
+    t_train = time_training(model, tbatch, loss_inputs, card)
     for k in ("K4", "K5a", "K5b", "K6a", "K6b"):
         timings[k] = (*t_train[k], None)
     print(f"device-only: {batchsize * chunksize / t_batch * 1e3:.4e} "

@@ -18,34 +18,46 @@
 // Bound on the card (training shapes, per layer: T=720, N=64, H=768, bf16):
 // the recompute and the carry are 2 x 2*T*N*H*4H = 0.43 TFLOP, 0.44 ms at
 // 989 TFLOP/s; the bytes are dy, h, c (3 x [T,N,H]), xp and dxp
-// (2 x [T,N,4H]), 0.78 GB, 0.23 ms at 3.35 TB/s.  As in the forward, the
-// 720 dependent steps dominate: the carry dh_c of a step needs all 4H
-// columns of the step's dgates, from every block, before the next step.
+// (2 x [T,N,4H]), 0.78 GB, 0.23 ms at 3.35 TB/s.  What bounds it is the
+// chain of 720 dependent steps: the carry dh_c of a step needs all 4H
+// columns of the step's dgates, from every CTA, before the next step, so
+// the time per step is a sum of latencies (flag round trip, L2 to shared
+// memory, the product, the cell update), not of bandwidth.
 //
-// Design: two kernels per launch.
+// Two kernels per launch.
 // 1. The gate recompute does not depend on the carry, so it runs first as
 //    one parallel product over all T*N rows ([T*N, H] x [H, 4H], mma.sync
-//    on bf16, f32 accumulation), adds xp and applies the nonlinearities,
-//    and stores the activated gates in f32 (the plain version's precision).
-//    This takes the recompute off the serial chain and leaves each block
-//    of the serial kernel one slice of W_hh instead of two.
-// 2. The serial recursion: one persistent cooperative launch, like K1.  A
-//    block owns 16 hidden units for 64 batch rows (48 blocks at N=64) and
-//    keeps W_hh[its 16 rows, :] (96 KB in bf16) in shared memory.  Each
-//    step it forms its 64 dgates columns from the carry and the step's
-//    inputs (loaded into registers before the carry's product, which hides
-//    their latency), writes them to dxp and to a double-buffered dgates
-//    row buffer, and passes a grid barrier; then it reads the full dgates
-//    rows of its batch rows from L2 (64 columns per cp.async stage, four
-//    stages in flight) and forms its 16 units of dh_c with mma.sync: the
-//    eight warps split the 64 rows in four tiles and each chunk's depth in
-//    two halves, and the two partial sums are added in the cell update.
-//    dc_c stays in registers.
+//    on bf16, f32 accumulation, 128 x 128 tiles), adds xp, applies the
+//    nonlinearities and stores the activated gates in f32 (the plain
+//    version's precision).  Each thread finds its staged rows' sources once
+//    (the first design divided 64-bit row indices for every 16-byte piece
+//    and took 3.05 ms here; this one 1.42 ms, H100).
+// 2. The serial recursion, a persistent launch of clusters.  The first
+//    design (a block of 16 units x 64 rows holding W_hh[its 16 rows, :], 48
+//    blocks, a grid barrier a step, then all 64 x 4H dgates of its rows
+//    staged from L2 in 48 rounds of 64 columns) spent 21.8 us a step at
+//    N=64 (H100, T=720, H=768): a fit of 13.9 us fixed + 100 ns a row,
+//    mostly the rounds' wait and sync (a grid barrier alone is 1.3 us).
+//    Here a cluster of 4 CTAs shares 32 units: each CTA holds their W_hh
+//    rows over a quarter of the depth 4H (48 KB), stages only that quarter
+//    of the dgates, all of it in one round, and the four partial dh_c tiles
+//    are added through distributed shared memory; each CTA then updates 8
+//    units' cells: 96 CTAs at H=768.  In place of the grid barrier each
+//    warp adds one to its CTA's ready flag after its dgates stores (a
+//    release), and a CTA waits only for the 24 producers of its quarter;
+//    its inputs are loaded a step ahead.  About 8 us a step at N=64;
+//    switching off each part in turn saves: the flag wait 1.6 us, the
+//    staging 2.1, the product 2.6, the cluster exchange 1.5 (they
+//    overlap).  Tried and slower or no better: clusters of 8 (an eighth
+//    of the depth each), staging in four chunks to overlap the product,
+//    wgmma for the product, and W_hh held in registers with the depth
+//    split over four warps.  dc_c stays in registers.
 // f32 (the parity mode): the recompute is a tiled FMA product, and a
 // serial block owns 8 units for all rows (up to 256), FMA on the CUDA
-// cores, dgates staged through shared memory 64 columns at a time.
+// cores, dgates staged through shared memory 64 columns at a time, a grid
+// barrier a step.
 //
-// A launch takes at most 128 (bf16) or 256 (f32) batch rows; the wrapper
+// A launch takes at most 64 (bf16) or 256 (f32) batch rows; the wrapper
 // launches once per group of rows, with every tensor strided by the full
 // batch.
 
@@ -57,23 +69,21 @@ using namespace xna;
 
 constexpr int kThreads = 256;
 
-// gate recompute, bf16: a block computes [128 rows, 64 columns], each warp a
-// 32 x 32 tile, through a ring of 3 chunks of 64 of the depth H
+// gate recompute, bf16: a block computes [128 rows, 128 columns], each warp
+// a 64 x 32 tile, through a ring of 3 chunks of 64 of the depth H
 constexpr int kGRows = 128;
-constexpr int kGCols = 64;
+constexpr int kGCols = 128;
 constexpr int kGChunk = 64;
 constexpr int kGStages = 3;
 constexpr int kGLdA = kGChunk + 8;   // 144 B rows: ldmatrix without bank
 constexpr int kGLdB = kGCols + 8;    // conflicts
 
 // serial recursion, bf16
-constexpr int kUnits = 16;           // hidden units owned by one block
-constexpr int kRows = 64;            // batch rows of one block
-constexpr int kGroupRows = 128;      // batch rows of one launch
-constexpr int kChunk = 64;           // dgates columns per pipeline stage
-constexpr int kStages = 4;
-constexpr int kLd = kChunk + 8;
-constexpr int kCells = kRows * kUnits / kThreads;   // per thread
+constexpr int kUnits = 32;           // hidden units of one cluster
+constexpr int kCluster = 4;          // CTAs of a cluster, one depth slice each
+constexpr int kOwn = kUnits / kCluster;   // units whose cells a CTA updates
+constexpr int kRows = 64;            // batch rows of one launch
+constexpr int kLdP = kUnits + 4;     // row stride of the partial dh tiles
 
 // f32 path
 constexpr int kUnitsF = 8;
@@ -90,7 +100,8 @@ __device__ __forceinline__ int prev_time(int t, int T, int reverse) {
   return reverse ? (t == T - 1 ? -1 : t + 1) : t - 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// two blocks an SM (at most 128 registers a thread) hide more latency
+__global__ void __launch_bounds__(kThreads, 2)
 gates_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ ys,
                   const bf16* __restrict__ w_hh, float* __restrict__ act,
                   int T, int N, int ld_n, int H, int reverse) {
@@ -103,33 +114,39 @@ gates_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ ys,
   const long m0 = (long)blockIdx.y * kGRows;
   const long M = (long)T * N;
   const size_t H4 = 4 * (size_t)H;
-  const int wr = warp % 4 * 32, wc = warp / 4 * 32;
+  const int wr = warp % 2 * 64, wc = warp / 2 * 32;   // a 64 x 32 warp tile
   const int n_chunks = (H + kGChunk - 1) / kGChunk;
 
-  // chunk c of the depth: h_p rows (zero at the first step and past M) and
-  // the matching rows of W_hh's 64 columns
+  // The thread stages piece tid % 8 of rows tid / 8 + 32 i: their h_p rows
+  // (null at the first step and past M), found once, not once per chunk
+  const bf16* a_src[kGRows / 32];
+#pragma unroll
+  for (int i = 0; i < kGRows / 32; ++i) {
+    const long m = m0 + tid / 8 + 32 * i;
+    a_src[i] = nullptr;
+    if (m < M) {
+      const int tp = prev_time((int)(m / N), T, reverse);
+      if (tp >= 0) a_src[i] = ys + ((size_t)tp * ld_n + m % N) * H;
+    }
+  }
+
+  // chunk c of the depth: h_p rows (zeros where there is none) and the
+  // matching rows of W_hh's kGCols columns
   auto stage = [&](int c) {
-    const int k0 = c * kGChunk, kc = min(kGChunk, H - k0), pieces = kc / 8;
+    const int k0 = c * kGChunk, kc = min(kGChunk, H - k0), p = tid % 8;
     bf16* a_dst = a_s + (size_t)(c % kGStages) * kGRows * kGLdA;
-    for (int idx = tid; idx < kGRows * pieces; idx += kThreads) {
-      const int r = idx / pieces, p = idx % pieces;
-      const long m = m0 + r;
-      const bf16* src = ys;
-      int bytes = 0;
-      if (m < M) {
-        const int tp = prev_time((int)(m / N), T, reverse);
-        if (tp >= 0) {
-          src = ys + ((size_t)tp * ld_n + m % N) * H + k0 + p * 8;
-          bytes = 16;
-        }
-      }
-      cp_async16_zfill(a_dst + (size_t)r * kGLdA + p * 8, src, bytes);
+    if (p * 8 < kc) {
+#pragma unroll
+      for (int i = 0; i < kGRows / 32; ++i)
+        cp_async16_zfill(a_dst + (size_t)(tid / 8 + 32 * i) * kGLdA + p * 8,
+                         a_src[i] ? a_src[i] + k0 + p * 8 : ys,
+                         a_src[i] ? 16 : 0);
     }
     bf16* b_dst = b_s + (size_t)(c % kGStages) * kGChunk * kGLdB;
     for (int idx = tid; idx < kc * (kGCols / 8); idx += kThreads) {
-      const int k = idx / (kGCols / 8), p = idx % (kGCols / 8);
-      cp_async16(b_dst + (size_t)k * kGLdB + p * 8,
-                 w_hh + (size_t)(k0 + k) * H4 + c0 + p * 8);
+      const int k = idx / (kGCols / 8), q = idx % (kGCols / 8);
+      cp_async16(b_dst + (size_t)k * kGLdB + q * 8,
+                 w_hh + (size_t)(k0 + k) * H4 + c0 + q * 8);
     }
   };
 
@@ -137,7 +154,7 @@ gates_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ ys,
     if (st < n_chunks) stage(st);
     cp_async_commit();
   }
-  float acc[2][4][4] = {};
+  float acc[4][4][4] = {};
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<kGStages - 2>();
     __syncthreads();
@@ -146,39 +163,48 @@ gates_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ ys,
     const bf16* a_tile = a_s + (size_t)(c % kGStages) * kGRows * kGLdA +
                          wr * kGLdA;
     const bf16* b_tile = b_s + (size_t)(c % kGStages) * kGChunk * kGLdB + wc;
-    const int kc = min(kGChunk, H - c * kGChunk);
-    for (int kk = 0; kk < kc; kk += 16) {
-      uint32_t a[2][4], b[2][4];
+    const int steps = min(kGChunk, H - c * kGChunk) / 16;
+    // fragments of k-step s + 1 are loaded before the products of s
+    uint32_t a[2][4][4], b[2][2][4];
+    auto load = [&](int s, int buf) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) load_a(a[i], a_tile + i * 16 * kGLdA + kk, kGLdA);
+      for (int i = 0; i < 4; ++i)
+        load_a(a[buf][i], a_tile + i * 16 * kGLdA + s * 16, kGLdA);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) load_b(b[j], b_tile + (size_t)kk * kGLdB + j * 16, kGLdB);
+      for (int j = 0; j < 2; ++j)
+        load_b(b[buf][j], b_tile + (size_t)s * 16 * kGLdB + j * 16, kGLdB);
+    };
+    load(0, 0);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int s = 0; s < kGChunk / 16; ++s) {
+      if (s >= steps) break;
+      if (s + 1 < steps) load(s + 1, (s + 1) % 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          mma_16816(acc[i][j], a[i], b[j / 2][(j % 2) * 2],
-                    b[j / 2][(j % 2) * 2 + 1]);
+          mma_16816(acc[i][j], a[s % 2][i], b[s % 2][j / 2][(j % 2) * 2],
+                    b[s % 2][j / 2][(j % 2) * 2 + 1]);
     }
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const long m = m0 + wr + i * 16 + lane / 4 + half * 8;
       if (m >= M) continue;
-      const size_t row = (size_t)(m / N) * ld_n + m % N;
+      const size_t row = ((size_t)(m / N) * ld_n + m % N) * H4;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + wc + j * 8 + 2 * (lane % 4) + e;
-          const size_t off = row * H4 + col;
-          act[off] = activate(acc[i][j][half * 2 + e] + __bfloat162float(xp[off]),
-                              col, H);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + wc + j * 8 + 2 * (lane % 4);
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(xp + row + col));
+        *reinterpret_cast<float2*>(act + row + col) = make_float2(
+            activate(acc[i][j][half * 2] + x.x, col, H),
+            activate(acc[i][j][half * 2 + 1] + x.y, col + 1, H));
+      }
     }
 }
 
@@ -253,137 +279,183 @@ __device__ __forceinline__ void cell_backward(const float (&a)[4], float dy,
   dc_c = __fmul_rn(dc, f);
 }
 
-// kChunk columns from k0 of rows [r0, r0 + mrows) of src (row stride ld)
-// into dst [mrows][kLd]; rows past the valid `rows` repeat the last one.
-__device__ void stage_rows(const bf16* src, bf16* dst, int r0, int rows,
-                           int mrows, size_t ld, int k0) {
-  constexpr int kPieces = kChunk / 8;
-  for (int idx = threadIdx.x; idx < mrows * kPieces; idx += kThreads) {
-    const int r = idx / kPieces, p = idx % kPieces;
-    cp_async16(dst + (size_t)r * kLd + p * 8,
-               src + (size_t)(r0 + min(r, rows - 1)) * ld + k0 + p * 8);
-  }
-}
-
+// The serial recursion, bf16.  CTA b owns the cells of units [8b, 8b + 8)
+// for the launch's N <= kRows batch rows; the 4 CTAs of cluster q hold
+// W_hh[32q .. 32q + 32, :] between them, CTA `rank` the dgates columns of
+// depth slice `rank`.  dgbuf keeps the dgates unit-major ([2][N][H][4],
+// column 4 u + gate), so a depth slice is the contiguous output of the
+// F = H / 32 CTAs that own its units, and each CTA's output is one 64-byte
+// piece per row.  Walk k (forward step s = T - 1 - k) of CTA b:
+//   1. take its cells' inputs of the step (activated gates, dy, c, c_p),
+//      loaded a walk ahead, and load those of walk k + 1;
+//   2. (k > 0) wait until the flags of its slice's F producers count k,
+//      stage the slice's dgates of walk k - 1 (all rows, H columns) with
+//      cp.async, and form the partial dh_c [rows, 32 units] of its slice
+//      with mma.sync; after a cluster barrier, add the 4 partials of its 8
+//      units from the cluster's shared memory, in rank order;
+//   3. the cell backward; dgates to dgbuf[k & 1]; publish; dgates to dxp.
+// The double buffers (dgbuf, the partials) are safe because a CTA passes
+// the cluster barrier of walk k only after its cluster has read the whole
+// depth of walk k - 1, which every CTA published only after it had read
+// walk k - 2.
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_bf16_kernel(const float* __restrict__ act,
                      const bf16* __restrict__ dys, const bf16* __restrict__ cs,
                      const bf16* __restrict__ w_hh, bf16* __restrict__ dxp,
-                     bf16* dgbuf, unsigned int* counter, int T, int N,
+                     bf16* dgbuf, unsigned int* flags, int T, int N,
                      int ld_n, int H, int reverse) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int H4 = 4 * H, ldw = H4 + 8;
-  bf16* wt_s = reinterpret_cast<bf16*>(smem);          // [kUnits][ldw]
-  bf16* ring = wt_s + (size_t)kUnits * ldw;            // [kStages][kRows][kLd]
-  float* red_s = reinterpret_cast<float*>(
-      ring + (size_t)kStages * kRows * kLd);           // [2][kRows][kUnits]
+  const int H4 = 4 * H, ldk = H + 8;
+  bf16* wt_s = reinterpret_cast<bf16*>(smem);          // [kUnits][ldk]
+  bf16* dg_s = wt_s + (size_t)kUnits * ldk;            // [kRows][ldk]
+  float* p_s = reinterpret_cast<float*>(
+      dg_s + (size_t)kRows * ldk);                     // [2][kRows][kLdP]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n_slices = H / kUnits;
-  const int u0 = (blockIdx.x % n_slices) * kUnits;
-  const int r0 = (blockIdx.x / n_slices) * kRows;
-  const int rows = min(kRows, N - r0);
-  const int mrows = (rows + 15) / 16 * 16;
-  const int rt = warp % 4, kp = warp / 4;   // row tile, half of each chunk
-  const bool has_tile = rt * 16 < rows;
-  const int n_chunks = H4 / kChunk;
+  const unsigned rank = cluster_rank();
+  const int q = blockIdx.x / kCluster;
+  const int F = H / kUnits;            // producers of one depth slice
+  const int col0 = rank * H;           // the slice's first dgbuf column
+  const int mrows = (N + 15) / 16 * 16;
+  const int rt = warp % 4, uh = warp / 4;   // 16-row tile, 16-unit half
+  const bool has_tile = rt * 16 < N;
+  // the thread's two cells: row n, units u and u + 1
+  const int n = tid / 4, uu = 2 * (tid % 4), u = blockIdx.x * kOwn + uu;
+  const int nn = min(n, N - 1);
 
-  // W_hh rows u0.. (contiguous) are the n-major B operand of dgates @ W^T
-  for (int idx = tid; idx < kUnits * H4; idx += kThreads) {
-    const int u = idx / H4, k = idx % H4;
-    wt_s[(size_t)u * ldw + k] = w_hh[(size_t)(u0 + u) * H4 + k];
+  // W_hh rows of the cluster's units, the slice's columns in unit-major
+  // order: the n-major B operand of dgates @ W^T
+  for (int idx = tid; idx < kUnits * H; idx += kThreads) {
+    const int r = idx / H, k = idx % H, col = col0 + k;
+    wt_s[(size_t)r * ldk + k] =
+        w_hh[(size_t)(q * kUnits + r) * H4 + (col % 4) * H + col / 4];
   }
-  float dc_c[kCells];
+  // the cells' inputs of walk k2 (activated gates, and raw bf16 pairs of
+  // dy, c and c_p), loaded a walk ahead: their latency from HBM then hides
+  // behind the walk before
+  struct Inputs {
+    float2 a[4];
+    uint32_t dy, c_t, c_p;
+  };
+  auto load_inputs = [&](int k2, Inputs& in) {
+    const int t2 = reverse ? k2 : T - 1 - k2;
+    const int tp2 = prev_time(t2, T, reverse);
+    const size_t row = (size_t)t2 * ld_n + nn;
 #pragma unroll
-  for (int i = 0; i < kCells; ++i) dc_c[i] = 0.0f;
+    for (int g = 0; g < 4; ++g)
+      in.a[g] = *reinterpret_cast<const float2*>(act + row * H4 + g * H + u);
+    in.dy = *reinterpret_cast<const uint32_t*>(dys + row * H + u);
+    in.c_t = *reinterpret_cast<const uint32_t*>(cs + row * H + u);
+    in.c_p = tp2 >= 0 ? *reinterpret_cast<const uint32_t*>(
+                            cs + ((size_t)tp2 * ld_n + nn) * H + u)
+                      : 0u;
+  };
+  auto f2 = [](uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  };
+  float dc_c[2] = {0.0f, 0.0f};
+  Inputs next;
+  load_inputs(0, next);
   __syncthreads();
 
-  for (int s = T - 1; s >= 0; --s) {
-    const int t = reverse ? T - 1 - s : s;
-    const int tp = prev_time(t, T, reverse);
-    // the step's inputs of the thread's cells, loaded before the carry's
-    // product so that their latency hides behind it
-    float a[kCells][4], dy[kCells], c_t[kCells], c_p[kCells];
-#pragma unroll
-    for (int i = 0; i < kCells; ++i) {
-      const int idx = tid + i * kThreads, n = min(idx / kUnits, rows - 1),
-                u = idx % kUnits;
-      const size_t row = (size_t)t * ld_n + r0 + n;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) a[i][g] = act[row * H4 + g * H + u0 + u];
-      dy[i] = __bfloat162float(dys[row * H + u0 + u]);
-      c_t[i] = __bfloat162float(cs[row * H + u0 + u]);
-      c_p[i] = tp >= 0 ? __bfloat162float(
-                             cs[((size_t)tp * ld_n + r0 + n) * H + u0 + u])
-                       : 0.0f;
-    }
+  for (int k = 0; k < T; ++k) {
+    const int t = reverse ? k : T - 1 - k;   // the forward's time index
+    const Inputs in = next;
+    load_inputs(min(k + 1, T - 1), next);
 
-    if (s < T - 1) {   // dh_c = dgates of the step after @ W^T, 16 units
-      const bf16* dg = dgbuf + (size_t)((s + 1) & 1) * N * H4;
-      for (int st = 0; st < kStages - 1; ++st) {
-        if (st < n_chunks)
-          stage_rows(dg, ring + (size_t)st * kRows * kLd, r0, rows, mrows, H4,
-                     st * kChunk);
-        cp_async_commit();
+    float dh[2] = {0.0f, 0.0f};
+    if (k > 0) {
+      const bf16* dg = dgbuf + (size_t)((k - 1) & 1) * N * H4;
+      wait_flags(flags + rank * F, F, k);
+      // a warp per row, its lanes on contiguous 16-byte pieces
+      for (int r = warp; r < mrows; r += kThreads / 32) {
+        const bf16* src = dg + (size_t)min(r, N - 1) * H4 + col0;
+        for (int c = lane; c < 4 * F; c += 32)
+          cp_async16(dg_s + (size_t)r * ldk + c * 8, src + c * 8);
       }
-      float acc[2][4] = {};
-      for (int c = 0; c < n_chunks; ++c) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();
-        const int nc = c + kStages - 1;
-        if (nc < n_chunks)
-          stage_rows(dg, ring + (size_t)(nc % kStages) * kRows * kLd, r0, rows,
-                     mrows, H4, nc * kChunk);
-        cp_async_commit();
-        if (!has_tile) continue;
-        const bf16* a_tile = ring + (size_t)(c % kStages) * kRows * kLd +
-                             rt * 16 * kLd;
-#pragma unroll
-        for (int kk = kp * 32; kk < kp * 32 + 32; kk += 16) {
-          uint32_t fa[4], fb[4];
-          load_a(fa, a_tile + kk, kLd);
-          load_b_nk(fb, wt_s + c * kChunk + kk, ldw);
-          mma_16816(acc[0], fa, fb[0], fb[1]);
-          mma_16816(acc[1], fa, fb[2], fb[3]);
-        }
-      }
+      cp_async_commit();
       cp_async_wait<0>();
+      __syncthreads();
+      float* part = p_s + (size_t)(k & 1) * kRows * kLdP;
       if (has_tile) {
-        float* red = red_s + kp * kRows * kUnits;
+        // the fragments of four k-steps are loaded before their products,
+        // so the ldmatrix latency is paid once per four; each k-step of
+        // the four has its own accumulators, added in order at the end
+        float acc[4][2][4] = {};
+        const bf16* a_t = dg_s + (size_t)rt * 16 * ldk;
+        const bf16* b_t = wt_s + (size_t)uh * 16 * ldk;
+        int k0 = 0;
+        for (; k0 + 64 <= H; k0 += 64) {
+          uint32_t fa[4][4], fb[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            load_a(fa[i], a_t + k0 + i * 16, ldk);
+            load_b_nk(fb[i], b_t + k0 + i * 16, ldk);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            mma_16816(acc[i][0], fa[i], fb[i][0], fb[i][1]);
+            mma_16816(acc[i][1], fa[i], fb[i][2], fb[i][3]);
+          }
+        }
+        for (; k0 < H; k0 += 16) {
+          uint32_t fa[4], fb[4];
+          load_a(fa, a_t + k0, ldk);
+          load_b_nk(fb, b_t + k0, ldk);
+          mma_16816(acc[0][0], fa, fb[0], fb[1]);
+          mma_16816(acc[0][1], fa, fb[2], fb[3]);
+        }
         const int r = rt * 16 + lane / 4;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int col = j * 8 + 2 * (lane % 4);
-          red[r * kUnits + col] = acc[j][0];
-          red[r * kUnits + col + 1] = acc[j][1];
-          red[(r + 8) * kUnits + col] = acc[j][2];
-          red[(r + 8) * kUnits + col + 1] = acc[j][3];
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = acc[0][j][e] + acc[1][j][e] + acc[2][j][e] + acc[3][j][e];
+          float* o = part + (size_t)r * kLdP + uh * 16 + j * 8 + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          *reinterpret_cast<float2*>(o + 8 * kLdP) = make_float2(v[2], v[3]);
         }
       }
-      __syncthreads();
-    }
-
-    bf16* dg_out = dgbuf + (size_t)(s & 1) * N * H4;
+      cluster_sync();
+      const float* mine = part + (size_t)nn * kLdP + rank * kOwn + uu;
 #pragma unroll
-    for (int i = 0; i < kCells; ++i) {
-      const int idx = tid + i * kThreads, n = idx / kUnits, u = idx % kUnits;
-      if (n >= rows) continue;
-      const float dh_c = s < T - 1 ? red_s[n * kUnits + u] +
-                                         red_s[(kRows + n) * kUnits + u]
-                                   : 0.0f;
-      float d[4];
-      cell_backward(a[i], dy[i], c_t[i], c_p[i], dh_c, dc_c[i], d);
-      bf16* dx = dxp + ((size_t)t * ld_n + r0 + n) * H4 + u0 + u;
-      bf16* dgo = dg_out + (size_t)(r0 + n) * H4 + u0 + u;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const bf16 v = __float2bfloat16_rn(d[g]);
-        dx[g * H] = v;
-        dgo[g * H] = v;
+      for (int r = 0; r < kCluster; ++r) {
+        const float2 v = ld_cluster_f2(mine, r);
+        dh[0] += v.x;
+        dh[1] += v.y;
       }
     }
-    grid_barrier(counter, (unsigned int)(T - s) * gridDim.x);
+
+    float d[2][4];
+    if (n < N) {
+      const float2 dy = f2(in.dy), c_t = f2(in.c_t), c_p = f2(in.c_p);
+      const float a0[4] = {in.a[0].x, in.a[1].x, in.a[2].x, in.a[3].x};
+      const float a1[4] = {in.a[0].y, in.a[1].y, in.a[2].y, in.a[3].y};
+      cell_backward(a0, dy.x, c_t.x, c_p.x, dh[0], dc_c[0], d[0]);
+      cell_backward(a1, dy.y, c_t.y, c_p.y, dh[1], dc_c[1], d[1]);
+      __nv_bfloat162 o[4];
+#pragma unroll
+      for (int g = 0; g < 4; g += 2) {
+        o[g / 2] = __floats2bfloat162_rn(d[0][g], d[0][g + 1]);
+        o[2 + g / 2] = __floats2bfloat162_rn(d[1][g], d[1][g + 1]);
+      }
+      *reinterpret_cast<uint4*>(dgbuf + (size_t)(k & 1) * N * H4 +
+                                (size_t)n * H4 + 4 * u) =
+          *reinterpret_cast<const uint4*>(o);
+    }
+    // dgates are published before dxp is stored: the release then waits
+    // for the stores the consumers read, not for the output
+    publish(flags + blockIdx.x);
+    if (n < N) {
+      bf16* dx = dxp + ((size_t)t * ld_n + n) * H4 + u;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(dx + g * H) =
+            __floats2bfloat162_rn(d[0][g], d[1][g]);
+    }
   }
+  cluster_sync();   // no CTA leaves while its partials may still be read
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -467,20 +539,22 @@ extern "C" {
 // all of one dtype (bf16 when is_bf16, else f32), contiguous.  ys and cs
 // are the forward's outputs (K3a), dys the gradient of ys.  Scratch: act
 // [T, ld_n, 4H] f32 like xp (the activated gates), dgbuf [2, N, 4H] of the
-// dtype, counter one zeroed uint32.  Writes dxp [T, ld_n, 4H] of the dtype.
-// Returns 0, a cudaError_t, or -1 (grid cannot be co-resident), -2
-// (unsupported shape), -3 (shared-memory request refused: H too large).
+// dtype, flags H zeroed uint32 (bf16: one ready flag per CTA; f32: the
+// first is the grid barrier's counter).  Writes dxp [T, ld_n, 4H] of the
+// dtype.  Returns 0, a cudaError_t, or -1 (grid cannot be co-resident), -2
+// (unsupported shape: H a multiple of 16, of 32 in bf16), -3 (shared-memory
+// request refused: H too large).
 int xna_lstm_backward(const void* xp, const void* ys, const void* cs,
                       const void* dys, const void* w_hh, void* act, void* dxp,
-                      void* dgbuf, void* counter, int T, int N, int ld_n,
+                      void* dgbuf, void* flags, int T, int N, int ld_n,
                       int H, int reverse, int is_bf16, void* stream) {
-  const int group = is_bf16 ? kGroupRows : kGroupRowsF;
+  const int group = is_bf16 ? kRows : kGroupRowsF;
   const long M = (long)T * N;
   if (T < 1 || N < 1 || N > group || ld_n < N || H < 16 || H % 16 != 0 ||
-      (M + 63) / 64 > 65535)
+      (is_bf16 && H % kUnits != 0) || (M + 63) / 64 > 65535)
     return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned int* ctr = static_cast<unsigned int*>(counter);
+  unsigned int* ctr = static_cast<unsigned int*>(flags);
   float* a_act = static_cast<float*>(act);
   int rc;
   if (is_bf16) {
@@ -498,20 +572,16 @@ int xna_lstm_backward(const void* xp, const void* ys, const void* cs,
       cudaGetLastError();
       return -3;
     }
-    gates_bf16_kernel<<<dim3(H / 16, (unsigned)((M + kGRows - 1) / kGRows)),
+    gates_bf16_kernel<<<dim3(4 * H / kGCols, (unsigned)((M + kGRows - 1) / kGRows)),
                         kThreads, smem_g, st>>>(a_xp, a_ys, a_w, a_act, T, N,
                                                 ld_n, H, reverse);
     if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
-    const int blocks = H / kUnits * ((N + kRows - 1) / kRows);
-    const size_t smem = (size_t)kUnits * (4 * H + 8) * 2 +
-                        (size_t)kStages * kRows * kLd * 2 +
-                        (size_t)2 * kRows * kUnits * 4;
-    const void* fn = reinterpret_cast<const void*>(&lstm_bwd_bf16_kernel);
-    if ((rc = co_resident(fn, smem, blocks, kThreads)) != 0) return rc;
+    const size_t smem = (size_t)(kUnits + kRows) * (H + 8) * 2 +
+                        (size_t)2 * kRows * kLdP * 4;
     void* args[] = {&a_act, &a_dys, &a_cs, &a_w, &a_dxp, &a_dg, &ctr,
                     &T, &N, &ld_n, &H, &reverse};
-    rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
-                                     smem, st);
+    return launch_clusters(reinterpret_cast<const void*>(&lstm_bwd_bf16_kernel),
+                           H / kOwn, kCluster, kThreads, smem, args, st);
   } else {
     const float* a_xp = static_cast<const float*>(xp);
     const float* a_ys = static_cast<const float*>(ys);
@@ -539,7 +609,7 @@ int xna_lstm_backward(const void* xp, const void* ys, const void* cs,
 
 // Batch rows one launch takes; the wrapper splits larger batches.
 int xna_lstm_backward_group_rows(int is_bf16) {
-  return is_bf16 ? kGroupRows : kGroupRowsF;
+  return is_bf16 ? kRows : kGroupRowsF;
 }
 
 const char* xna_error_string(int code) {

@@ -1,7 +1,9 @@
 // Device helpers shared by the LSTM kernels (lstm_recurrence.cu,
-// lstm_backward.cu): the gate nonlinearity, cp.async staging, ldmatrix and
-// mma.sync m16n8k16 (bf16 in, f32 accumulation), the grid barrier of a
-// persistent cooperative launch, and its co-residency check.
+// lstm_backward.cu, lstm_int8.cu): the gate nonlinearity, cp.async
+// staging, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulation), the
+// grid barrier of a persistent cooperative launch and its co-residency
+// check; the per-CTA ready flags, the cluster barrier and distributed
+// shared memory loads of the clustered launches, and their launch.
 
 #pragma once
 
@@ -104,6 +106,102 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
     __threadfence();
   }
   __syncthreads();
+}
+
+// Per-CTA ready flags, in place of a grid barrier.  Each warp of a CTA of a
+// recursion adds one to the CTA's flag when its stores of a step are done,
+// so the flag counts steps x warps; a consumer waits only for the producers
+// of the slice it reads.
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The warp's stores of the step, then one release add: __syncwarp orders
+// every lane's stores before lane 0's release, which makes them visible at
+// the GPU scope before the count.  No block-wide barrier and no separate
+// fence.
+__device__ __forceinline__ void publish(unsigned int* flag) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(flag) : "memory");
+}
+
+// Wait until the flags [0, n) all count `steps` steps of every warp; the
+// warp's lanes poll them in parallel (one L2 round trip per poll, not one
+// per flag).  The caller's cp.async.cg loads that follow read through L2,
+// where the producers' released stores are.
+__device__ __forceinline__ void wait_flags(const unsigned int* flags, int n,
+                                           unsigned int steps) {
+  const int lane = threadIdx.x % 32;
+  const unsigned int target = steps * (blockDim.x / 32);
+  bool ready;
+  do {
+    ready = true;
+    for (int i = lane; i < n; i += 32)
+      ready = ready && ld_acquire(flags + i) >= target;
+  } while (!__all_sync(0xffffffffu, ready));
+}
+
+// Thread block clusters: the CTA's rank, a barrier over the cluster (with
+// release/acquire order on shared memory), and loads from a neighbour's
+// shared memory (distributed shared memory).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The float2 at `p` (this CTA's shared memory) in CTA `rank`'s copy.
+__device__ __forceinline__ float2 ld_cluster_f2(const float* p, unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+// Launch `ctas` CTAs of `fn` in clusters of `cluster`, all of which must be
+// resident at once (they wait on each other's flags): checked first with
+// cudaOccupancyMaxActiveClusters.  0, -3 (shared-memory request refused),
+// -1 (the grid cannot be co-resident), or a cudaError_t.
+inline int launch_clusters(const void* fn, int ctas, int cluster, int threads,
+                           size_t smem, void** args, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // clear the refusal
+    return -3;
+  }
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&active, fn, &cfg)) != cudaSuccess)
+    return e;
+  if (active * cluster < ctas) return -1;
+  cfg.numAttrs = 2;     // and cooperative: the grid is resident as a whole
+  if ((e = cudaLaunchKernelExC(&cfg, fn, args)) != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // 0 when `blocks` blocks of `fn` (`threads` threads, `smem` bytes) can all

@@ -19,10 +19,13 @@ LSTM layers and stack that run them.
   ``int8_matmul``, then K7.
 
 Their bounds on the card and what their designs do about them are set out
-at the top of the CUDA sources: one persistent cooperative launch per layer
-(per group of batch rows), W_hh split across the blocks' shared memory, a
-grid barrier between the 720 dependent steps.  The reverse direction is
-read in reverse time inside the kernels instead of flipping the tensors.
+at the top of the CUDA sources: one persistent launch per layer (per group
+of batch rows), W_hh split across the blocks' shared memory, and the 720
+dependent steps ordered by a grid barrier (K1 at more than 64 rows, K7) or,
+in bf16 at up to 64 rows (K3a, K3b, and K1 on the validation batch), by
+clusters of CTAs that split W_hh's depth and wait only for the per-CTA
+ready flags of the slice they read.  The reverse direction is read in
+reverse time inside the kernels instead of flipping the tensors.
 
 ``LSTMRecurrence`` is the ``torch.autograd.Function`` of the trainable
 recurrence (``lstm_recurrence_trainable``'s custom VJP): K3a forward, K3b
@@ -57,6 +60,8 @@ _MESSAGES = {
 }
 _MESSAGES_INT8 = {**_MESSAGES, -2: "shape not supported by the kernel (H "
                                    "must be a multiple of 32)"}
+_MESSAGES_BWD = {**_MESSAGES, -2: "shape not supported by the kernel (H must "
+                                  "be a multiple of 16, of 32 in bf16)"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -120,11 +125,11 @@ def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
     for n0 in range(0, N, group):
         rows = min(group, N - n0)
         hbuf = torch.zeros(2, rows, H, dtype=xp.dtype, device=xp.device)
-        counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
+        flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
         rc = fn(xp.data_ptr() + n0 * 4 * H * size, w_hh.data_ptr(),
                 ys.data_ptr() + n0 * H * size,
                 cs.data_ptr() + n0 * H * size if cells else None,
-                hbuf.data_ptr(), counter.data_ptr(), T, rows, N, H,
+                hbuf.data_ptr(), flags.data_ptr(), T, rows, N, H,
                 int(reverse), int(xp.dtype == torch.bfloat16), stream)
         _build.check(lib, rc, f"{what} kernel", _MESSAGES)
         if cells:
@@ -158,7 +163,7 @@ def lstm_backward_dxp(dys: torch.Tensor, xp: torch.Tensor,
                       reverse: bool = False) -> torch.Tensor:
     """K3b: the gradient of xp [T, N, 4H] from the gradient dys of ys and
     the forward's xp, w_hh, ys and cs, all of one dtype -> dxp in it.  On
-    the card, one launch per group of at most 128 (bf16) or 256 (f32)
+    the card, one launch per group of at most 64 (bf16) or 256 (f32)
     batch rows."""
     if xp.device.type == "cpu":
         return lstm_backward_dxp_plain(dys, xp, w_hh, ys, cs, reverse)
@@ -178,15 +183,15 @@ def lstm_backward_dxp(dys: torch.Tensor, xp: torch.Tensor,
     for n0 in range(0, N, group):
         rows = min(group, N - n0)
         dgbuf = torch.empty(2, rows, 4 * H, dtype=xp.dtype, device=xp.device)
-        counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
+        flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
         row4, row1 = n0 * 4 * H, n0 * H
         rc = fn(xp.data_ptr() + row4 * size, ys.data_ptr() + row1 * size,
                 cs.data_ptr() + row1 * size, dys.data_ptr() + row1 * size,
                 w_hh.data_ptr(), act.data_ptr() + row4 * 4,
                 dxp.data_ptr() + row4 * size, dgbuf.data_ptr(),
-                counter.data_ptr(), T, rows, N, H, int(reverse), is_bf16,
+                flags.data_ptr(), T, rows, N, H, int(reverse), is_bf16,
                 stream)
-        _build.check(lib, rc, "LSTM backward kernel", _MESSAGES)
+        _build.check(lib, rc, "LSTM backward kernel", _MESSAGES_BWD)
         lstm_backward_dxp.launches += 1
     return dxp
 
