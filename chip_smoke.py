@@ -42,15 +42,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
      taken in turns, with the card's clock and power sampled beside them,
-     and the rows sweep of the LSTM kernels (per-step time = a + b x
-     rows); the batch's other stages (conv, input projection, head,
-     decode; for the quantized batch the int8 projection, the int8 head
-     and K1 on K7's input), one batch through model and decode, the
-     pipeline's samples/s over the same reads four times, both unquantized
-     and quantized, and one training step with its breakdown;
+     and the rows sweep of the LSTM kernels K1, K3a, K3b and K7 (per-step
+     time = a + b x rows, over N <= 64 and over 128-256 rows); K7 beside
+     K1 on K7's input (bf16 W_hh) as medians of 21 in turns; with
+     ``--baseline DIR``, the K1 and K7 of that tree in the same turns; the
+     batch's other stages (conv, input projection, head, decode; for the
+     quantized batch the int8 projection and the int8 head), one batch
+     through model and decode, the pipeline's samples/s over the same
+     reads four times, both unquantized and quantized, and one training
+     step with its breakdown;
   10. print the ``kernels`` JSON line, then the result line.
 
 Run from the repository root:  python3 chip_smoke.py
+To compare with another tree (e.g. the parent commit, unpacked with
+``git archive`` into a directory that .gitignore lists) on the same card,
+in the same turns:
+    python3 chip_smoke.py --baseline DIR
 Without a CUDA device (or without the package beside it) it exits non-zero
 and prints no result.
 """
@@ -189,6 +196,65 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max |want|."""
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max()).item()
+
+
+def baseline_kernels(root: str) -> dict:
+    """K1 and K7 of another tree of this repository (``--baseline DIR``,
+    e.g. a ``git archive`` of the parent commit), built with nvcc from its
+    ``xna_basecaller_tpu_torch/csrc`` into this tree's build directory, to
+    be timed in turns with this tree's.  Their C interface is this tree's;
+    the scratch given them is large enough for either tree's layout of h.
+    Returns {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale,
+    reverse)}, bf16 xp of at most 256 rows."""
+    import ctypes
+
+    from xna_basecaller_tpu_torch.ops import _build
+
+    csrc = os.path.join(root, "xna_basecaller_tpu_torch", "csrc")
+    os.makedirs(_build.BUILD, exist_ok=True)
+    procs = {}
+    for name in ("lstm_recurrence", "lstm_int8"):
+        out = os.path.join(_build.BUILD, f"baseline_{name}.so")
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+             os.path.join(csrc, name + ".cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"the baseline tree's {name}.cu does not build:\n{text}")
+        entry = {"lstm_recurrence": "xna_lstm_recurrence",
+                 "lstm_int8": "xna_lstm_int8"}[name]
+        fn = getattr(ctypes.CDLL(out), entry)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def launch(name, xp, w, scale, reverse, h_dtype):
+        T, N, H4 = xp.shape
+        H = H4 // 4
+        ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
+        hbuf = torch.zeros(2 * -(-N // 128) * 128 * -(-H // 128) * 128,
+                           dtype=h_dtype, device=xp.device)
+        flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
+        if scale is None:   # K1: xp, w_hh, ys, cs (none), hbuf, flags
+            ptrs = (xp.data_ptr(), w.data_ptr(), ys.data_ptr(), None)
+        else:               # K7: xp, w_q, scale, ys, hbuf, flags
+            ptrs = (xp.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                    ys.data_ptr())
+        rc = fns[name](*ptrs, hbuf.data_ptr(), flags.data_ptr(), T, N, N, H,
+                       int(reverse), int(xp.dtype == torch.bfloat16),
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"the baseline tree's {name} kernel returned {rc}")
+        return ys
+
+    return {"K1": lambda xp, w, rev=False: launch(
+                "lstm_recurrence", xp, w, None, rev, xp.dtype),
+            "K7": lambda xp, w_q, scale, rev=False: launch(
+                "lstm_int8", xp, w_q, scale, rev, torch.int8)}
 
 
 def check_trainable_kernels(model, chunks, targets, lengths):
@@ -576,13 +642,13 @@ def drive_training(workroot: str):
     return launches, steps, np.diff(times)
 
 
-def lstm_yardsticks(model, keep, k1_inputs, xb, card):
+def lstm_yardsticks(model, keep, k1_inputs, xb, card, baseline):
     """Phase 9 (LSTM kernels): K1, K3a and K3b each beside the port's
     like-for-like layer and its cuDNN yardstick (``torch.nn.LSTM`` with
     flattened weights, layer 0's weights), as medians of 21 calls taken in
-    turns in one stretch: K1 at the basecall batch, K3a and K3b at the
-    training batch; and each plain version once.  Returns {kernel: (ms,
-    plain ms, library ms)}."""
+    turns in one stretch: K1 at the basecall batch (and the baseline
+    tree's K1, when given), K3a and K3b at the training batch; and each
+    plain version once.  Returns {kernel: (ms, plain ms, library ms)}."""
     from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
 
     xp3, w3, dys, ys3, cs3, rev = keep
@@ -611,10 +677,12 @@ def lstm_yardsticks(model, keep, k1_inputs, xb, card):
     # chunk, after flatten_parameters too
     warnings.filterwarnings("ignore", message="RNN module weights")
     with torch.inference_mode():
-        inf = in_turns({
-            "K1": lambda: lstm_cuda.lstm_recurrence(xp1, w1),
-            "projection + K1": lambda: lstm_cuda.lstm_forward(p, xb),
-            "nn.LSTM inference": lambda: ref(xb)})
+        fns = {"K1": lambda: lstm_cuda.lstm_recurrence(xp1, w1),
+               "projection + K1": lambda: lstm_cuda.lstm_forward(p, xb),
+               "nn.LSTM inference": lambda: ref(xb)}
+        if baseline:
+            fns["K1 of the baseline tree"] = lambda: baseline["K1"](xp1, w1)
+        inf = in_turns(fns)
         k1_plain = elapsed_ms(lambda: lstm.lstm_recurrence(xp1, w1), 1)
     ref_t = cudnn_lstm(True)
     x = torch.randn(T, N, H, device="cuda", dtype=torch.bfloat16,
@@ -653,22 +721,27 @@ def lstm_yardsticks(model, keep, k1_inputs, xb, card):
 
 
 def rows_sweep(card):
-    """Phase 9: where each step's time goes.  K1, K3a and K3b at T=720,
-    H=768, bf16 (random inputs from the seed) for N in 16, 32, 64 (the
-    clustered launch of at most 64 rows) and 128 (K1 also 256: one tiled
-    launch for K1 and K3a, two clustered ones for K3b), each the median of
-    5 calls.  The time per step and launch at N <= 64, fitted as a + b x
-    rows, splits a fixed cost per step from the cost of the rows."""
-    from xna_basecaller_tpu_torch.ops import lstm_cuda
+    """Phase 9: where each step's time goes.  K1, K3a, K3b and K7 at T=720,
+    H=768, bf16 (random inputs from the seed) for N in 16, 32, 64 (K1, K3a,
+    K3b: the clustered launch of at most 64 rows) and 128 (K1 and K7 also
+    192 and 256: one launch of the rows kernel, of one or two 128-row
+    tiles; two clustered launches for K3b), each the median of 5 calls.
+    The time per step and launch, fitted as a + b x rows over N <= 64 and,
+    for K1 and K7, over 128-256 rows, splits a fixed cost per step from
+    the cost of the rows."""
+    from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
 
     T, H = 720, 768
     g = torch.Generator("cuda").manual_seed(SEED)
     w = (torch.randn(H, 4 * H, device="cuda", generator=g)
          / H ** 0.5).to(torch.bfloat16)
+    w_q, scale = lstm.quantize_w_hh(w)
     for name, wrapper, sizes in (
-            ("K1", lstm_cuda.lstm_recurrence, (16, 32, 64, 128, 256)),
+            ("K1", lstm_cuda.lstm_recurrence, (16, 32, 64, 128, 192, 256)),
             ("K3a", lstm_cuda.lstm_forward_with_cells, (16, 32, 64, 128)),
-            ("K3b", lstm_cuda.lstm_backward_dxp, (16, 32, 64, 128))):
+            ("K3b", lstm_cuda.lstm_backward_dxp, (16, 32, 64, 128)),
+            ("K7", lstm_cuda.lstm_recurrence_int8,
+             (16, 32, 64, 128, 192, 256))):
         points = []
         for N in sizes:
             xp = torch.randn(T, N, 4 * H, device="cuda", generator=g).to(
@@ -679,6 +752,8 @@ def rows_sweep(card):
                     dys = (torch.randn(T, N, H, device="cuda", generator=g)
                            * 1e-2).to(torch.bfloat16)
                     fn = lambda: wrapper(dys, xp, w, ys, cs)  # noqa: E731
+                elif name == "K7":
+                    fn = lambda: wrapper(xp, w_q, scale)  # noqa: E731
                 else:
                     fn = lambda: wrapper(xp, w)  # noqa: E731
                 before = wrapper.launches
@@ -687,13 +762,18 @@ def rows_sweep(card):
                 ms = median_ms(fn, 5)
             rows = -(-N // launches)
             points.append((N, rows, launches, ms, ms / (T * launches) * 1e3))
-        fit = [q for q in points if q[0] <= 64]
-        b, a = np.polyfit([q[1] for q in fit], [q[4] for q in fit], 1)
+        fits = []
+        for what, pts in (("N <= 64", [q for q in points if q[0] <= 64]),
+                          ("128-256 rows", [q for q in points
+                                            if q[0] >= 128 and q[2] == 1])):
+            if len(pts) >= 2:
+                b, a = np.polyfit([q[1] for q in pts], [q[4] for q in pts], 1)
+                fits.append(f"fit per step at {what} = {a:.2f} us + "
+                            f"{b * 1e3:.2f} ns x rows")
         print(f"rows sweep {name} (T={T}, H={H}, bf16): " + "; ".join(
             f"N={n}: {ms:.3f} ms, {launches} launch(es) of {rows} rows, "
             f"{us:.2f} us per step" for n, rows, launches, ms, us in points)
-            + f"; fit per step at N <= 64 = {a:.2f} us + {b * 1e3:.2f} ns x "
-            f"rows on {card}")
+            + "; " + "; ".join(fits) + f" on {card}")
 
 
 def time_training(model, batch, loss_keep, card):
@@ -782,6 +862,15 @@ def time_training(model, batch, loss_keep, card):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--baseline", default=None, metavar="DIR",
+        help="another tree of this repository (e.g. the parent commit, "
+             "unpacked by git archive) whose K1 and K7 are timed in turns "
+             "with this tree's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -808,6 +897,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.build()
+    baseline = baseline_kernels(args.baseline) if args.baseline else None
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(_build.build_log())
 
@@ -996,18 +1086,28 @@ def main() -> int:
     xb = x.to(torch.bfloat16)
     # the LSTM kernels, their yardsticks and the rows sweep in one window
     with CardSampler() as sampler:
-        timings = lstm_yardsticks(model, k3_inputs, k1_inputs, xb, card)
+        timings = lstm_yardsticks(model, k3_inputs, k1_inputs, xb, card,
+                                  baseline)
         rows_sweep(card)
     print(f"card during the LSTM window: {sampler.summary}")
     with torch.inference_mode():
         xq, w_q, scale_q, w_hh_q, rev_q = k7_inputs
+        w_hh_b = w_hh_q.to(torch.bfloat16).contiguous()
+        fns = {"K7": lambda: lstm_cuda.lstm_recurrence_int8(
+                   xq, w_q, scale_q, rev_q),
+               "K1 on K7's xp (bf16 W_hh)": lambda: lstm_cuda.lstm_recurrence(
+                   xq, w_hh_b, rev_q)}
+        if baseline:
+            fns["K7 of the baseline tree"] = lambda: baseline["K7"](
+                xq, w_q, scale_q, rev_q)
+        k7_t = in_turns(fns)
+        print("time K7 at the basecall batch, medians of 21 in turns: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in k7_t.items())
+              + f" on {card}")
         timings["K7"] = (
-            elapsed_ms(lambda: lstm_cuda.lstm_recurrence_int8(
-                xq, w_q, scale_q, rev_q), 5),
+            k7_t["K7"],
             elapsed_ms(lambda: lstm.lstm_recurrence_int8(
                 xq, w_q, scale_q, rev_q), 1), None)
-        timings["K1 on K7's xp (bf16 W_hh)"] = elapsed_ms(
-            lambda: lstm_cuda.lstm_recurrence(xq, w_hh_q, rev_q), 5)
 
         timings["K2a"] = (
             elapsed_ms(lambda: crf_cuda.backward_scan(scores, nb, sl), 5),

@@ -48,17 +48,20 @@ def _lstm_inputs(T, N, H, seed, device, dtype):
 
 
 # Batch sizes and widths of the launch geometry: 1, 5, 16 and 64 rows take
-# the bf16 cluster path (N <= 64), 65 and 128 one tiled launch, 130 a second
-# 2-row batch tile, 257 and 300 two launches (at most 256 rows each), the
-# second of 1 or 44 rows on the cluster path; H=96 a part-width h chunk;
-# H=768 the flagship width, at T=300 for N=64 (a lost fence shows as rare
-# wrong values only over many steps).
-_LSTM_N = [1, 5, 16, 64, 65, 128, 130, 257, 300]
+# the bf16 cluster path (N <= 64); 65 up to 256 one launch of the rows
+# kernel: 65, 127 and 128 one tile of 128 rows (65: one row in the last
+# 16-row block), 129 and 130 a second tile of 1 or 2 rows, 200 a second
+# tile of 72 rows, 255 and 256 two tiles; 257 and 300 two launches (at most
+# 256 rows each), the second of 1 or 44 rows on the cluster path.  H=96: a
+# part-width h chunk; H=768 the flagship width, at T=300 for N=64 and
+# N=256 (a lost flag or a missing fence shows as rare wrong values only over
+# many steps).
+_LSTM_N = [1, 5, 16, 64, 65, 127, 128, 129, 130, 200, 255, 256, 257, 300]
 _LSTM_H = [64, 96, 768]
 
 
 def _steps(N, H, T):
-    return 300 if (N, H) == (64, 768) else T
+    return 300 if (N, H) in ((64, 768), (256, 768)) else T
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -72,7 +75,8 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     before = lstm_cuda.lstm_recurrence.launches
     got = lstm_cuda.lstm_recurrence(xp, w, reverse)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence.launches == before + -(-N // 256)
+    group = lstm_cuda.group_rows("lstm_recurrence")
+    assert lstm_cuda.lstm_recurrence.launches == before + -(-N // group)
     want = lstm.lstm_recurrence(xp, w, reverse)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
@@ -80,25 +84,47 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
-# 130 rows: a second, 2-row batch tile; H=96: a part-width h chunk;
-# 300 rows: two launches (at most 256 rows each)
-@pytest.mark.parametrize("N", [5, 130, 300])
-@pytest.mark.parametrize("H", [64, 96])
+# the rows of the launch geometry as for K1 (the cluster path excepted:
+# every N takes K7's one design); 257 and 300: two launches
+@pytest.mark.parametrize("N", [5, 65, 127, 128, 129, 130, 200, 255, 256, 257,
+                               300])
+@pytest.mark.parametrize("H", _LSTM_H)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_int8_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     """K7 against its plain version, on the int8 weights and scales of
-    ``quantize_w_hh``; T odd, so the last step is an even one."""
-    xp, w = _lstm_inputs(41, N, H, seed=N + H, device=cuda, dtype=dtype)
+    ``quantize_w_hh``; T odd, so the last step is an even one (T=301 at
+    N=256, H=768)."""
+    T = 301 if (N, H) == (256, 768) else 41
+    xp, w = _lstm_inputs(T, N, H, seed=N + H, device=cuda, dtype=dtype)
     w_q, scale = lstm.quantize_w_hh(w)
     before = lstm_cuda.lstm_recurrence_int8.launches
     got = lstm_cuda.lstm_recurrence_int8(xp, w_q, scale, reverse)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence_int8.launches == before + -(-N // 256)
+    group = lstm_cuda.group_rows("lstm_int8")
+    assert lstm_cuda.lstm_recurrence_int8.launches == before + -(-N // group)
     want = lstm.lstm_recurrence_int8(xp, w_q, scale, reverse)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
     if dtype == torch.bfloat16:
         assert (got != want).float().mean().item() <= 1e-3
+
+
+# 17 x 13 @ 13 x 625: a 5-letter model's head width; 5 rows: fewer than
+# torch._int_mm takes; 300 x 768 @ 768 x 625: the head of a 5-letter model
+@pytest.mark.parametrize("rows,K,M", [(17, 13, 625), (5, 768, 1512),
+                                      (300, 768, 625)])
+def test_int8_matmul_any_shape_on_card(cuda, rows, K, M):
+    """``int8_matmul(x, *quantize_w_hh(w))`` on the card, padded for
+    cuBLASLt, equals the product of the plain quantization exactly."""
+    g = torch.Generator().manual_seed(rows + K + M)
+    x, w = torch.randn(rows, K, generator=g), torch.randn(K, M, generator=g)
+    got = lstm.int8_matmul(x.to(cuda), *lstm.quantize_w_hh(w.to(cuda)))
+    w_q, w_s = lstm.quantize_w_hh(w)
+    xs = torch.clamp(x.abs().amax(), min=1e-8) * (1.0 / 127.0)
+    x_q = torch.round(x / xs).clamp(-127, 127).long()
+    want = (x_q @ w_q.long()).float() * (xs * w_s)
+    assert got.shape == (rows, M)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 def _scores(n_base, state_len, T, N, seed, device):
@@ -168,9 +194,10 @@ def test_trainable_lstm_kernels_match_plain(cuda, dtype, atol, rtol_dxp, N,
     assert bool(torch.isfinite(dxp.float()).all())
     assert _max_rel(dxp, dxp_p) <= rtol_dxp
     group = 64 if dtype == torch.bfloat16 else 256
+    rows = lstm_cuda.group_rows("lstm_recurrence")
     assert (lstm_cuda.lstm_forward_with_cells.launches,
             lstm_cuda.lstm_backward_dxp.launches) == (
-        before[0] + -(-N // 256), before[1] + -(-N // group))
+        before[0] + -(-N // rows), before[1] + -(-N // group))
 
 
 def test_trainable_recurrence_autograd_on_card(cuda):

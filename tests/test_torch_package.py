@@ -118,11 +118,33 @@ def test_wrappers_refuse_tensors_they_cannot_take():
 
 @pytest.mark.parametrize("flag", sorted(NOT_PORTED))
 def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
-    value = {"--sam": [], "--qscores": [], "--ub-only": []}.get(flag, ["1"])
+    # a value that changes JAX's result: not its default; the --ctc-min-*
+    # filters with --save-ctc
+    value = {"--sam": [], "--qscores": [], "--ub-only": [], "--beam": ["4"],
+             "--superbatch": ["2"],
+             "--ctc-min-coverage": ["0.5", "--save-ctc", "d"],
+             "--ctc-min-accuracy": ["0.5", "--save-ctc", "d"]}.get(flag, ["1"])
     with pytest.raises(SystemExit) as exc:
         port_cli(["basecaller", str(tmp_path), str(tmp_path), flag, *value,
                   "--device", "cpu"])
     assert f"{flag} is not ported" in str(exc.value)
+
+
+@pytest.mark.parametrize("args", [
+    # JAX's defaults
+    ["--beamsize", "5", "--beam", "0", "--superbatch", "1",
+     "--ctc-min-coverage", "0.9", "--ctc-min-accuracy", "0.95"],
+    # JAX passes --beamsize to the CTC family only; the filters act only
+    # with --save-ctc
+    ["--beamsize", "1", "--ctc-min-coverage", "0.5", "--ctc-min-accuracy",
+     "0.1"],
+])
+def test_cli_accepts_what_changes_no_result(args, tmp_path):
+    """Values with which JAX computes what the port does pass the flag
+    check: the command goes on to load the model, and finds none."""
+    with pytest.raises(FileNotFoundError):
+        port_cli(["basecaller", str(tmp_path), str(tmp_path), *args,
+                  "--device", "cpu"])
 
 
 def test_cli_refuses_ensembles_and_other_subcommands(tmp_path):

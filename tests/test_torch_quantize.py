@@ -99,6 +99,48 @@ def test_int8_matmul_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
 
 
+# 17 x 13 @ 13 x 625: a 5-letter model's head width, K and M no multiples
+# of 8; 5 x 768 @ 768 x 1512: fewer than 17 rows
+@pytest.mark.parametrize("rows,K,M", [(17, 13, 625), (5, 768, 1512),
+                                      (3, 8, 8), (40, 24, 16)])
+def test_int8_matmul_pads_to_what_int_mm_takes(rows, K, M):
+    """``int8_matmul`` pads K and M to multiples of 8 and the rows to 17 for
+    ``torch._int_mm``: the result equals the product of the plain
+    quantization (int64 sums), exactly."""
+    rng = np.random.default_rng(rows * K + M)
+    x = torch.from_numpy(rng.standard_normal((rows, K)).astype(np.float32))
+    w_q, w_s = lstm.quantize_w_hh(torch.from_numpy(
+        rng.standard_normal((K, M)).astype(np.float32)))
+    got = lstm.int8_matmul(x, w_q, w_s)
+    xs = torch.clamp(x.abs().amax(), min=1e-8) * (1.0 / 127.0)
+    x_q = torch.round(x / xs).clamp(-127, 127).long()
+    want = (x_q @ w_q.long()).float() * (xs * w_s)
+    assert got.shape == (rows, M)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,K,M", [(17, 13, 625), (5, 768, 1512),
+                                      (300, 768, 625)])
+def test_int8_matmul_hands_int_mm_only_what_cublaslt_takes(rows, K, M,
+                                                           monkeypatch):
+    """On the card ``torch._int_mm`` is cuBLASLt's int8 GEMM, which raises
+    unless there are more than 16 rows and K and M are multiples of 8; here
+    it is held to those rules on the CPU, so a 5-letter model's head (625
+    columns) is shown to reach it padded."""
+    real = torch._int_mm
+
+    def cublaslt(a, b):
+        assert a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0
+        return real(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", cublaslt)
+    rng = np.random.default_rng(rows + K + M)
+    x = torch.from_numpy(rng.standard_normal((rows, K)).astype(np.float32))
+    w_q, w_s = lstm.quantize_w_hh(torch.from_numpy(
+        rng.standard_normal((K, M)).astype(np.float32)))
+    assert lstm.int8_matmul(x, w_q, w_s).shape == (rows, M)
+
+
 def test_int8_signal_is_dequantized_as_jax_does():
     """Model.forward dequantizes an int8 signal by the f32 reciprocal of
     QUANT_SCALE, bit for bit as JAX does; before, it ran the conv stack on
@@ -174,6 +216,30 @@ def test_model_forward_int8_matches_jax(tpu_interpret):
         got = model(torch.from_numpy(sig), compute_dtype=torch.float32,
                     lstm_int8=True)
     assert lstm_cuda.lstm_recurrence.launches == before
+    assert got.shape == want.shape == (120, 3, cfg.n_score)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_five_letter_model_forward_int8_matches_jax(tpu_interpret):
+    """A 5-letter (NACGTX) model of the flagship's shape at narrow width: its
+    head has 5^3 x 5 = 625 columns, which ``int8_matmul`` pads for
+    ``torch._int_mm``.  f32 scores of forward(codes, lstm_int8=True) on the
+    int8 signal against JAX's TPU path, within 1e-4."""
+    cfg = ModelConfig(labels=tuple("NACGTX"),
+                      encoder=EncoderConfig(features=32, num_rnn_layers=3))
+    params = jmodel.init_params(jax.random.key(6), cfg)
+    sig = np.random.default_rng(8).standard_normal((3, 600))
+    codes = np.clip(np.rint(sig * QUANT_SCALE), -127, 127).astype(np.int8)
+    want = np.asarray(jmodel.forward(params, jnp.asarray(codes), cfg,
+                                     compute_dtype=jnp.float32,
+                                     inference=True, lstm_int8=True))
+    model = Model(tconfig.from_dict(jconfig.to_dict(cfg)), device="cpu",
+                  seed=None)
+    model.load_state_dict(params_from_jax(params))
+    assert model.head.w.shape[-1] == 625
+    with torch.no_grad():
+        got = model(torch.from_numpy(codes), compute_dtype=torch.float32,
+                    lstm_int8=True)
     assert got.shape == want.shape == (120, 3, cfg.n_score)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 

@@ -366,9 +366,45 @@ def test_cli_trains_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--spike"], ["--stitch"],
-                                  ["--profile", "trace"], ["--ubs", "X"]])
+                                  ["--profile", "trace"],
+                                  ["--stitch", "--ubs", "X"]])
 def test_cli_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit) as exc:
         port_cli(["train", str(tmp_path / "run"), "--directory",
                   str(tmp_path), "--device", "cpu", *flag])
     assert f"{flag[0]} is not ported" in str(exc.value)
+
+
+def test_cli_trains_without_augmentation_given_only_its_knobs(tmp_path):
+    """``--ubs X --ub-prop 0.1`` without ``--spike``/``--stitch``: JAX's
+    ``need_bkps`` is false and it trains with no augmentation; so does the
+    port, to the same weights as a run without the knobs."""
+    c, t, l, b = simulate_ctc_dataset(12, chunk_len=600, target_len=70)
+    save_ctc_data(str(tmp_path / "data"), c, t, l, b)
+    jconfig.save(_cfg(), str(tmp_path / "config.toml"))
+    base = ["--directory", str(tmp_path / "data"), "--config",
+            str(tmp_path / "config.toml"), "--device", "cpu", "--epochs", "1",
+            "--batch", "4", "--valid-chunks", "2"]
+    port_cli(["train", str(tmp_path / "plain"), *base])
+    port_cli(["train", str(tmp_path / "knobs"), *base, "--ubs", "X",
+              "--ub-prop", "0.1", "--noise-std", "2.0", "--fully-synth"])
+    want = ckpt.load_flat(str(tmp_path / "plain" / "weights_1.npz"))
+    got = ckpt.load_flat(str(tmp_path / "knobs" / "weights_1.npz"))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_load_model_weights_0_loads_epoch_0(tmp_path):
+    """``weights=0`` names ``weights_0.npz``, as in JAX's ``load_model``;
+    ``weights=None`` loads the latest epoch."""
+    cfg = _cfg()
+    jconfig.save(cfg, str(tmp_path / "config.toml"))
+    params = {e: JaxModel(cfg).init(jax.random.key(e)) for e in (0, 1)}
+    for e, p in params.items():
+        jckpt.save_checkpoint(str(tmp_path), e, p)
+    for weights, epoch in ((0, 0), (1, 1), (None, 1)):
+        model, _ = load_model(str(tmp_path), device="cpu", weights=weights)
+        got = params_to_jax(model.state_dict())
+        for k, v in _flat(params[epoch]).items():
+            np.testing.assert_array_equal(got[k], v)

@@ -3,7 +3,11 @@
 Port of ``xna_basecaller_tpu/cli/basecaller.py`` for the CRF model and
 FASTQ output.  The flags of the JAX command that this package does not
 port yet are still recognised, and each is refused with an error instead
-of being ignored.
+of being ignored, but only where it would change the result: the JAX
+defaults (``--beam 0``, ``--superbatch 1``), ``--beamsize`` (JAX reads it
+only for the CTC family, which this package does not load) and the
+``--ctc-min-*`` filters without ``--save-ctc`` are accepted, as JAX does
+nothing with them.
 """
 
 from __future__ import annotations
@@ -16,18 +20,28 @@ from time import perf_counter
 # flag -> argparse dest of the options that are not ported yet
 NOT_PORTED = {
     "--reference": "reference", "--sam": "sam", "--cram": "cram",
-    "--bam": "bam", "--beamsize": "beamsize", "--beam": "beam",
-    "--qscores": "qscores", "--superbatch": "superbatch",
-    "--save-ctc": "save_ctc", "--ctc-min-coverage": "ctc_min_coverage",
-    "--ctc-min-accuracy": "ctc_min_accuracy", "--ub-only": "ub_only",
-    "--mods-model": "mods_model", "--read-group": "read_group",
-    "--profile": "profile",
+    "--bam": "bam", "--beam": "beam", "--qscores": "qscores",
+    "--superbatch": "superbatch", "--ctc-min-coverage": "ctc_min_coverage",
+    "--ctc-min-accuracy": "ctc_min_accuracy", "--save-ctc": "save_ctc",
+    "--ub-only": "ub_only", "--mods-model": "mods_model",
+    "--read-group": "read_group", "--profile": "profile",
 }
+# the values with which JAX does what this package does
+INERT = {"beam": 0, "superbatch": 1, "ctc_min_coverage": 0.90,
+         "ctc_min_accuracy": 0.95}
+
+
+def _refused(args, dest: str) -> bool:
+    """Whether the value of ``dest`` would make JAX do what this package
+    does not; the --ctc-min-* filters act only with --save-ctc."""
+    if dest.startswith("ctc_min") and args.save_ctc is None:
+        return False
+    return getattr(args, dest) not in (None, False, INERT.get(dest))
 
 
 def main(args):
     for flag, dest in NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
+        if _refused(args, dest):
             sys.exit(f"xnacall basecaller: {flag} is not ported to "
                      "xna_basecaller_tpu_torch yet")
     if "," in args.model_directory:
@@ -115,6 +129,9 @@ def argparser():
     parser.add_argument("--revcomp", action="store_true",
                         help="reverse-complement decoding (R strand)")
     parser.add_argument("--recursive", action="store_true")
+    parser.add_argument("--beamsize", default=5, type=int,
+                        help="CTC-family beam width: accepted for the JAX "
+                             "command's sake, CRF models do not read it")
     parser.add_argument("--weights", default=0, type=int,
                         help="checkpoint epoch (0 = latest)")
     parser.add_argument("--chunksize", default=None, type=int)
@@ -135,10 +152,14 @@ def argparser():
     for flag in ("--reference", "--cram", "--bam", "--save-ctc",
                  "--mods-model", "--read-group", "--profile"):
         not_ported.add_argument(flag, default=None)
-    for flag in ("--beamsize", "--beam", "--superbatch"):
-        not_ported.add_argument(flag, default=None, type=int)
-    for flag in ("--ctc-min-coverage", "--ctc-min-accuracy"):
-        not_ported.add_argument(flag, default=None, type=float)
+    not_ported.add_argument("--beam", default=0, type=int,
+                            help="only 0 (Viterbi)")
+    not_ported.add_argument("--superbatch", default=1, type=int,
+                            help="only 1")
+    not_ported.add_argument("--ctc-min-coverage", default=0.90, type=float,
+                            help="read with --save-ctc only")
+    not_ported.add_argument("--ctc-min-accuracy", default=0.95, type=float,
+                            help="read with --save-ctc only")
     for flag in ("--sam", "--qscores", "--ub-only"):
         not_ported.add_argument(flag, action="store_true")
     return parser

@@ -2,10 +2,13 @@
 
 Port of ``xna_basecaller_tpu/cli/train.py`` (reference surface:
 ub-bonito/bonito/cli/train.py) with every flag of the JAX command plus
-``--device``.  The augmentations (``--spike``, ``--stitch`` and their
-knobs) and ``--profile`` (a JAX trace) are not ported yet: each is refused
-with an error instead of being ignored.  Without ``--config`` or
-``--pretrained`` the flagship ``ModelConfig()`` is trained.
+``--device``.  The augmentations (``--spike``, ``--stitch``) and
+``--profile`` (a JAX trace) are not ported yet: each is refused with an
+error instead of being ignored.  Their knobs (``--ubs``, ``--ub-prop``
+...) are accepted: JAX reads them only with ``--spike`` or ``--stitch``
+(``need_bkps``) and trains without augmentation otherwise, as this
+command does.  Without ``--config`` or ``--pretrained`` the flagship
+``ModelConfig()`` is trained.
 """
 
 from __future__ import annotations
@@ -15,19 +18,15 @@ import os
 import sys
 
 # flag -> argparse dest of the options that are not ported yet
-NOT_PORTED = {
-    "--profile": "profile", "--spike": "spike", "--stitch": "stitch",
-    "--ubs": "ubs", "--ub-prop": "ub_prop", "--var-prop-ubs": "var_prop_ubs",
-    "--no-mix-ubs": "no_mix_ubs", "--ub-pad": "ub_pad",
-    "--synth-prop-ubs": "synth_prop_ubs", "--xna-ctc-dir": "xna_ctc_dir",
-    "--cand-sample-size": "cand_sample_size",
-    "--stitch-relax": "stitch_relax",
-    "--weighted-pos-pick": "weighted_pos_pick",
-    "--permute-win-size": "permute_win_size",
-    "--stitch-noise-std": "stitch_noise_std",
-    "--stitch-noise-mode": "stitch_noise_mode", "--noise-std": "noise_std",
-    "--std-dist": "std_dist", "--fully-synth": "fully_synth",
-}
+NOT_PORTED = {"--profile": "profile", "--spike": "spike", "--stitch": "stitch"}
+# the augmentations' knobs, inert without --spike and --stitch
+AUGMENT_KNOBS = (
+    "--ubs", "--ub-prop", "--var-prop-ubs", "--no-mix-ubs", "--ub-pad",
+    "--synth-prop-ubs", "--xna-ctc-dir", "--cand-sample-size",
+    "--stitch-relax", "--weighted-pos-pick", "--permute-win-size",
+    "--stitch-noise-std", "--stitch-noise-mode", "--noise-std", "--std-dist",
+    "--fully-synth",
+)
 _FLAGS = {"--no-mix-ubs", "--stitch-relax", "--weighted-pos-pick",
           "--fully-synth", "--spike", "--stitch"}
 _FLOATS = {"--ub-prop", "--var-prop-ubs", "--synth-prop-ubs",
@@ -136,10 +135,14 @@ def argparser():
     parser.add_argument("--unfreeze-top", default=3, type=int)
     not_ported = parser.add_argument_group(
         "not ported yet (each is refused with an error)")
-    for flag in NOT_PORTED:
+    not_ported.add_argument("--profile", default=None)
+    knobs = parser.add_argument_group(
+        "augmentation knobs (read only with --spike or --stitch)")
+    for flag in ("--spike", "--stitch", *AUGMENT_KNOBS):
+        group = not_ported if flag in NOT_PORTED else knobs
         if flag in _FLAGS:
-            not_ported.add_argument(flag, action="store_true")
+            group.add_argument(flag, action="store_true")
         else:
             kind = float if flag in _FLOATS else int if flag in _INTS else str
-            not_ported.add_argument(flag, default=None, type=kind)
+            group.add_argument(flag, default=None, type=kind)
     return parser

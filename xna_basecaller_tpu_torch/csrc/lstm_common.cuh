@@ -3,7 +3,9 @@
 // staging, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulation), the
 // grid barrier of a persistent cooperative launch and its co-residency
 // check; the per-CTA ready flags, the cluster barrier and distributed
-// shared memory loads of the clustered launches, and their launch.
+// shared memory loads of the clustered launches, and their launch; the
+// mbarrier ring fed by bulk copies (TMA), the quad and pair exchanges of
+// gates and cells, and wgmma's fences and operand descriptors.
 
 #pragma once
 
@@ -144,6 +146,152 @@ __device__ __forceinline__ void wait_flags(const unsigned int* flags, int n,
     for (int i = lane; i < n; i += 32)
       ready = ready && ld_acquire(flags + i) >= target;
   } while (!__all_sync(0xffffffffu, ready));
+}
+
+// The step's stores of the `threads` threads of named barrier 1, then one
+// release add by thread 0: the barrier orders every thread's stores before
+// it, the release makes them visible at the GPU scope before the count.
+__device__ __forceinline__ void publish_cta(unsigned int* flag, int threads) {
+  asm volatile("bar.sync 1, %0;" :: "r"(threads) : "memory");
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(flag) : "memory");
+}
+
+// One poll of the flags [0, n) (n <= 64), the warp's lanes in parallel:
+// bit c of the result is set when the `per` flags [c per, (c + 1) per)
+// (the writers of chunk c; fewer at the end) all count `target`.  The
+// loads are relaxed (no cache invalidation each); when a chunk is ready,
+// one acquire fence orders the reads that follow after its writers.
+__device__ __forceinline__ unsigned long long ready_chunks(
+    const unsigned int* flags, int n, int per, unsigned int target) {
+  const int lane = threadIdx.x % 32;
+  unsigned long long done = 0;
+  for (int g = 0; g < n; g += 32) {
+    const int i = g + lane;
+    unsigned int v = target;
+    if (i < n)
+      asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(flags + i) : "memory");
+    done |= (unsigned long long)__ballot_sync(0xffffffffu, v >= target) << g;
+  }
+  unsigned long long chunks = 0;
+  const unsigned long long one = (1ull << per) - 1;
+  for (int c = 0; c * per < n; ++c)
+    if (((done >> (c * per)) & one) == one) chunks |= 1ull << c;
+  if (chunks) asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  __syncwarp();   // every lane's fence now orders every lane's reads
+  return chunks;
+}
+
+// Lanes q and q ^ 1 of a quad hold the values of units 2 j + (q & 1), j =
+// 0..3, of one row: returns in out[0..3] those of units 4 (q & 1) + 0..3,
+// so that each lane stores 4 consecutive units.
+__device__ __forceinline__ void pair_units(const float (&v)[4],
+                                           float (&out)[4]) {
+  const int e = threadIdx.x & 1;
+  const float r0 = __shfl_xor_sync(0xffffffffu, e ? v[0] : v[2], 1);
+  const float r1 = __shfl_xor_sync(0xffffffffu, e ? v[1] : v[3], 1);
+  out[0] = e ? r0 : v[0];
+  out[1] = e ? v[2] : r0;
+  out[2] = e ? r1 : v[1];
+  out[3] = e ? v[3] : r1;
+}
+
+// mbarriers in shared memory and the bulk copy (TMA without a tensor map)
+// that completes on one: a ring stage is "full" when its bytes have landed
+// and "empty" when its consumers have arrived.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// Arrive on `bar`, announcing `bytes` more bytes for its current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+      :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// `bytes` (a multiple of 16) from global `src` into shared `dst`, both
+// 16-byte aligned, completing on `bar` (armed by mbar_expect_tx).  The
+// generic-proxy stores that the caller acquired (through a ready flag) are
+// ordered before this async-proxy read by the proxy fence.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The accumulator of an m16n8 product whose 8 columns are 2 units x 4 gates
+// (column 2 gate + e, unit e): lane q of a quad holds gate q of the four
+// cells (e, row half) = d 0..3 (rows lane/4 and lane/4 + 8).  Returns in
+// g[0..3] the four gates of cell d = q, by three rotations in the quad.
+__device__ __forceinline__ void quad_transpose(const float (&v)[4],
+                                               float (&g)[4]) {
+  const int q = threadIdx.x % 4;
+  float got[4];
+  got[0] = q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
+#pragma unroll
+  for (int r = 1; r < 4; ++r) {
+    // lane q reads v[q] of lane (q + r) % 4, which sends v[(own - r) % 4]
+    const int i = (q - r) & 3;
+    const float send = i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+    got[r] = __shfl_sync(0xffffffffu, send, (threadIdx.x & ~3) | ((q + r) & 3));
+  }
+  // gate k came in round (k - q) % 4
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = (k - q) & 3;
+    g[k] = r == 0 ? got[0] : r == 1 ? got[1] : r == 2 ? got[2] : got[3];
+  }
+}
+
+// wgmma (warpgroup products on shared-memory operands): its fences, and
+// the descriptor of an operand tile.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(kPending) : "memory");
+}
+// Keeps the compiler from moving accesses of the accumulator across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// Descriptor of a K-major operand in shared memory with the 128-byte
+// swizzle (rows of 64 bf16, groups of 8 rows 1024 bytes apart; the group
+// 1024-byte aligned), starting at `p`: the k offset is added to the start
+// address, the swizzle is applied by the hardware.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
 // Thread block clusters: the CTA's rank, a barrier over the cluster (with

@@ -22,45 +22,76 @@
 // [N,H]x[H,4H] product that cannot start before the previous step's h is
 // complete, and W_hh (4.5 MB in bf16) fits no SM, so every step crosses
 // SMs: h goes out to L2 and comes back.  The time per step is a sum of
-// latencies (a flag or barrier round trip, L2 to shared memory, the
-// product, the cell update and its stores), not of bandwidth.
+// latencies (a flag round trip, L2 to shared memory, the product, the cell
+// update and its stores), not of bandwidth.
 //
 // One persistent launch per layer (per group of batch rows); each CTA owns
 // a slice of the hidden units, keeps their four gate columns of W_hh in
 // shared memory for the whole scan and their cells in registers; h is
 // double buffered in global memory; only xp, ys (and cs) stream through
-// HBM.  The entry point checks that the whole grid can be resident and
-// refuses one that cannot.  Two bf16 designs, chosen from the shape:
+// HBM.  In place of a grid barrier, a CTA adds one to its ready flag when
+// its h of a step is stored (a release), and its consumers wait only for
+// the flags of the h they read.  The entry point checks that the whole
+// grid can be resident and refuses one that cannot.  Two bf16 designs,
+// chosen from the shape:
 //
 // N <= 64 and H % 32 == 0 (K3a at the training batch, K1 on the validation
-// batch): lstm_bf16_cluster_kernel.  The first design (the tiled one below
-// at every N) spent 12.2 us a step at N=64 (H100, T=720, H=768): a fit of
-// 8.2 us fixed + 61 ns a row, of which a grid barrier alone is 1.3 us; 48
-// blocks on 132 SMs and 4 of 8 warps idle at 64 rows.  Here the CTAs come
-// in clusters of 2 that share 16 units: each holds the W_hh rows of half
-// the depth H (48 KB) and stages only that half of h, and the two partial
-// [64, 64] gate tiles are added through distributed shared memory (each
-// CTA then updates 8 units' cells): 96 CTAs, every warp busy at 64 rows.
-// In place of the grid barrier each warp adds one to its CTA's ready flag
-// after its h stores (a release), and a CTA waits only for the 48
-// producers of the half of h it reads; xp is loaded a step ahead.  7.8 us
-// a step at N=64; switching off each part in turn saves: the flag wait
-// 1.9 us, the staging 1.3, the product 2.0, the cluster exchange 1.4
-// (they overlap, so they do not add up).
+// batch): lstm_bf16_cluster_kernel.  The first design (a tiled kernel with
+// a grid barrier at every N) spent 12.2 us a step at N=64 (H100, T=720,
+// H=768): a fit of 8.2 us fixed + 61 ns a row, of which a grid barrier
+// alone is 1.3 us; 48 blocks on 132 SMs and 4 of 8 warps idle at 64 rows.
+// Here the CTAs come in clusters of 2 that share 16 units: each holds the
+// W_hh rows of half the depth H (48 KB) and stages only that half of h,
+// and the two partial [64, 64] gate tiles are added through distributed
+// shared memory (each CTA then updates 8 units' cells): 96 CTAs, every warp
+// busy at 64 rows.  Each warp publishes its own flag count after its h
+// stores, and a CTA waits only for the 48 producers of the half of h it
+// reads; xp is loaded a step ahead.  7.8 us a step at N=64; switching off
+// each part in turn saves: the flag wait 1.9 us, the staging 1.3, the
+// product 2.0, the cluster exchange 1.4 (they overlap, so they do not add
+// up).  For this product wgmma, clusters of 4, four staging chunks and
+// W_hh held in registers were tried and were slower (one [64, 64] tile a
+// CTA a step).
 //
-// N > 64 (K1 at the basecall batch, 128-row tiles): lstm_bf16_kernel, the
-// first design, kept because four clustered launches of 64 rows take
-// twice its time at N=256.  A block owns 16 units (110 KB of W_hh with
-// padding) for one tile of 128 batch rows: 96 blocks at N=256; h is staged
-// 64 columns at a time through a cp.async ring; each warp owns a 32 x 32
-// tile of the [128, 64] gate product; a grid barrier separates the steps.
+// N > 64 (K1 at the basecall batch, K3a's launches past 64 rows):
+// lstm_bf16_wg_kernel, one launch of up to 256 rows.  CTA b owns 16 units
+// (their 64 gate columns of W_hh, 96 KB) for one tile of 128 batch rows:
+// 96 CTAs at N=256, the two tiles independent of each other.
+//   - h is exchanged in global memory in 128-column chunks, each made of
+//     two 64-column sub-chunks whose rows are contiguous (128 B a row), the
+//     16-byte pieces swizzled by the row (piece p of row n at p ^ (n % 8)):
+//     the 128-byte swizzle of wgmma's operands.  A producer warp polls the
+//     flags of its row tile (all of them at once, relaxed loads and one
+//     acquire fence) and brings each chunk whose 8 writers are done, in the
+//     order they finish, by one 32 KB bulk copy (TMA, no tensor map) into
+//     a ring of shared-memory stages (4 at H=768), completing on an
+//     mbarrier.
+//   - Two consumer warpgroups each multiply their 64 rows of a stage by
+//     W's slice (stored [k-tile][64 n][64 k], the same swizzle) with
+//     wgmma m64n64k16, both operands read from shared memory, and release
+//     the stage through a second mbarrier once the product is done.
+//   - W's columns are unit-major (within each 8-column block, column
+//     2 gate + e of unit e), so a thread's accumulators hold one gate of
+//     four cells and a rotation in its quad of lanes gives it the four
+//     gates of one cell: the cell update runs from registers and no gate
+//     goes through shared memory; an exchange with the neighbouring lane
+//     turns h into 8-byte stores.  xp is loaded a step ahead with 16-byte
+//     loads; the CTA publishes one flag count a step after a named barrier.
+// 10.3-10.4 ms a layer at N=256 against 11.2-11.3 for the tiled kernel with
+// a grid barrier that it replaces, timed in turns (H100 80GB HBM3, 700 W):
+// ~14.3 us a step, at 128 rows as at 256.  A clock64 profile of the same
+// design with 64-column chunks (16.8 us a step, instrumented) put 2.2 us in
+// the wait for the first chunk, 6.0 in the other 11 with their products,
+// 5.6 in the epilogue (2.2 of it the cell math) and 0.6 in the release;
+// the 12 ring hand-offs alone cost ~2.4 us, hence the larger chunks (192
+// or 256 columns: 10.2-10.3, within the spread, on fewer stages).  Tried
+// and dropped, each timed in turns with the tiled kernel on one card: the
+// product on mma.sync 32 x 32 warp tiles, 12.0-14.8 ms; chunks taken in
+// index order, 11.96 (wgmma) and 12.25-14.8 (mma.sync); clusters of 2 or 4
+// CTAs receiving each chunk by multicast, 18.1-18.7.
 //
-// Both run mma.sync m16n8k16 (f32 accumulation) on operands loaded with
-// ldmatrix.  For the clustered product wgmma, clusters of 4, four staging
-// chunks and W_hh held in registers were tried and were slower at these
-// shapes (one [64, 64] tile a CTA a step).  f32 (the parity mode): a
-// block owns 8 units for all rows (up to 256), FMA on the CUDA cores, a
-// grid barrier.
+// f32 (the parity mode): a block owns 8 units for all rows (up to 256), FMA
+// on the CUDA cores, a grid barrier.
 //
 // A launch takes at most kGroupRows batch rows; the wrapper launches once
 // per group of rows (rows are independent), with xp and ys strided by the
@@ -75,18 +106,15 @@ using namespace xna;
 constexpr int kThreads = 256;
 constexpr int kGroupRows = 256;     // batch rows per launch
 
-// bf16 path
-constexpr int kUnits = 16;          // hidden units owned by one block
-constexpr int kCols = 4 * kUnits;   // their gate columns, gate-major
-constexpr int kRows = 128;          // batch rows of one block
-constexpr int kWarpRows = 32;       // each warp: a 32 x 32 tile of the
-constexpr int kWarpCols = 32;       // block's [kRows, kCols] product
-constexpr int kChunk = 64;          // h columns per pipeline stage
-constexpr int kStages = 4;
-constexpr int kLdW = kCols + 8;     // padded shared-memory row strides:
-constexpr int kLdH = kChunk + 8;    // 144 B rows keep ldmatrix free of
-constexpr int kLdG = kCols + 4;     // bank conflicts
-constexpr int kCells = kRows * kUnits / kThreads;   // per thread
+// bf16 path at kCRows < N <= kGroupRows: the wgmma kernel
+constexpr int kUnits = 16;          // hidden units of one CTA
+constexpr int kCols = 4 * kUnits;   // their gate columns, unit-major
+constexpr int kRRows = 128;         // batch rows of one CTA (a row tile)
+constexpr int kHChunk = 64;         // h columns per sub-chunk (128 B)
+constexpr int kSubs = 2;            // sub-chunks per exchanged chunk
+constexpr int kCWarps = 8;          // consumer warps: two warpgroups
+constexpr int kRThreads = 32 * (kCWarps + 1);   // and a producer warp
+constexpr int kMaxStages = 8;       // ring stages of h chunks
 
 // bf16 path at N <= kCRows: clusters of two CTAs
 constexpr int kCUnits = 16;         // hidden units of one cluster
@@ -124,145 +152,252 @@ __device__ void load_w_slice(const T* w_hh, T* w_s, int H, int u0, int units,
   }
 }
 
-// Columns [k0, k0 + kc) of h rows [r0, r0 + mrows) into dst [mrows][kLdH].
-// Rows past the block's `rows` valid ones (up to the 16-row tile) repeat
-// the last valid row: their products are computed and never used.
-__device__ void stage_h(const bf16* h, bf16* dst, int r0, int rows,
-                        int mrows, int H, int k0, int kc) {
-  const int pieces = kc / 8;
-  for (int idx = threadIdx.x; idx < mrows * pieces; idx += kThreads) {
-    const int r = idx / pieces, p = idx % pieces;
-    const int src = r0 + min(r, rows - 1);
-    cp_async16(dst + (size_t)r * kLdH + p * 8, h + (size_t)src * H + k0 + p * 8);
-  }
+// Four floats as four bf16 (8 bytes).
+__device__ __forceinline__ uint2 pack_bf16x4(const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                    *reinterpret_cast<const uint32_t*>(&b));
 }
 
+// wgmma m64n64k16 of one warpgroup, bf16 in, f32 accumulation: d += A B
+// with A [64 x 16] and B [16 x 64] read from shared memory through their
+// descriptors.  The accumulator of warp w of the group holds, for each
+// 8-column block j, d[4 j .. 4 j + 3] in mma.sync m16n8's layout at rows
+// 16 w + lane / 4 (+ 8).
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Position of h[n, k] in one buffer of the bf16 h exchange at N > 64:
+// [row tile n / 128][sub-chunk k / 64 of n_sub][row n % 128][64 columns],
+// 16-byte piece p of row n stored at p ^ (n % 8), so that the kSubs
+// sub-chunks of one exchanged chunk are contiguous for a row tile.
+__device__ __forceinline__ size_t hpos(int n, int k, int n_sub) {
+  const int kk = k % kHChunk;
+  return ((size_t)((n / kRRows) * n_sub + k / kHChunk) * kRRows + n % kRRows) *
+             kHChunk +
+         ((((kk / 8) ^ (n % 8)) * 8) | (kk % 8));
+}
+
+// The bf16 path for kCRows < N <= kGroupRows rows (the basecall batch; K3a
+// past 64 rows): CTA b owns units [16 (b % S), + 16) of row tile b / S
+// (S = H / 16 slices).  Warpgroup g (warps 4 g .. 4 g + 3) computes rows
+// [64 g, 64 g + 64) of the CTA's [128, 64] gate tile; warp 8 produces.
+// Step s:
+//   producer (s > 0): poll the tile's flags for step s; each 128-column
+//     chunk of h_s whose 8 writers are done, as soon as a ring stage is
+//     free: one bulk copy of the tile's 128 rows of it, its index in
+//     chunk_of;
+//   consumers: take the cells' xp[t] (loaded a step ahead), load xp[t + 1];
+//     (s > 0) for each stage in ring order, wait for it, add its product
+//     (wgmma), release the stage of the one before once its product is
+//     done; add xp, rotate the gates within each quad, update 8 cells; h to
+//     hbuf[(s + 1) & 1]; publish (one count a CTA); ys (and cs).
+// The double buffer of h is safe without a barrier: a CTA writes h_{s+1}
+// only after it has read all of h_s, that is after every CTA of its tile
+// has published step s - 1, hence finished reading h_{s-1}.
 template <bool kWriteCells>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_bf16_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ w_hh,
-                 bf16* __restrict__ ys, bf16* __restrict__ cs, bf16* hbuf,
-                 unsigned int* counter, int T, int N, int ld_n, int H,
-                 int reverse) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* w_s = reinterpret_cast<bf16*>(smem);                  // [H][kLdW]
-  bf16* ring = w_s + (size_t)H * kLdW;             // [kStages][kRows][kLdH]
-  float* g_s = reinterpret_cast<float*>(ring);     // [kRows][kLdG], reuses
-                                                   // the ring after the product
-  bf16* x_s = ring + (size_t)kStages * kRows * kLdH;         // [kRows][kCols]
+__global__ void __launch_bounds__(kRThreads, 1)
+lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
+                    const bf16* __restrict__ w_hh, bf16* __restrict__ ys,
+                    bf16* __restrict__ cs, bf16* hbuf, unsigned int* flags,
+                    int T, int N, int ld_n, int H, int reverse, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int n_sub = (H + kHChunk - 1) / kHChunk;
+  const int n_chunks = (n_sub + kSubs - 1) / kSubs;
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stages][kSubs][kRRows][kHChunk]
+  bf16* w_s = ring + (size_t)stages * kSubs * kRRows * kHChunk;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      w_s + (size_t)n_sub * kCols * kHChunk);
+  uint64_t* empty = full + stages;
+  int* chunk_of = reinterpret_cast<int*>(empty + stages);   // [stages]
 
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_slices = H / kUnits;
-  const int u0 = (blockIdx.x % n_slices) * kUnits;
-  const int r0 = (blockIdx.x / n_slices) * kRows;
-  const int rows = min(kRows, N - r0);
-  const int mrows = (rows + 15) / 16 * 16;
-  const int wr = warp % (kRows / kWarpRows) * kWarpRows;   // warp tile
-  const int wc = warp / (kRows / kWarpRows) * kWarpCols;
-  const bool has_tile = wr < rows;
-  const size_t H4 = 4 * (size_t)H;
-  const int n_chunks = (H + kChunk - 1) / kChunk;
-  constexpr int kPieces = kUnits / 8;     // 16-byte pieces per (row, gate)
+  const int slice = blockIdx.x % n_slices, tile = blockIdx.x / n_slices;
+  const int u0 = slice * kUnits, r0 = tile * kRRows;
+  const int rows = min(kRRows, N - r0);
+  const int Np = (N + kRRows - 1) / kRRows * kRRows;
+  const size_t H4 = 4 * (size_t)H, hb = (size_t)n_sub * Np * kHChunk;
+  unsigned int* tile_flags = flags + tile * n_slices;
 
-  load_w_slice(w_hh, w_s, H, u0, kUnits, kLdW);
-  float c_reg[kCells];
-#pragma unroll
-  for (int i = 0; i < kCells; ++i) c_reg[i] = 0.0f;
+  // W's slice as the B operand: column n is gate (n % 8) / 2 of unit
+  // 2 (n / 8) + n % 2
+  for (int idx = tid; idx < H * kCols; idx += kRThreads) {
+    const int k = idx / kCols, n = idx % kCols, kk = k % kHChunk;
+    const int unit = n / 8 * 2 + n % 2, gate = n % 8 / 2;
+    w_s[((size_t)(k / kHChunk) * kCols + n) * kHChunk +
+        (((kk / 8) ^ (n % 8)) * 8) + kk % 8] =
+        w_hh[(size_t)k * H4 + (size_t)gate * H + u0 + unit];
+  }
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kCWarps);
+    }
+    mbar_init_fence();
+  }
+  // W's generic stores, then wgmma's async-proxy reads of them
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
+
+  if (warp == kCWarps) {   // the producer
+    const unsigned sub_bytes = kRRows * kHChunk * 2;
+    unsigned it = 0;
+    for (int s = 1; s < T; ++s) {
+      const bf16* h_cur = hbuf + (size_t)(s & 1) * hb;
+      unsigned long long left = (1ull << n_chunks) - 1;   // to bring
+      while (left) {
+        unsigned long long ready =
+            ready_chunks(tile_flags, n_slices, kSubs * kHChunk / kUnits, s) &
+            left;
+        left &= ~ready;
+        while (ready) {
+          const int c = __ffsll(ready) - 1, st = it % stages;
+          ready &= ready - 1;
+          if (it >= (unsigned)stages)
+            mbar_wait(empty + st, (it / stages - 1) & 1);
+          if (lane == 0) {
+            const unsigned bytes = min(kSubs, n_sub - kSubs * c) * sub_bytes;
+            chunk_of[st] = c;
+            mbar_expect_tx(full + st, bytes);
+            bulk_copy(ring + (size_t)st * kSubs * kRRows * kHChunk,
+                      h_cur + (size_t)(tile * n_sub + kSubs * c) * kRRows *
+                                  kHChunk,
+                      bytes, full + st);
+          }
+          __syncwarp();
+          ++it;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const bool has_tile = 64 * wg < rows;
+  const int q = lane % 4;
+  const int row0 = 64 * wg + 16 * (warp % 4) + lane / 4;   // and row0 + 8
+  // the xp of gate q, units u0 + [8 hf, 8 hf + 8), row row0 + 8 e of step
+  // s2: this step's and the next's
+  uint4 x_raw[2][2], x_next[2][2];
+  auto load_x = [&](int s2) {
+    const int t2 = reverse ? T - 1 - s2 : s2;
+    const bf16* x_t = xp + ((size_t)t2 * ld_n + r0) * H4 + (size_t)q * H + u0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        x_next[e][hf] = __ldg(reinterpret_cast<const uint4*>(
+            x_t + (size_t)min(row0 + 8 * e, rows - 1) * H4 + 8 * hf));
+  };
+  // units u0 + 2 j and the next, row row0 + 8 e
+  auto x_of = [&](int j, int e) {
+    const uint4& r = x_raw[e][j / 4];
+    const int c = j % 4;
+    const uint32_t w = c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w;
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  };
+  float c_reg[2][4] = {};
+  load_x(0);
+  unsigned it = 0;
+  const bf16* a_base = ring + (size_t)64 * wg * kHChunk;
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    const bf16* h_cur = hbuf + (size_t)(s & 1) * N * H;
-    bf16* h_next = hbuf + (size_t)((s + 1) & 1) * N * H;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) x_raw[e][hf] = x_next[e][hf];
+    load_x(min(s + 1, T - 1));
 
-    // this step's input projections of the block's cells: [row][gate][unit]
-    const bf16* x_t = xp + ((size_t)t * ld_n + r0) * H4 + u0;
-    for (int idx = tid; idx < rows * 4 * kPieces; idx += kThreads) {
-      const int n = idx / (4 * kPieces), g = idx / kPieces % 4,
-                p = idx % kPieces;
-      cp_async16(x_s + n * kCols + g * kUnits + p * 8,
-                 x_t + (size_t)n * H4 + (size_t)g * H + p * 8);
-    }
-    cp_async_commit();
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < n_chunks)
-        stage_h(h_cur, ring + (size_t)st * kRows * kLdH, r0, rows, mrows, H,
-                st * kChunk, min(kChunk, H - st * kChunk));
-      cp_async_commit();
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    if (s > 0) {
+      if (has_tile) wgmma_fence();
+      int prev = -1;
+      for (int c = 0; c < n_chunks; ++c, ++it) {
+        const int st = it % stages;
+        mbar_wait(full + st, (it / stages) & 1);
+        const int cc = *(volatile int*)(chunk_of + st);
+        if (has_tile) {
+          for (int j = 0; j < kSubs && kSubs * cc + j < n_sub; ++j) {
+            const int sub = kSubs * cc + j;
+            const bf16* a_st =
+                a_base + ((size_t)st * kSubs + j) * kRRows * kHChunk;
+            const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;
+            const int kc = min(kHChunk, H - sub * kHChunk);
+            for (int kk = 0; kk < kc; kk += 16)
+              wgmma_64x64(acc, sw128_desc(a_st + kk), sw128_desc(b_t + kk));
+          }
+          wgmma_commit();
+          wgmma_wait<1>();   // the previous chunk's products are done
+        }
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + prev);
+        }
+        prev = st;
+      }
+      if (has_tile) wgmma_wait<0>();
+      fence_acc(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + prev);
     }
 
-    // acc[i][j]: rows wr + 16 i, columns wc + 8 j of the product
-    float acc[kWarpRows / 16][kWarpCols / 8][4] = {};
-    for (int c = 0; c < n_chunks; ++c) {
-      // chunk c has landed once at most kStages - 2 newer groups are pending
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      // refill the buffer that every warp finished with in step c - 1
-      const int nc = c + kStages - 1;
-      if (nc < n_chunks)
-        stage_h(h_cur, ring + (size_t)(nc % kStages) * kRows * kLdH, r0, rows,
-                mrows, H, nc * kChunk, min(kChunk, H - nc * kChunk));
-      cp_async_commit();
-      if (!has_tile) continue;
-      const bf16* a_tile =
-          ring + (size_t)(c % kStages) * kRows * kLdH + wr * kLdH;
-      const bf16* b_tile = w_s + (size_t)c * kChunk * kLdW + wc;
-      const int kc = min(kChunk, H - c * kChunk);
-#pragma unroll 4
-      for (int kk = 0; kk < kc; kk += 16) {
-        uint32_t a[kWarpRows / 16][4], b[kWarpCols / 16][4];
+    // lane q holds gate q of the cells (unit 2 j + d % 2, row row0 +
+    // 8 (d / 2)); after the rotation, the four gates of the cell of unit
+    // 2 j + q % 2, row row_q; after pair_units, the h (and c) of units
+    // 8 hf + 4 (q % 2) + 0..3 of that row
+    bf16* h_next = hbuf + (size_t)((s + 1) & 1) * hb;
+    const int row_q = row0 + 8 * (q / 2);
+    float h[2][4];
 #pragma unroll
-        for (int i = 0; i < kWarpRows / 16; ++i)
-          load_a(a[i], a_tile + i * 16 * kLdH + kk, kLdH);
+    for (int j = 0; j < 8; ++j) {
+      const float2 x0 = x_of(j, 0), x1 = x_of(j, 1);
+      const float v[4] = {acc[4 * j] + x0.x, acc[4 * j + 1] + x0.y,
+                          acc[4 * j + 2] + x1.x, acc[4 * j + 3] + x1.y};
+      float g[4];
+      quad_transpose(v, g);
+      h[j / 4][j % 4] = lstm_cell(g[0], g[1], g[2], g[3], c_reg[j / 4][j % 4]);
+    }
+    uint2 hv[2], cv[2];
 #pragma unroll
-        for (int j = 0; j < kWarpCols / 16; ++j)
-          load_b(b[j], b_tile + (size_t)kk * kLdW + j * 16, kLdW);
+    for (int hf = 0; hf < 2; ++hf) {
+      float hp[4];
+      pair_units(h[hf], hp);
+      hv[hf] = pack_bf16x4(hp);
+      if (kWriteCells) {
+        float cp[4];
+        pair_units(c_reg[hf], cp);
+        cv[hf] = pack_bf16x4(cp);
+      }
+      if (row_q < rows)
+        *reinterpret_cast<uint2*>(h_next + hpos(r0 + row_q,
+                                                u0 + 8 * hf + 4 * (q % 2),
+                                                n_sub)) = hv[hf];
+    }
+    // h is published before ys and cs are stored
+    publish_cta(tile_flags + slice, kCWarps * 32);
+    if (row_q < rows) {
 #pragma unroll
-        for (int i = 0; i < kWarpRows / 16; ++i)
-#pragma unroll
-          for (int j = 0; j < kWarpCols / 8; ++j)
-            mma_16816(acc[i][j], a[i], b[j / 2][(j % 2) * 2],
-                      b[j / 2][(j % 2) * 2 + 1]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const size_t o = ((size_t)t * ld_n + r0 + row_q) * H + u0 + 8 * hf +
+                         4 * (q % 2);
+        *reinterpret_cast<uint2*>(ys + o) = hv[hf];
+        if (kWriteCells) *reinterpret_cast<uint2*>(cs + o) = cv[hf];
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();   // every warp is done with the ring: it becomes g_s
-    if (has_tile) {
-      // accumulator layout of m16n8: rows lane/4 and lane/4 + 8, columns
-      // 2 (lane % 4) and the next
-      const int lane = tid % 32;
-#pragma unroll
-      for (int i = 0; i < kWarpRows / 16; ++i)
-#pragma unroll
-        for (int j = 0; j < kWarpCols / 8; ++j) {
-          float* g = g_s + (wr + i * 16 + lane / 4) * kLdG + wc + j * 8 +
-                     2 * (lane % 4);
-          *reinterpret_cast<float2*>(g) = make_float2(acc[i][j][0], acc[i][j][1]);
-          *reinterpret_cast<float2*>(g + 8 * kLdG) =
-              make_float2(acc[i][j][2], acc[i][j][3]);
-        }
-    }
-    __syncthreads();
-
-    bf16* y_t = ys + ((size_t)t * ld_n + r0) * H + u0;
-#pragma unroll
-    for (int i = 0; i < kCells; ++i) {
-      const int idx = tid + i * kThreads;
-      const int n = idx / kUnits, u = idx % kUnits;
-      if (n >= rows) continue;
-      const bf16* x = x_s + n * kCols + u;
-      const float* g = g_s + n * kLdG + u;
-      const bf16 hv = __float2bfloat16_rn(lstm_cell(
-          __bfloat162float(x[0]) + g[0],
-          __bfloat162float(x[kUnits]) + g[kUnits],
-          __bfloat162float(x[2 * kUnits]) + g[2 * kUnits],
-          __bfloat162float(x[3 * kUnits]) + g[3 * kUnits], c_reg[i]));
-      h_next[(size_t)(r0 + n) * H + u0 + u] = hv;
-      y_t[(size_t)n * H + u] = hv;
-      if (kWriteCells)
-        cs[((size_t)t * ld_n + r0 + n) * H + u0 + u] =
-            __float2bfloat16_rn(c_reg[i]);
-    }
-    grid_barrier(counter, (unsigned int)(s + 1) * gridDim.x);
   }
 }
 
@@ -516,10 +651,11 @@ extern "C" {
 // xp [T, ld_n, 4H] and ys [T, ld_n, H] point at the first of this launch's
 // N <= kGroupRows batch rows; w_hh [H, 4H]; all of one dtype (bf16 when
 // is_bf16, else f32), contiguous.  cs: null for K1; for K3a, [T, ld_n, H]
-// of that dtype like ys, which receives the cell states.  hbuf: [2, N, H]
-// of that dtype whose first half is zero (h_0).  flags: H zeroed uint32
-// (the ready flags of the cluster path, one per CTA; the grid barrier's
-// counter, the first, on the other paths).  Returns 0, a cudaError_t, or -1 (grid cannot be co-resident),
+// of that dtype like ys, which receives the cell states.  hbuf: zeros of
+// that dtype, xna_lstm_hbuf_elems(N, H) elements (h_0 and the exchange of
+// h).  flags: H zeroed uint32 (the ready flags of the bf16 paths, one per
+// CTA; the grid barrier's counter, the first, on the f32
+// path).  Returns 0, a cudaError_t, or -1 (grid cannot be co-resident),
 // -2 (unsupported shape), -3 (shared-memory request refused: H too large).
 int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
                         void* hbuf, void* flags, int T, int N, int ld_n,
@@ -546,21 +682,39 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
     return launch_clusters(fn, H / kCOwn, kCCluster, kThreads, smem, args, st);
   }
   if (is_bf16) {
-    const int blocks = H / kUnits * ((N + kRows - 1) / kRows);
-    const size_t smem = (size_t)H * kLdW * 2 +
-                        (size_t)kStages * kRows * kLdH * 2 +
-                        (size_t)kRows * kCols * 2;
-    const void* fn = cs ? reinterpret_cast<const void*>(&lstm_bf16_kernel<true>)
-                        : reinterpret_cast<const void*>(&lstm_bf16_kernel<false>);
-    if ((rc = co_resident(fn, smem, blocks, kThreads)) != 0) return rc;
+    const int blocks = H / kUnits * ((N + kRRows - 1) / kRRows);
+    int dev = 0, max_smem = 0;
+    if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+    if ((rc = cudaDeviceGetAttribute(
+             &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return rc;
+    if (H / kUnits > 64) return -2;   // the producer polls <= 64 flags
+    // 1 KB to align the swizzled tiles, W's slice and the barriers; the
+    // rest for as many ring stages as fit
+    const size_t fixed = 1024 +
+                         (size_t)(H + kHChunk - 1) / kHChunk * kCols *
+                             kHChunk * 2 +
+                         24 * kMaxStages;
+    const size_t stage = (size_t)kSubs * kRRows * kHChunk * 2;
+    int stages = (max_smem - (int)fixed) / (int)stage;
+    if (stages > kMaxStages) stages = kMaxStages;
+    if (stages < 2) return -3;
+    const size_t smem = fixed + stages * stage;
+    const void* fn =
+        cs ? reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<true>)
+           : reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<false>);
+    if ((rc = co_resident(fn, smem, blocks, kRThreads)) != 0) return rc;
     const bf16* a0 = static_cast<const bf16*>(xp);
     const bf16* a1 = static_cast<const bf16*>(w_hh);
     bf16* a2 = static_cast<bf16*>(ys);
     bf16* a3 = static_cast<bf16*>(cs);
     bf16* a4 = static_cast<bf16*>(hbuf);
     void* args[] = {&a0, &a1, &a2, &a3, &a4, &ctr, &T, &N, &ld_n, &H,
-                    &reverse};
-    rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
+                    &reverse, &stages};
+    // cooperative: the whole grid is resident (the CTAs wait on each
+    // other's flags)
+    rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kRThreads), args,
                                      smem, st);
   } else {
     const int blocks = H / kUnitsF;
@@ -586,6 +740,14 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
 
 // Batch rows one launch takes; the wrapper splits larger batches.
 int xna_lstm_group_rows() { return kGroupRows; }
+
+// Elements of the h exchange buffer of a launch of N rows: two buffers of
+// the N > 64 path's padded layout (Np = N rounded up to kRRows rows, H
+// rounded up to kHChunk columns), which hold the other paths' [2, N, H].
+int xna_lstm_hbuf_elems(int N, int H) {
+  return 2 * ((N + kRRows - 1) / kRRows * kRRows) *
+         ((H + kHChunk - 1) / kHChunk * kHChunk);
+}
 
 const char* xna_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -150,9 +150,12 @@ def quantize_w_hh(w: torch.Tensor):
     """Per-column symmetric int8 quantization (``lstm_pallas.py:197-202``):
     w [K, M] -> (w_q int8 [K, M], scale f32 [M]) with w ~= w_q * scale.
     ``scale = max(max_k |w|, 1e-8) / 127``; ``w_q = clip(round(w / scale))``
-    rounds half to even, as ``jnp.round`` does."""
+    rounds half to even, as ``jnp.round`` does.  127 is a 0-dim tensor: on
+    the card PyTorch divides by a Python number as a product with its
+    reciprocal, which is one ulp off in some columns."""
     w = w.float()
-    scale = torch.clamp(w.abs().amax(0), min=1e-8) / 127.0
+    scale = torch.clamp(w.abs().amax(0), min=1e-8) / torch.full(
+        (), 127.0, device=w.device)
     w_q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
     return w_q, scale
 
@@ -165,20 +168,23 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     product accumulates exactly in int32, and ``out = acc * (xs *
     w_scale)``, in JAX's op order.
 
-    The product is ``torch._int_mm``: cuBLASLt on the card, which needs
-    more than 16 rows and K, M multiples of 8 (the flagship's 768, 3072
-    and 1296 are), and raises otherwise; any shape on the CPU."""
+    The product is ``torch._int_mm``: cuBLASLt on the card, which takes
+    more than 16 rows and K, M multiples of 8 only.  So any other shape (a
+    5-letter model's head has 625 columns) is padded with zeros to the
+    next such one, on every device, and the result sliced back: zeros
+    change neither ``xs`` nor any int32 sum, so the result is that of the
+    unpadded product, bit for bit."""
     lead, K = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, K).float()
-    if x.is_cuda and (xf.shape[0] <= 16 or K % 8 or w_q.shape[1] % 8):
-        raise ValueError(
-            f"int8_matmul on the card needs more than 16 rows and K, M "
-            f"multiples of 8, got {xf.shape[0]} x {K} @ {tuple(w_q.shape)}")
+    rows, M = xf.shape[0], w_q.shape[1]
     xs = torch.clamp(xf.abs().amax(), min=1e-8) * (1.0 / 127.0)
     x_q = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
+    pad_k, pad_m = -K % 8, -M % 8
+    x_q = torch.nn.functional.pad(x_q, (0, pad_k, 0, max(17 - rows, 0)))
     # w_q column-major ([M, K] contiguous, seen transposed): the TN operand
     # layout of cuBLASLt's int8 GEMM
-    acc = torch._int_mm(x_q, w_q.t().contiguous().t())
+    w_t = torch.nn.functional.pad(w_q.t(), (0, pad_k, 0, pad_m)).contiguous()
+    acc = torch._int_mm(x_q, w_t.t())[:rows, :M]
     return (acc.float() * (xs * w_scale)).reshape(*lead, -1)
 
 

@@ -21,11 +21,14 @@ LSTM layers and stack that run them.
 Their bounds on the card and what their designs do about them are set out
 at the top of the CUDA sources: one persistent launch per layer (per group
 of batch rows), W_hh split across the blocks' shared memory, and the 720
-dependent steps ordered by a grid barrier (K1 at more than 64 rows, K7) or,
-in bf16 at up to 64 rows (K3a, K3b, and K1 on the validation batch), by
-clusters of CTAs that split W_hh's depth and wait only for the per-CTA
-ready flags of the slice they read.  The reverse direction is read in
-reverse time inside the kernels instead of flipping the tensors.
+dependent steps ordered by per-CTA ready flags in bf16 (each CTA waits
+only for the producers of the h it reads): at up to 64 rows (K3a, K3b, K1
+on the validation batch) clusters of CTAs split W_hh's depth; at more
+than 64 (K1 at the basecall batch) each CTA brings the chunks of h as
+their writers finish by bulk copies (TMA) into an mbarrier ring and
+multiplies them on wgmma.  K7 and the f32 parity paths keep a grid
+barrier.  The reverse direction is read in reverse time inside the
+kernels instead of flipping the tensors.
 
 ``LSTMRecurrence`` is the ``torch.autograd.Function`` of the trainable
 recurrence (``lstm_recurrence_trainable``'s custom VJP): K3a forward, K3b
@@ -55,7 +58,8 @@ from xna_basecaller_tpu_torch.ops.lstm import (
 
 _MESSAGES = {
     -1: "the kernel's grid cannot be co-resident on this card",
-    -2: "shape not supported by the kernel (H must be a multiple of 16)",
+    -2: "shape not supported by the kernel (H must be a multiple of 16, "
+        "at most 1024 in bf16 past 64 rows)",
     -3: "the kernel's shared-memory request was refused (H too large)",
 }
 _MESSAGES_INT8 = {**_MESSAGES, -2: "shape not supported by the kernel (H "
@@ -70,6 +74,22 @@ def _lib(name: str, fn_name: str, argtypes):
     fn = getattr(lib, fn_name)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib, fn
+
+
+def _call(lib, name: str, *ints: int) -> int:
+    """The integer a library's size query returns for integer arguments."""
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = [_I] * len(ints), _I
+    return fn(*ints)
+
+
+def group_rows(source: str) -> int:
+    """Batch rows one launch of the recurrence of ``csrc/<source>.cu``
+    (``lstm_recurrence``: K1 and K3a; ``lstm_int8``: K7) takes; the
+    wrappers launch once per group of that many rows."""
+    name = {"lstm_recurrence": "xna_lstm_group_rows",
+            "lstm_int8": "xna_lstm_int8_group_rows"}[source]
+    return _call(_build.load(source), name)
 
 
 def _check(what: str, shapes: dict[str, tuple],
@@ -117,14 +137,13 @@ def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
     cs = torch.empty_like(ys) if cells else None
     lib, fn = _lib("lstm_recurrence", "xna_lstm_recurrence",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    group_rows = lib.xna_lstm_group_rows
-    group_rows.argtypes, group_rows.restype = [], _I
-    group = group_rows()
+    group = group_rows("lstm_recurrence")
     size = xp.element_size()
     stream = torch.cuda.current_stream().cuda_stream
     for n0 in range(0, N, group):
         rows = min(group, N - n0)
-        hbuf = torch.zeros(2, rows, H, dtype=xp.dtype, device=xp.device)
+        hbuf = torch.zeros(_call(lib, "xna_lstm_hbuf_elems", rows, H),
+                           dtype=xp.dtype, device=xp.device)
         flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
         rc = fn(xp.data_ptr() + n0 * 4 * H * size, w_hh.data_ptr(),
                 ys.data_ptr() + n0 * H * size,
@@ -211,9 +230,7 @@ def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
     ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
     lib, fn = _lib("lstm_int8", "xna_lstm_int8",
                    [_P] * 6 + [_I] * 6 + [_P])
-    group_rows = lib.xna_lstm_int8_group_rows
-    group_rows.argtypes, group_rows.restype = [], _I
-    group = group_rows()
+    group = group_rows("lstm_int8")
     size = xp.element_size()
     stream = torch.cuda.current_stream().cuda_stream
     for n0 in range(0, N, group):

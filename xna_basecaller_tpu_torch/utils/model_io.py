@@ -58,7 +58,7 @@ def load_model(dirname: str, device: str | torch.device = "cuda",
     if cfg.is_ctc:
         raise NotImplementedError(
             f"{dirname}: the CTC (QuartzNet) model family is not ported yet")
-    epoch = weights if weights else latest_epoch(dirname)
+    epoch = weights if weights is not None else latest_epoch(dirname)
     if epoch is None:
         raise FileNotFoundError(
             f"no weights_N.npz in '{dirname}' (reference-format torch "
