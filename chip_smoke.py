@@ -46,11 +46,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      time = a + b x rows, over N <= 64 and over 128-256 rows); K7 beside
      K1 on K7's input (bf16 W_hh) as medians of 21 in turns; with
      ``--baseline DIR``, the K1 and K7 of that tree in the same turns; the
-     batch's other stages (conv, input projection, head, decode; for the
-     quantized batch the int8 projection and the int8 head), one batch
-     through model and decode, the pipeline's samples/s over the same
-     reads four times, both unquantized and quantized, and one training
-     step with its breakdown;
+     CRF scans K2a at the basecall batch, K5a and K4 at the training batch
+     as medians of 21 samples of 10 calls (with ``--baseline DIR``, in
+     turns with that tree's kernels, whose betas, alphas and logZ they
+     must equal bit for bit), with the time a step, and the other CRF
+     kernels (K2b, K2c, K5b, K6a, K6b) by the same statistic; the batch's
+     other stages (conv, input projection, head, decode; for the quantized
+     batch the int8 projection and the int8 head), one batch through model and
+     decode, the pipeline's samples/s over the same reads four times, both
+     unquantized and quantized, and one training step with its breakdown;
   10. print the ``kernels`` JSON line, then the result line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -87,6 +91,7 @@ PEAK_F32 = 67e12
 
 N_READS, MEAN_LEN, SEED = 16, 120_000, 0
 TRAIN_BATCH, TRAIN_STEPS, VALID_CHUNKS = 64, 8, 16
+SCAN_BURST = 10   # calls a timed sample of the CRF kernels
 
 
 def fail(msg: str):
@@ -125,11 +130,14 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def in_turns(fns: dict, reps: int = 21) -> dict:
-    """Median device time of each function over ``reps`` calls, each call
-    timed alone by CUDA events, all taken in turns in one stretch: the
-    order reverses every round (a, b, b, a, ...), so that a drift of the
-    card's clock or power falls on every function alike."""
+def in_turns(fns: dict, reps: int = 21, burst: int = 1) -> dict:
+    """Median device time of each function over ``reps`` samples, all taken
+    in turns in one stretch: the order reverses every round (a, b, b, a,
+    ...), so that a drift of the card's clock or power falls on every
+    function alike.  A sample is ``burst`` calls back to back between two
+    CUDA events, over ``burst``: with more than one, the card runs the
+    calls without waiting for the host to enqueue each (for kernels of
+    well under a millisecond, whose wrapper's host time would show)."""
     names = list(fns)
     for n in names:
         fns[n]()
@@ -140,11 +148,18 @@ def in_turns(fns: dict, reps: int = 21) -> dict:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fns[n]()
+            for _ in range(burst):
+                fns[n]()
             end.record()
             end.synchronize()
-            times[n].append(start.elapsed_time(end))
+            times[n].append(start.elapsed_time(end) / burst)
     return {n: statistics.median(v) for n, v in times.items()}
+
+
+def crf_ms(fn) -> float:
+    """Median device time of a CRF kernel's wrapper ``fn``, as ``in_turns``
+    takes it for the scans: 21 samples of SCAN_BURST calls back to back."""
+    return in_turns({"fn": fn}, burst=SCAN_BURST)["fn"]
 
 
 class CardSampler:
@@ -198,14 +213,11 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
             / want.float().abs().max()).item()
 
 
-def baseline_kernels(root: str) -> dict:
-    """K1 and K7 of another tree of this repository (``--baseline DIR``,
-    e.g. a ``git archive`` of the parent commit), built with nvcc from its
-    ``xna_basecaller_tpu_torch/csrc`` into this tree's build directory, to
-    be timed in turns with this tree's.  Their C interface is this tree's;
-    the scratch given them is large enough for either tree's layout of h.
-    Returns {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale,
-    reverse)}, bf16 xp of at most 256 rows."""
+def build_tree(root: str, names, tag: str, defines=()) -> dict:
+    """The kernel sources ``names`` of another tree of this repository
+    (``root``), built with nvcc from its ``xna_basecaller_tpu_torch/csrc``
+    into this tree's build directory as ``<tag>_<name>.so``, all started
+    together, with extra ``-D`` ``defines``; returns {name: CDLL}."""
     import ctypes
 
     from xna_basecaller_tpu_torch.ops import _build
@@ -213,20 +225,70 @@ def baseline_kernels(root: str) -> dict:
     csrc = os.path.join(root, "xna_basecaller_tpu_torch", "csrc")
     os.makedirs(_build.BUILD, exist_ok=True)
     procs = {}
-    for name in ("lstm_recurrence", "lstm_int8"):
-        out = os.path.join(_build.BUILD, f"baseline_{name}.so")
+    for name in names:
+        out = os.path.join(_build.BUILD, f"{tag}_{name}.so")
         procs[name] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
-             os.path.join(csrc, name + ".cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    fns = {}
+            [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+             "-o", out, os.path.join(csrc, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
     for name, (out, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode:
-            fail(f"the baseline tree's {name}.cu does not build:\n{text}")
-        entry = {"lstm_recurrence": "xna_lstm_recurrence",
-                 "lstm_int8": "xna_lstm_int8"}[name]
-        fn = getattr(ctypes.CDLL(out), entry)
+            fail(f"{tag}: {name}.cu of {root} does not build:\n{text}")
+        libs[name] = ctypes.CDLL(out)
+    return libs
+
+
+def scan_kernels(libs: dict, tag: str) -> dict:
+    """K2a and K4 through the C entry points of ``crf_decode`` and
+    ``crf_loss`` libraries built by ``build_tree``: {"K2a": fn(scores,
+    n_base, state_len) -> betas, "K4": fn(scores, n_base, state_len) ->
+    (alphas, logZ)}."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    backward = libs["crf_decode"].xna_crf_backward
+    backward.argtypes = [P, P, I, I, I, I, P]
+    forward = libs["crf_loss"].xna_crf_forward
+    forward.argtypes = [P, P, P, I, I, I, I, P]
+    backward.restype = forward.restype = ctypes.c_int
+
+    def scan(is_forward, scores, n_base, state_len):
+        T, N, _ = scores.shape
+        ns = n_base ** state_len
+        out = torch.empty(T + 1, N, ns, device=scores.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if is_forward:
+            logz = torch.empty(N, device=scores.device)
+            rc = forward(scores.data_ptr(), out.data_ptr(), logz.data_ptr(),
+                         T, N, n_base, ns, stream)
+        else:
+            rc = backward(scores.data_ptr(), out.data_ptr(), T, N, n_base,
+                          ns, stream)
+        if rc:
+            fail(f"{tag}: a CRF scan returned {rc}")
+        return (out, logz) if is_forward else out
+
+    return {"K2a": lambda sc, nb, sl: scan(False, sc, nb, sl),
+            "K4": lambda sc, nb, sl: scan(True, sc, nb, sl)}
+
+
+def baseline_kernels(root: str) -> dict:
+    """K1, K7, K2a and K4 of another tree of this repository (``--baseline
+    DIR``, e.g. a ``git archive`` of the parent commit), to be timed in
+    turns with this tree's.  Their C interface is this tree's; the scratch
+    given K1 and K7 is large enough for either tree's layout of h.  Returns
+    {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale, reverse)} for
+    bf16 xp of at most 256 rows, and K2a and K4 as ``scan_kernels``."""
+    import ctypes
+
+    libs = build_tree(root, ("lstm_recurrence", "lstm_int8", "crf_decode",
+                             "crf_loss"), "baseline")
+    fns = {}
+    for name, entry in (("lstm_recurrence", "xna_lstm_recurrence"),
+                        ("lstm_int8", "xna_lstm_int8")):
+        fn = getattr(libs[name], entry)
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -254,7 +316,8 @@ def baseline_kernels(root: str) -> dict:
     return {"K1": lambda xp, w, rev=False: launch(
                 "lstm_recurrence", xp, w, None, rev, xp.dtype),
             "K7": lambda xp, w_q, scale, rev=False: launch(
-                "lstm_int8", xp, w_q, scale, rev, torch.int8)}
+                "lstm_int8", xp, w_q, scale, rev, torch.int8),
+            **scan_kernels(libs, "the baseline tree")}
 
 
 def check_trainable_kernels(model, chunks, targets, lengths):
@@ -776,10 +839,50 @@ def rows_sweep(card):
             + "; " + "; ".join(fits) + f" on {card}")
 
 
+def crf_scan_turns(scores, train_scores, nb, sl, card, baseline):
+    """Phase 9 (the CRF scans): K2a at the basecall batch, K5a (K2a's
+    kernel) and K4 at the training batch, each the median of 21 samples of
+    SCAN_BURST calls back to back (the wrapper's host time would show in a
+    call timed alone: these kernels take well under a millisecond); with
+    ``--baseline``, taken in turns with the baseline tree's kernel after
+    checking that betas, alphas and logZ are bit-equal to its; and each
+    plain version once.  Returns {kernel: (ms, plain ms)}."""
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda
+
+    out = {}
+    for k, sc in (("K2a", scores), ("K5a", train_scores),
+                  ("K4", train_scores)):
+        T, N = sc.shape[:2]
+        scan = crf_cuda.forward_scan if k == "K4" else crf_cuda.backward_scan
+        fns = {k: lambda scan=scan, sc=sc: scan(sc, nb, sl)}
+        if baseline:
+            theirs = baseline["K4" if k == "K4" else "K2a"]
+            fns[f"{k} of the baseline tree"] = \
+                lambda theirs=theirs, sc=sc: theirs(sc, nb, sl)
+            got, want = (f() for f in fns.values())
+            got, want = ((g,) if torch.is_tensor(g) else g
+                         for g in (got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"{k} (T={T}, N={N}) against the baseline tree's kernel: "
+                  f"{'bit-equal' if same else 'DIFFERENT'} "
+                  f"({'alphas, logZ' if k == 'K4' else 'betas'})")
+            if not same:
+                fail(f"{k} is not bit-equal to the baseline tree's kernel")
+        t = in_turns(fns, burst=SCAN_BURST)
+        print(f"time {k} (T={T}, N={N}), medians of 21 samples of "
+              f"{SCAN_BURST} calls" + (" in turns" if baseline else "")
+              + ": " + ", ".join(
+                  f"{n} {v:.3f} ms ({v / T * 1e3:.3f} us a step)"
+                  for n, v in t.items()) + f" on {card}")
+        plain = crf.forward_scores if k == "K4" else crf.backward_scores
+        out[k] = (t[k], elapsed_ms(lambda: plain(sc, nb, sl), 1))
+    return out
+
+
 def time_training(model, batch, loss_keep, card):
-    """Phase 9 (training side): the loss kernels K4-K6b with their plain
-    versions (no PyTorch call computes these functions), and one training
-    step with its breakdown."""
+    """Phase 9 (training side): the loss kernels K5b, K6a and K6b (as
+    ``crf_ms``) with their plain versions (no PyTorch call computes these
+    functions), and one training step with its breakdown."""
     from xna_basecaller_tpu_torch.ops import crf, crf_cuda
     from xna_basecaller_tpu_torch.train.loop import (
         make_optimizer, train_step,
@@ -790,24 +893,17 @@ def time_training(model, batch, loss_keep, card):
         (sc, alphas, betas, logz, ct, stay, move, lat_len, lat_a,
          lat_z, ct_lat) = loss_keep
         nb, sl = model.cfg.n_base, model.cfg.state_len
-        t["K4"] = (
-            elapsed_ms(lambda: crf_cuda.forward_scan(sc, nb, sl), 5),
-            elapsed_ms(lambda: crf.forward_scores(sc, nb, sl), 1))
-        t["K5a"] = (
-            elapsed_ms(lambda: crf_cuda.backward_scan(sc, nb, sl), 5),
-            elapsed_ms(lambda: crf.backward_scores(sc, nb, sl), 1))
         t["K5b"] = (
-            elapsed_ms(lambda: crf_cuda.edge_posteriors(
-                sc, alphas, betas, logz, ct), 5),
+            crf_ms(lambda: crf_cuda.edge_posteriors(
+                sc, alphas, betas, logz, ct)),
             elapsed_ms(lambda: crf.edge_posteriors(
                 sc, alphas, betas, logz, ct), 3))
         t["K6a"] = (
-            elapsed_ms(lambda: crf_cuda.lattice_forward(stay, move, lat_len),
-                       5),
+            crf_ms(lambda: crf_cuda.lattice_forward(stay, move, lat_len)),
             elapsed_ms(lambda: crf.lattice_forward(stay, move, lat_len), 1))
         t["K6b"] = (
-            elapsed_ms(lambda: crf_cuda.lattice_backward(
-                stay, move, lat_len, lat_a, lat_z, ct_lat), 5),
+            crf_ms(lambda: crf_cuda.lattice_backward(
+                stay, move, lat_len, lat_a, lat_z, ct_lat)),
             elapsed_ms(lambda: crf.lattice_backward(
                 stay, move, lat_len, lat_a, lat_z, ct_lat), 1))
     chunks, targets, lengths = batch
@@ -868,8 +964,8 @@ def main() -> int:
     parser.add_argument(
         "--baseline", default=None, metavar="DIR",
         help="another tree of this repository (e.g. the parent commit, "
-             "unpacked by git archive) whose K1 and K7 are timed in turns "
-             "with this tree's")
+             "unpacked by git archive) whose K1, K7, K2a and K4 are timed in "
+             "turns with this tree's (K2a and K4 also held bit-equal)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1109,17 +1205,18 @@ def main() -> int:
             elapsed_ms(lambda: lstm.lstm_recurrence_int8(
                 xq, w_q, scale_q, rev_q), 1), None)
 
-        timings["K2a"] = (
-            elapsed_ms(lambda: crf_cuda.backward_scan(scores, nb, sl), 5),
-            elapsed_ms(lambda: crf.backward_scores(scores, nb, sl), 1), None)
+        scan_t = crf_scan_turns(scores, loss_inputs[0], nb, sl, card,
+                                baseline)
+        for k, v in scan_t.items():
+            timings[k] = (*v, None)
         timings["K2b"] = (
-            elapsed_ms(lambda: crf_cuda.forward_viterbi(
-                scores, betas, logz, nb, sl), 5),
+            crf_ms(lambda: crf_cuda.forward_viterbi(
+                scores, betas, logz, nb, sl)),
             elapsed_ms(lambda: crf.forward_viterbi(
                 scores, betas, logz, nb, sl), 1), None)
         timings["K2c"] = (
-            elapsed_ms(lambda: crf_cuda.viterbi_traceback(
-                bp, v_final, nb, sl), 10),
+            crf_ms(lambda: crf_cuda.viterbi_traceback(
+                bp, v_final, nb, sl)),
             elapsed_ms(lambda: crf.viterbi_traceback(
                 bp, v_final, nb, sl), 1), None)
 
@@ -1171,7 +1268,7 @@ def main() -> int:
     for k, v in timings.items():
         print(f"time {k}: {v} ms on {card}")
     t_train = time_training(model, tbatch, loss_inputs, card)
-    for k in ("K4", "K5a", "K5b", "K6a", "K6b"):
+    for k in ("K5b", "K6a", "K6b"):
         timings[k] = (*t_train[k], None)
     print(f"device-only: {batchsize * chunksize / t_batch * 1e3:.4e} "
           f"samples/s ({t_batch:.3f} ms per batch of {batchsize} x "

@@ -19,9 +19,12 @@ kernels: alphas, betas and logZ (K4, K6a) rtol 1e-5; the edge posteriors
 lattice gradients (K6b) and the gradient of ``ctc_loss`` (kernels on the
 card against the plain path on the CPU) within 1e-4 of their largest
 element, because each is exp() of a difference of log-sums that
-magnifies the last bits of the scans.  The int8 recurrence (K7): as K1,
-f32 1e-4 and bf16 2e-2 absolute, and in bf16 at most 1e-3 of ys differing
-at all (the bf16 h at even steps; without that rule about 30 % differ).
+magnifies the last bits of the scans.  The CRF scans give the same
+betas, alphas and logZ bit for bit whichever route brings their rows:
+the same operations in the same order.  The int8 recurrence (K7): as
+K1, f32 1e-4 and bf16 2e-2 absolute, and in bf16 at most 1e-3 of ys
+differing at all (the bf16 h at even steps; without that rule about 30 %
+differ).
 """
 
 import numpy as np
@@ -153,6 +156,82 @@ def test_decode_kernels_match_plain(cuda, n_base, state_len):
     full = crf_cuda.decode_paths_cuda(s, n_base, state_len)
     want = crf.decode_paths(s.cpu(), n_base, state_len)
     assert (full.cpu() != want).float().mean().item() <= 1e-3
+
+
+# The CRF scans' ring of score rows (csrc/crf_ring.cuh) is _RING_D stages
+# deep: T at its edges (below, at and one past the depth), and
+# T=300.  N: one row; 75, the last basecall batch of chip_smoke.py's reads;
+# the basecall batch; 300, past it.
+# Alphabets: (5, 3) has rows of 125 x 6 f32 = 3000 B, not a multiple of 16
+# bytes, which take cp.async of 8 bytes; the others the bulk copy.  The
+# kernels are built with n_base 4, 5 and 6 as constants; (7, 2) takes the
+# build that reads it at run time, with the most columns they take (8).
+_RING_D = 8
+_RING_T = [1, 2, _RING_D - 1, _RING_D, _RING_D + 1, 300]
+_RING_N = [1, 75, 256, 300]
+_RING_ALPHABETS = [(4, 2), (5, 3), (6, 3), (7, 2)]
+
+
+def _card_scores(n_base, state_len, T, N, seed, offset=0):
+    """tanh(randn) x 5 made on the card, starting ``offset`` floats into
+    its allocation (offset 1 or 2: rows aligned to 4 or 8 bytes only)."""
+    C = (n_base + 1) * n_base ** state_len
+    g = torch.Generator("cuda").manual_seed(seed)
+    flat = torch.tanh(torch.randn(offset + T * N * C, device="cuda",
+                                  generator=g)) * 5
+    return flat[offset:].view(T, N, C)
+
+
+def _scan_launches():
+    return (crf_cuda.backward_scan.launches, crf_cuda.forward_scan.launches)
+
+
+def _scans_against_plain(s, n_base, state_len):
+    """betas, alphas and logZ of the kernels, held to the plain versions."""
+    betas = crf_cuda.backward_scan(s, n_base, state_len)
+    alphas, logz = crf_cuda.forward_scan(s, n_base, state_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        betas, crf.backward_scores(s, n_base, state_len), rtol=1e-5,
+        atol=1e-5)
+    want = crf.forward_scores(s, n_base, state_len)
+    torch.testing.assert_close(alphas, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logz, crf.logz_from_alphas(want), rtol=1e-5,
+                               atol=1e-5)
+    return betas, alphas, logz
+
+
+@pytest.mark.parametrize("n_base,state_len", _RING_ALPHABETS)
+@pytest.mark.parametrize("N", _RING_N)
+@pytest.mark.parametrize("T", _RING_T)
+def test_crf_scans_match_plain(cuda, T, N, n_base, state_len):
+    """K2a/K5a (backward_scan) and K4 (forward_scan), at the ring's edges,
+    against their plain versions; one launch each."""
+    s = _card_scores(n_base, state_len, T, N, seed=T * 1000 + N)
+    before = _scan_launches()
+    _scans_against_plain(s, n_base, state_len)
+    assert _scan_launches() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("n_base,state_len", _RING_ALPHABETS)
+def test_crf_scans_take_rows_at_any_alignment(cuda, offset, n_base,
+                                              state_len):
+    """Scores that start 8 bytes into their allocation take cp.async of 8
+    bytes, and those that start 4 bytes in are copied by the wrapper:
+    betas, alphas and logZ bit-equal to those of the same scores 16-byte
+    aligned (the same operations in the same order), and within 1e-5 of
+    the plain versions."""
+    for T in (_RING_D + 1, 300):
+        s = _card_scores(n_base, state_len, T, 75, seed=offset,
+                         offset=offset)
+        assert s.data_ptr() % 16 == 4 * offset
+        got = _scans_against_plain(s, n_base, state_len)
+        aligned = s.clone()
+        assert aligned.data_ptr() % 16 == 0
+        want = (crf_cuda.backward_scan(aligned, n_base, state_len),
+                *crf_cuda.forward_scan(aligned, n_base, state_len))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _max_rel(got, want):

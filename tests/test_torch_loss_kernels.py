@@ -135,3 +135,20 @@ def test_loss_on_cpu_tensors_takes_the_plain_path():
                  state_len).backward()
     assert bool(torch.isfinite(s.grad).all())
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_scan_scores_are_copied_only_when_not_8_byte_aligned(offset):
+    """The wrappers of the ring's scans (K2a/K5a, K4) give their kernels
+    scores that start 8-byte aligned, so that every row takes one of the
+    ring's two routes (``csrc/crf_ring.cuh``): scores that start at an odd
+    float (4 bytes into an 8-byte word) are copied, any others pass as they
+    are."""
+    C = 6 * 5 ** 3   # a 5-letter model's rows: 3000 B
+    flat = torch.arange(offset + 3 * 2 * C, dtype=torch.float32)
+    s = flat[offset:].view(3, 2, C)
+    assert s.data_ptr() % 8 == (4 if offset == 1 else 0)
+    got = crf_cuda._ring_aligned(s)
+    assert (got is not s) == (offset == 1)
+    assert got.data_ptr() % 8 == 0 and got.is_contiguous()
+    assert torch.equal(got, s)

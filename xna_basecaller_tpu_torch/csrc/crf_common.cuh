@@ -1,6 +1,8 @@
-// Device helpers shared by the CRF scans of crf_decode.cu (K2a/b/c) and
-// crf_loss.cu (K4, K5b): one block per sequence, one thread per state, each
-// step's score row staged through registers into shared memory.
+// Device helpers shared by the CRF kernels of crf_decode.cu (K2a/b/c) and
+// crf_loss.cu (K4, K5b): the shapes they take (one block per sequence, one
+// thread per state), lse, and K2b's staging of a score row through
+// registers into shared memory (K2a and K4 read theirs from the ring of
+// crf_ring.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -25,9 +25,13 @@
 //
 // Design: one block per sequence (N blocks), one thread per state.  The
 // recurrent vectors (beta; alpha and the Viterbi scores) live in shared
-// memory, double buffered so one __syncthreads separates the steps; each
-// step's 6 KB score row is read coalesced into shared memory, and the next
-// row is prefetched into registers while the current step computes.
+// memory, double buffered so one __syncthreads separates the steps.  K2a
+// reads each step's 6 KB score row straight from a ring of D stages in
+// shared memory that bulk copies (or cp.async, for rows that are not
+// 16-byte multiples) keep D - 1 rows ahead (crf_ring.cuh), so that a step
+// waits for no device-memory latency; K2b reads its row coalesced into
+// shared memory, prefetching the next one into registers while the
+// current step computes.
 // Backpointers (0..n_base) are stored as uint8 [T, N, n_state]: 40 MB
 // instead of the 159 MB of int32.  K2c walks one sequence per thread.
 
@@ -36,51 +40,69 @@
 #include <cstdint>
 
 #include "crf_common.cuh"
+#include "crf_ring.cuh"
 
 namespace {
 
 // K2a: betas [T+1, N, ns] with betas[t] = beta_t and betas[T] = 0.
 //   beta_t[k] = lse(stay: Ms[t,k,0] + beta_{t+1}[k],
 //                   move: lse_b(Ms[t, m*nb+b, 1+i] + beta_{t+1}[m*nb+b]))
-// with k = i*nsd + m (crf.py::_bwd_step).
+// with k = i*nsd + m (crf.py::_bwd_step).  Step s reads the row of t =
+// T-1-s from the ring (crf_ring.cuh) of D stages, by route R; n_base is NB,
+// or nb_arg when NB is 0.
+template <int R, int NB>
 __global__ void __launch_bounds__(kThreads)
 crf_backward_kernel(const float* __restrict__ scores,
-                    float* __restrict__ betas, int T, int N, int nb, int ns) {
-  extern __shared__ float sm[];
+                    float* __restrict__ betas, int T, int N, int nb_arg,
+                    int ns) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = NB ? NB : nb_arg;
   const int nb1 = nb + 1, C = ns * nb1, nsd = ns / nb;
-  float* ms_s = sm;              // [2][C]
-  float* beta_s = sm + 2 * C;    // [2][ns]
+  RowRing<R> ring(smem, C);
+  constexpr int D = kRingStages;
+  float* beta_s = ring.end();    // [2][ns]
   const int n = blockIdx.x, j = threadIdx.x;
+  const int i = j / nsd, m = j % nsd;   // outside the loop, or it is redone
   const size_t row_stride = (size_t)N * C;
-  const float* base = scores + (size_t)n * C;
-  float regs[kPerThread];
+  const float* last = scores + ((size_t)(T - 1) * N + n) * C;
 
+  ring.init();
   if (j < ns) {
     beta_s[j] = 0.0f;
     betas[((size_t)T * N + n) * ns + j] = 0.0f;
   }
-  prefetch_row(base + (size_t)(T - 1) * row_stride, C, regs);
-  commit_row(ms_s, C, regs);
+  __syncthreads();
+  for (int s = 0; s < D - 1; ++s) {
+    if (s < T)
+      ring.fetch(last - s * row_stride, s);
+    else
+      ring.skip();
+  }
+  ring.land_next();
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s, cur = s & 1;
-    if (t > 0) prefetch_row(base + (size_t)(t - 1) * row_stride, C, regs);
+    if (s + D - 1 < T)
+      ring.fetch(last - (s + D - 1) * row_stride, s + D - 1);
+    else
+      ring.skip();
+    const float* ms = ring.row(s);
     if (j < ns) {
-      const float* ms = ms_s + cur * C;
       const float* beta = beta_s + cur * ns;
-      const int i = j / nsd, m = j % nsd;
       float vals[kMaxCols];
-      for (int b = 0; b < nb; ++b)
-        vals[b] = ms[(m * nb + b) * nb1 + 1 + i] + beta[m * nb + b];
+#pragma unroll
+      for (int b = 0; b < kMaxCols; ++b)
+        if (b < nb)
+          vals[b] = ms[(m * nb + b) * nb1 + 1 + i] + beta[m * nb + b];
       float pair[2];
       pair[0] = ms[j * nb1] + beta[j];
-      pair[1] = lse(vals, nb);
-      const float out = lse(pair, 2);
+      pair[1] = lse_n(vals, nb);
+      const float out = lse_n(pair, 2);
       beta_s[(cur ^ 1) * ns + j] = out;
       betas[((size_t)t * N + n) * ns + j] = out;
     }
-    if (t > 0) commit_row(ms_s + (cur ^ 1) * C, C, regs);
+    ring.land_next();
     __syncthreads();
   }
 }
@@ -179,17 +201,23 @@ __global__ void crf_traceback_kernel(const uint8_t* __restrict__ bp,
 
 extern "C" {
 
-// Each entry point returns 0, a cudaError_t, or -2 (unsupported shape).
+// Each entry point returns 0, a cudaError_t, -2 (unsupported shape), or,
+// for the ring's scans, -3 (scores not 8-byte aligned).
 // All tensors are contiguous; scores are f32 [T, N, ns * (nb + 1)].
 
 int xna_crf_backward(const void* scores, void* betas, int T, int N, int nb,
                      int ns, void* stream) {
   if (!supported(T, N, nb, ns)) return -2;
-  const size_t smem = (2 * (size_t)ns * (nb + 1) + 2 * (size_t)ns) * 4;
-  crf_backward_kernel<<<N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<float*>(betas), T, N, nb,
-      ns);
-  return cudaGetLastError();
+  const int C = ns * (nb + 1);
+  const size_t smem = ring_bytes(C) + 2 * (size_t)ns * 4;
+  const int route = ring_route(scores, C);
+  if (route < 0) return -3;
+  return ring_dispatch(route, nb, [&](auto r, auto b) {
+    return ring_launch(
+        crf_backward_kernel<decltype(r)::value, decltype(b)::value>, N,
+        smem, stream, static_cast<const float*>(scores),
+        static_cast<float*>(betas), T, N, nb, ns);
+  });
 }
 
 int xna_crf_fwd_viterbi(const void* scores, const void* betas,

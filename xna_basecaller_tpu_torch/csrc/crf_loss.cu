@@ -30,17 +30,19 @@
 //
 // Design: the scans run one block per sequence, with the recurrent vector
 // double-buffered in shared memory so that one __syncthreads separates the
-// steps, and the next step's inputs prefetched into registers while the
-// current one computes.  K4 is K2b's alpha update alone (one thread per
-// state, the 6 KB score row read coalesced).  The lattice kernels stride
-// their threads over the n positions (any n up to kLatMaxN), read each
-// step's stay and move rows coalesced, and K6b writes d_stay and d_move as
-// it walks back, so the lattice betas are never stored.  K5b is one
-// parallel pass, a block per (t, sequence) row.
+// steps.  K4 is K2b's alpha update alone, one thread per state, reading
+// each step's 6 KB score row straight from the ring of crf_ring.cuh (rows
+// D - 1 steps ahead in shared memory, by bulk copy or cp.async).  The
+// lattice kernels stride their threads over the n positions (any n up to
+// kLatMaxN), read each step's stay and move rows coalesced, prefetching
+// the next step's into registers while the current one computes, and K6b
+// writes d_stay and d_move as it walks back, so the lattice betas are
+// never stored.  K5b is one parallel pass, a block per (t, sequence) row.
 
 #include <cuda_runtime.h>
 
 #include "crf_common.cuh"
+#include "crf_ring.cuh"
 
 namespace {
 
@@ -53,43 +55,59 @@ constexpr int kLatMaxN = 6144;    // 2 x n floats of shared memory in 48 KB,
 // K4: alphas [T+1, N, ns] with alphas[0] = 0, and logZ [N] = lse(alpha_T).
 //   alpha_{t+1}[j] = lse(alpha_t[j] + Ms[t,j,0],
 //                        alpha_t[i*nsd + j/nb] + Ms[t,j,1+i] for each i)
+// Step t reads its row from the ring (crf_ring.cuh) of D stages, by route
+// R; n_base is NB, or nb_arg when NB is 0.
+template <int R, int NB>
 __global__ void __launch_bounds__(kThreads)
 crf_forward_kernel(const float* __restrict__ scores,
                    float* __restrict__ alphas, float* __restrict__ logz, int T,
-                   int N, int nb, int ns) {
-  extern __shared__ float sm[];
+                   int N, int nb_arg, int ns) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = NB ? NB : nb_arg;
   const int nb1 = nb + 1, C = ns * nb1, nsd = ns / nb;
-  float* ms_s = sm;              // [2][C]
-  float* alpha_s = sm + 2 * C;   // [2][ns]
+  RowRing<R> ring(smem, C);
+  constexpr int D = kRingStages;
+  float* alpha_s = ring.end();   // [2][ns]
   const int n = blockIdx.x, j = threadIdx.x;
+  const int q = j / nb;   // outside the loop, or it is redone
   const size_t row_stride = (size_t)N * C;
   const float* base = scores + (size_t)n * C;
-  float regs[kPerThread];
 
+  ring.init();
   if (j < ns) {
     alpha_s[j] = 0.0f;
     alphas[(size_t)n * ns + j] = 0.0f;
   }
-  prefetch_row(base, C, regs);
-  commit_row(ms_s, C, regs);
+  __syncthreads();
+  for (int t = 0; t < D - 1; ++t) {
+    if (t < T)
+      ring.fetch(base + t * row_stride, t);
+    else
+      ring.skip();
+  }
+  ring.land_next();
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
-    if (t + 1 < T) prefetch_row(base + (size_t)(t + 1) * row_stride, C, regs);
+    if (t + D - 1 < T)
+      ring.fetch(base + (t + D - 1) * row_stride, t + D - 1);
+    else
+      ring.skip();
+    const float* ms = ring.row(t);
     if (j < ns) {
-      const float* ms = ms_s + cur * C + j * nb1;
+      const float* msj = ms + j * nb1;
       const float* alpha = alpha_s + cur * ns;
-      const int q = j / nb;
       float avals[kMaxCols];
-      avals[0] = alpha[j] + ms[0];
-      for (int i = 0; i < nb; ++i)
-        avals[1 + i] = alpha[i * nsd + q] + ms[1 + i];
-      const float out = lse(avals, nb1);
+      avals[0] = alpha[j] + msj[0];
+#pragma unroll
+      for (int i = 0; i < kMaxCols - 1; ++i)
+        if (i < nb) avals[1 + i] = alpha[i * nsd + q] + msj[1 + i];
+      const float out = lse_n(avals, nb1);
       alpha_s[(cur ^ 1) * ns + j] = out;
       alphas[((size_t)(t + 1) * N + n) * ns + j] = out;
     }
-    if (t + 1 < T) commit_row(ms_s + (cur ^ 1) * C, C, regs);
+    ring.land_next();
     __syncthreads();
   }
   if (j == 0) logz[n] = lse(alpha_s + (T & 1) * ns, ns);
@@ -288,18 +306,25 @@ int lattice_threads(int n) {
 
 extern "C" {
 
-// Each entry point returns 0, a cudaError_t, or -2 (unsupported shape).
+// Each entry point returns 0, a cudaError_t, -2 (unsupported shape), or,
+// for the ring's scans, -3 (scores not 8-byte aligned).
 // All tensors are contiguous f32 (lengths int32); scores are
 // [T, N, ns * (nb + 1)].
 
 int xna_crf_forward(const void* scores, void* alphas, void* logz, int T, int N,
                     int nb, int ns, void* stream) {
   if (!supported(T, N, nb, ns)) return -2;
-  const size_t smem = (2 * (size_t)ns * (nb + 1) + 2 * (size_t)ns) * 4;
-  crf_forward_kernel<<<N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<float*>(alphas),
-      static_cast<float*>(logz), T, N, nb, ns);
-  return cudaGetLastError();
+  const int C = ns * (nb + 1);
+  const size_t smem = ring_bytes(C) + 2 * (size_t)ns * 4;
+  const int route = ring_route(scores, C);
+  if (route < 0) return -3;
+  return ring_dispatch(route, nb, [&](auto r, auto b) {
+    return ring_launch(
+        crf_forward_kernel<decltype(r)::value, decltype(b)::value>, N, smem,
+        stream, static_cast<const float*>(scores),
+        static_cast<float*>(alphas), static_cast<float*>(logz), T, N, nb,
+        ns);
+  });
 }
 
 // alphas and betas [T+1, N, ns]; ct [N] or null

@@ -17,8 +17,10 @@ stay/move lattice's forward K6a (``lattice_forward``, for
 Their bound on the card, and what the design does about it, is set out at
 the top of each CUDA source: the scans are bound by reading their inputs
 once and by their 720 dependent steps; one block per sequence keeps the
-recurrent vector in shared memory and reads each step's row coalesced,
-prefetching the next one.
+recurrent vector in shared memory; K2a/K5a and K4 read each step's row
+from a ring of rows that bulk copies keep in flight into shared memory
+(``csrc/crf_ring.cuh``), the others read it coalesced, prefetching the
+next one.
 
 Each wrapper takes the plain version in ``ops/crf.py`` for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
@@ -50,6 +52,7 @@ _SIGNATURES = {
 }
 _MESSAGES = {-2: "shape not supported by the kernel (n_state <= 256, "
                  "n_base + 1 <= 8, n_state * (n_base + 1) <= 2048)"}
+_SCAN_MESSAGES = {**_MESSAGES, -3: "scores not 8-byte aligned"}
 _LATTICE_MESSAGES = {-2: "lattice not supported by the kernel (1 <= n <= "
                          "6144 positions)"}
 
@@ -76,19 +79,27 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _ring_aligned(scores: torch.Tensor) -> torch.Tensor:
+    """``scores`` as the ring of K2a/K5a and K4 takes them: starting 8-byte
+    aligned, so that every row is (``csrc/crf_ring.cuh``); a view that
+    starts at an odd float is copied."""
+    return scores if scores.data_ptr() % 8 == 0 else scores.clone()
+
+
 def backward_scan(scores: torch.Tensor, n_base: int, state_len: int):
     """K2a, and K5a on the loss's backward: scores [T, N, C] f32 -> betas
     [T+1, N, n_state] (beta_T = 0)."""
     if scores.device.type == "cpu":
         return crf.backward_scores(scores, n_base, state_len)
     _check(scores, "backward_scan", torch.float32, 3)
+    scores = _ring_aligned(scores)
     T, N, _ = scores.shape
     ns = n_base ** state_len
     betas = torch.empty(T + 1, N, ns, device=scores.device)
     lib, fn = _fn("xna_crf_backward")
     rc = fn(scores.data_ptr(), betas.data_ptr(), T, N, n_base, ns,
             _stream())
-    _build.check(lib, rc, "crf backward kernel", _MESSAGES)
+    _build.check(lib, rc, "crf backward kernel", _SCAN_MESSAGES)
     backward_scan.launches += 1
     return betas
 
@@ -143,6 +154,7 @@ def forward_scan(scores: torch.Tensor, n_base: int, state_len: int):
         return alphas, crf.logz_from_alphas(alphas)
     scores = scores.contiguous()
     _check(scores, "forward_scan", torch.float32, 3)
+    scores = _ring_aligned(scores)
     T, N, _ = scores.shape
     ns = n_base ** state_len
     alphas = torch.empty(T + 1, N, ns, device=scores.device)
@@ -150,7 +162,7 @@ def forward_scan(scores: torch.Tensor, n_base: int, state_len: int):
     lib, fn = _fn("xna_crf_forward")
     rc = fn(scores.data_ptr(), alphas.data_ptr(), logz.data_ptr(), T, N,
             n_base, ns, _stream())
-    _build.check(lib, rc, "crf forward kernel", _MESSAGES)
+    _build.check(lib, rc, "crf forward kernel", _SCAN_MESSAGES)
     forward_scan.launches += 1
     return alphas, logz
 
