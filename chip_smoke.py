@@ -46,11 +46,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      time = a + b x rows, over N <= 64 and over 128-256 rows); K7 beside
      K1 on K7's input (bf16 W_hh) as medians of 21 in turns; with
      ``--baseline DIR``, the K1 and K7 of that tree in the same turns; the
-     CRF scans K2a at the basecall batch, K5a and K4 at the training batch
+     CRF scans K2a at the basecall batch, K5a, K4, the lattice's K6a and
+     K6b at the training batch and K6a at the validation batch's 16 rows
      as medians of 21 samples of 10 calls (with ``--baseline DIR``, in
-     turns with that tree's kernels, whose betas, alphas and logZ they
-     must equal bit for bit), with the time a step, and the other CRF
-     kernels (K2b, K2c, K5b, K6a, K6b) by the same statistic; the batch's
+     turns with that tree's kernels, whose betas, alphas, logZ, d_stay and
+     d_move they must equal bit for bit), with the time a step, and the
+     other CRF kernels (K2b, K2c, K5b) by the same statistic; the batch's
      other stages (conv, input projection, head, decode; for the quantized
      batch the int8 projection and the int8 head), one batch through model and
      decode, the pipeline's samples/s over the same reads four times, both
@@ -275,12 +276,14 @@ def scan_kernels(libs: dict, tag: str) -> dict:
 
 
 def baseline_kernels(root: str) -> dict:
-    """K1, K7, K2a and K4 of another tree of this repository (``--baseline
-    DIR``, e.g. a ``git archive`` of the parent commit), to be timed in
-    turns with this tree's.  Their C interface is this tree's; the scratch
-    given K1 and K7 is large enough for either tree's layout of h.  Returns
-    {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale, reverse)} for
-    bf16 xp of at most 256 rows, and K2a and K4 as ``scan_kernels``."""
+    """K1, K7, K2a, K4, K6a and K6b of another tree of this repository
+    (``--baseline DIR``, e.g. a ``git archive`` of the parent commit), to
+    be timed in turns with this tree's.  Their C interface is this tree's,
+    but the lattice's, which is that tree's (``lattice_kernels``); the
+    scratch given K1 and K7 is large enough for either tree's layout of h.
+    Returns {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale,
+    reverse)} for bf16 xp of at most 256 rows, K2a and K4 as
+    ``scan_kernels`` and "lattice" as ``lattice_kernels``."""
     import ctypes
 
     libs = build_tree(root, ("lstm_recurrence", "lstm_int8", "crf_decode",
@@ -317,7 +320,61 @@ def baseline_kernels(root: str) -> dict:
                 "lstm_recurrence", xp, w, None, rev, xp.dtype),
             "K7": lambda xp, w_q, scale, rev=False: launch(
                 "lstm_int8", xp, w_q, scale, rev, torch.int8),
-            **scan_kernels(libs, "the baseline tree")}
+            **scan_kernels(libs, "the baseline tree"),
+            "lattice": lattice_kernels(libs["crf_loss"], "the baseline tree")}
+
+
+def lattice_kernels(lib, tag: str) -> dict:
+    """K6a and K6b through the C entry points of a ``crf_loss`` library
+    built by ``build_tree``, by that tree's interface: the lattice packed
+    as ``crf_cuda.lattice_pack`` packs it, with the alphas at row stride
+    npad, where the library exports ``xna_lattice_depth``; else stay, move
+    and the alphas as contiguous tensors (an older tree's).  Returns
+    {"inputs": fn(stay, move) -> the lattice as the kernels read it,
+    "K6a": fn(lattice, lengths) -> (alphas [T, N, n], logZ), "K6b":
+    fn(lattice, lengths, alphas, logz, ct) -> (d_stay, d_move)}; lengths
+    int32; K6b takes K6a's alphas without a copy."""
+    import ctypes
+
+    from xna_basecaller_tpu_torch.ops import crf_cuda
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    packed = hasattr(lib, "xna_lattice_depth")
+    fwd, bwd = lib.xna_lattice_forward, lib.xna_lattice_backward
+    fwd.argtypes = [P] * (4 if packed else 5) + [I, I, I, P]
+    bwd.argtypes = [P] * (7 if packed else 8) + [I, I, I, P]
+    fwd.restype = bwd.restype = ctypes.c_int
+
+    def inputs(stay, move):
+        rows = ((crf_cuda.lattice_pack(stay, move),) if packed
+                else (stay.contiguous(), move.contiguous()))
+        return rows, stay.shape
+
+    def run(entry, ptrs, shape, what):
+        rc = entry(*(t.data_ptr() for t in ptrs), *shape,
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{tag}: its {what} returned {rc}")
+
+    def forward(lattice, lengths):
+        rows, (T, N, n) = lattice
+        alphas = torch.empty(T, N, -(-n // 4) * 4 if packed else n,
+                             device=lengths.device)
+        logz = torch.empty(N, device=lengths.device)
+        run(fwd, (*rows, lengths, alphas, logz), (T, N, n), "K6a")
+        return alphas[:, :, :n], logz
+
+    def backward(lattice, lengths, alphas, logz, ct):
+        rows, (T, N, n) = lattice
+        alphas = (crf_cuda._padded(alphas, -(-n // 4) * 4) if packed
+                  else alphas.contiguous())
+        d_stay = torch.empty(T, N, n, device=lengths.device)
+        d_move = torch.empty(T, N, n - 1, device=lengths.device)
+        run(bwd, (*rows, lengths, alphas, logz, ct, d_stay, d_move),
+            (T, N, n), "K6b")
+        return d_stay, d_move
+
+    return {"inputs": inputs, "K6a": forward, "K6b": backward}
 
 
 def check_trainable_kernels(model, chunks, targets, lengths):
@@ -519,8 +576,10 @@ def check_loss_kernels(model, chunks, targets, lengths):
         post = crf_cuda.edge_posteriors(scores, alphas_p, betas_p, logz_p, ct)
         post_p = crf.edge_posteriors(scores, alphas_p, betas_p, logz_p, ct)
         norm = crf.normalise(scores, nb, sl)
-        stay, move = (t.contiguous() for t in crf.prepare_ctc_scores(
-            norm, targets, nb, sl))
+        stay, move = crf.prepare_ctc_scores(norm, targets, nb, sl)
+        # packed once, as the loss hands them to K6a and K6b
+        stay, move = crf_cuda.lattice_unpack(
+            crf_cuda.lattice_pack(stay, move), stay.shape[2])
         lat_len = lengths + 1 - sl
         lat_a, lat_z = crf_cuda.lattice_forward(stay, move, lat_len)
         lat_a_p, lat_z_p = crf.lattice_forward(stay, move, lat_len)
@@ -839,15 +898,37 @@ def rows_sweep(card):
             + "; " + "; ".join(fits) + f" on {card}")
 
 
-def crf_scan_turns(scores, train_scores, nb, sl, card, baseline):
+def crf_scan_turns(scores, train_scores, lattice, nb, sl, card, baseline):
     """Phase 9 (the CRF scans): K2a at the basecall batch, K5a (K2a's
-    kernel) and K4 at the training batch, each the median of 21 samples of
-    SCAN_BURST calls back to back (the wrapper's host time would show in a
-    call timed alone: these kernels take well under a millisecond); with
-    ``--baseline``, taken in turns with the baseline tree's kernel after
-    checking that betas, alphas and logZ are bit-equal to its; and each
-    plain version once.  Returns {kernel: (ms, plain ms)}."""
+    kernel) and K4 at the training batch, then the lattice's K6a at the
+    training batch and at the validation batch's 16 rows and K6b at the
+    training batch, on stay and move packed as the loss packs them, each
+    the median of 21 samples of SCAN_BURST calls back to back (the
+    wrapper's host time would show in a call timed alone: these kernels
+    take well under a millisecond); with ``--baseline``, taken in turns
+    with the baseline tree's kernel (on the lattice as that tree lays it
+    out) after checking that betas, alphas, logZ, d_stay and d_move are
+    bit-equal to its; and each plain version once.  Returns {kernel: (ms,
+    plain ms)} at the training batch."""
     from xna_basecaller_tpu_torch.ops import crf, crf_cuda
+
+    def turns(k, T, shape, fns, outputs):
+        if baseline:
+            got, want = (f() for f in fns.values())
+            got, want = ((g,) if torch.is_tensor(g) else g
+                         for g in (got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"{k} ({shape}) against the baseline tree's kernel: "
+                  f"{'bit-equal' if same else 'DIFFERENT'} ({outputs})")
+            if not same:
+                fail(f"{k} is not bit-equal to the baseline tree's kernel")
+        t = in_turns(fns, burst=SCAN_BURST)
+        print(f"time {k} ({shape}), medians of 21 samples of "
+              f"{SCAN_BURST} calls" + (" in turns" if baseline else "")
+              + ": " + ", ".join(
+                  f"{n} {v:.3f} ms ({v / T * 1e3:.3f} us a step)"
+                  for n, v in t.items()) + f" on {card}")
+        return t[k]
 
     out = {}
     for k, sc in (("K2a", scores), ("K5a", train_scores),
@@ -859,30 +940,47 @@ def crf_scan_turns(scores, train_scores, nb, sl, card, baseline):
             theirs = baseline["K4" if k == "K4" else "K2a"]
             fns[f"{k} of the baseline tree"] = \
                 lambda theirs=theirs, sc=sc: theirs(sc, nb, sl)
-            got, want = (f() for f in fns.values())
-            got, want = ((g,) if torch.is_tensor(g) else g
-                         for g in (got, want))
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            print(f"{k} (T={T}, N={N}) against the baseline tree's kernel: "
-                  f"{'bit-equal' if same else 'DIFFERENT'} "
-                  f"({'alphas, logZ' if k == 'K4' else 'betas'})")
-            if not same:
-                fail(f"{k} is not bit-equal to the baseline tree's kernel")
-        t = in_turns(fns, burst=SCAN_BURST)
-        print(f"time {k} (T={T}, N={N}), medians of 21 samples of "
-              f"{SCAN_BURST} calls" + (" in turns" if baseline else "")
-              + ": " + ", ".join(
-                  f"{n} {v:.3f} ms ({v / T * 1e3:.3f} us a step)"
-                  for n, v in t.items()) + f" on {card}")
+        ms = turns(k, T, f"T={T}, N={N}", fns,
+                   "alphas, logZ" if k == "K4" else "betas")
         plain = crf.forward_scores if k == "K4" else crf.backward_scores
-        out[k] = (t[k], elapsed_ms(lambda: plain(sc, nb, sl), 1))
+        out[k] = (ms, elapsed_ms(lambda: plain(sc, nb, sl), 1))
+
+    stay, move, lengths, _, _, ct = lattice
+    lengths = lengths.to(torch.int32)
+    T, N, n = stay.shape
+    for k, rows in (("K6a", N), ("K6a", 16), ("K6b", N)):
+        # the lattice as the loss hands it to the kernels: packed views
+        s, m = crf_cuda.lattice_unpack(crf_cuda.lattice_pack(
+            stay[:, :rows], move[:, :rows]), n)
+        ln, c = lengths[:rows], ct[:rows]
+        alphas, logz = crf_cuda.lattice_forward(s, m, ln)
+        if k == "K6a":
+            fns = {k: lambda s=s, m=m, ln=ln: crf_cuda.lattice_forward(
+                s, m, ln)}
+        else:
+            fns = {k: lambda: crf_cuda.lattice_backward(s, m, ln, alphas,
+                                                        logz, c)}
+        if baseline:
+            lat = baseline["lattice"]
+            ins = lat["inputs"](s, m)
+            a_b = lat["K6a"](ins, ln)[0]   # in that tree's layout
+            fns[f"{k} of the baseline tree"] = (
+                (lambda ins=ins, ln=ln: lat["K6a"](ins, ln)) if k == "K6a"
+                else (lambda: lat["K6b"](ins, ln, a_b, logz, c)))
+        ms = turns(k, T, f"T={T}, N={rows}, n={n}", fns,
+                   "alphas, logZ" if k == "K6a" else "d_stay, d_move")
+        if rows == N:
+            plain = crf.lattice_forward if k == "K6a" else (
+                lambda s, m, ln: crf.lattice_backward(s, m, ln, alphas,
+                                                      logz, c))
+            out[k] = (ms, elapsed_ms(lambda: plain(s, m, ln), 1))
     return out
 
 
 def time_training(model, batch, loss_keep, card):
-    """Phase 9 (training side): the loss kernels K5b, K6a and K6b (as
-    ``crf_ms``) with their plain versions (no PyTorch call computes these
-    functions), and one training step with its breakdown."""
+    """Phase 9 (training side): the loss kernel K5b (as ``crf_ms``) with
+    its plain version (no PyTorch call computes this function), and one
+    training step with its breakdown."""
     from xna_basecaller_tpu_torch.ops import crf, crf_cuda
     from xna_basecaller_tpu_torch.train.loop import (
         make_optimizer, train_step,
@@ -890,22 +988,13 @@ def time_training(model, batch, loss_keep, card):
 
     t = {}
     with torch.no_grad():
-        (sc, alphas, betas, logz, ct, stay, move, lat_len, lat_a,
-         lat_z, ct_lat) = loss_keep
+        sc, alphas, betas, logz, ct = loss_keep[:5]
         nb, sl = model.cfg.n_base, model.cfg.state_len
         t["K5b"] = (
             crf_ms(lambda: crf_cuda.edge_posteriors(
                 sc, alphas, betas, logz, ct)),
             elapsed_ms(lambda: crf.edge_posteriors(
                 sc, alphas, betas, logz, ct), 3))
-        t["K6a"] = (
-            crf_ms(lambda: crf_cuda.lattice_forward(stay, move, lat_len)),
-            elapsed_ms(lambda: crf.lattice_forward(stay, move, lat_len), 1))
-        t["K6b"] = (
-            crf_ms(lambda: crf_cuda.lattice_backward(
-                stay, move, lat_len, lat_a, lat_z, ct_lat)),
-            elapsed_ms(lambda: crf.lattice_backward(
-                stay, move, lat_len, lat_a, lat_z, ct_lat), 1))
     chunks, targets, lengths = batch
 
     # one training step and its parts
@@ -964,8 +1053,9 @@ def main() -> int:
     parser.add_argument(
         "--baseline", default=None, metavar="DIR",
         help="another tree of this repository (e.g. the parent commit, "
-             "unpacked by git archive) whose K1, K7, K2a and K4 are timed in "
-             "turns with this tree's (K2a and K4 also held bit-equal)")
+             "unpacked by git archive) whose K1, K7, K2a, K4, K6a and K6b "
+             "are timed in turns with this tree's (the CRF scans also held "
+             "bit-equal)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1205,8 +1295,8 @@ def main() -> int:
             elapsed_ms(lambda: lstm.lstm_recurrence_int8(
                 xq, w_q, scale_q, rev_q), 1), None)
 
-        scan_t = crf_scan_turns(scores, loss_inputs[0], nb, sl, card,
-                                baseline)
+        scan_t = crf_scan_turns(scores, loss_inputs[0], loss_inputs[5:],
+                                nb, sl, card, baseline)
         for k, v in scan_t.items():
             timings[k] = (*v, None)
         timings["K2b"] = (
@@ -1268,8 +1358,7 @@ def main() -> int:
     for k, v in timings.items():
         print(f"time {k}: {v} ms on {card}")
     t_train = time_training(model, tbatch, loss_inputs, card)
-    for k in ("K5b", "K6a", "K6b"):
-        timings[k] = (*t_train[k], None)
+    timings["K5b"] = (*t_train["K5b"], None)
     print(f"device-only: {batchsize * chunksize / t_batch * 1e3:.4e} "
           f"samples/s ({t_batch:.3f} ms per batch of {batchsize} x "
           f"{chunksize}) on {card}")

@@ -21,7 +21,9 @@ card against the plain path on the CPU) within 1e-4 of their largest
 element, because each is exp() of a difference of log-sums that
 magnifies the last bits of the scans.  The CRF scans give the same
 betas, alphas and logZ bit for bit whichever route brings their rows:
-the same operations in the same order.  The int8 recurrence (K7): as
+the same operations in the same order; so do the lattice scans (K6a,
+K6b) whether stay and move come as the loss's packed views, as contiguous
+tensors or as the slices of the loss's gather.  The int8 recurrence (K7): as
 K1, f32 1e-4 and bf16 2e-2 absolute, and in bf16 at most 1e-3 of ys
 differing at all (the bf16 h at even steps; without that rule about 30 %
 differ).
@@ -332,18 +334,21 @@ def test_loss_crf_kernels_match_plain(cuda, n_base, state_len):
     assert after["edge_posteriors"] == before["edge_posteriors"] + 2
 
 
-# 448: the flagship lattice; 1100: wider than one block's 512 threads;
-# 7: narrower than a warp
-@pytest.mark.parametrize("n", [448, 1100, 7])
-def test_lattice_kernels_match_plain(cuda, n):
-    """K6a (alphas, logZ) and K6b (d_stay, d_move) against their plain
-    versions, on rows whose lengths differ (one row of length 1)."""
-    T, N = n + 40, 4
-    g = torch.Generator().manual_seed(n)
-    stay = torch.randn(T, N, n, generator=g).to(cuda)
-    move = torch.randn(T, N, n - 1, generator=g).to(cuda)
-    lengths = torch.tensor([n, n - 3, max(n // 2, 1), 1], device=cuda)
-    ct = torch.randn(N, generator=g).to(cuda)
+def _lattice_case(T, N, n, seed):
+    """stay [T, N, n], move [T, N, n-1] and ct [N] from a seed on the card,
+    and lengths [N] that differ (n, n-3, n/2, 1, at least 1)."""
+    g = torch.Generator().manual_seed(seed)
+    stay = torch.randn(T, N, n, generator=g).to("cuda")
+    move = torch.randn(T, N, n - 1, generator=g).to("cuda")
+    lengths = torch.tensor([n, n - 3, max(n // 2, 1), 1][:N]).clamp(min=1)
+    ct = torch.randn(N, generator=g).to("cuda")
+    return stay, move, lengths.to("cuda"), ct
+
+
+def _lattice_against_plain(stay, move, lengths, ct):
+    """K6a (alphas, logZ) and K6b (d_stay, d_move, from the plain alphas)
+    held to their plain versions, one launch each; returns the kernels'
+    outputs."""
     before = _loss_launches()
     alphas, logz = crf_cuda.lattice_forward(stay, move, lengths)
     torch.cuda.synchronize()
@@ -356,10 +361,95 @@ def test_lattice_kernels_match_plain(cuda, n):
     want_ds, want_dm = crf.lattice_backward(stay, move, lengths, want_a,
                                             want_z, ct)
     assert _max_rel(d_stay, want_ds) <= 1e-4
-    assert _max_rel(d_move, want_dm) <= 1e-4
+    if move.numel():
+        assert _max_rel(d_move, want_dm) <= 1e-4
     after = _loss_launches()
     assert after["lattice_forward"] == before["lattice_forward"] + 1
     assert after["lattice_backward"] == before["lattice_backward"] + 1
+    return alphas, logz, d_stay, d_move
+
+
+# n: 1 and 2 (no move or one), 7 (narrower than a warp), 447-449 around the
+# flagship's 448 (a packed row of n rounded up to 4), 1100 (wider than one
+# block's 512 threads), 6144 (the widest, in a ring of 2 stages).  T: n + 40
+# steps (None), or fewer than the ring's stages.
+@pytest.mark.parametrize("n", [1, 2, 7, 447, 448, 449, 1100, 6144])
+@pytest.mark.parametrize("T", [None, 1, 2, 7])
+def test_lattice_kernels_match_plain(cuda, n, T):
+    """K6a (alphas, logZ) and K6b (d_stay, d_move) against their plain
+    versions, on rows whose lengths differ (one row of length 1)."""
+    _lattice_against_plain(*_lattice_case(T or n + 40, 4, n, seed=n))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("above", [0, 1])
+def test_lattice_kernels_at_the_edge_of_the_8_stage_ring(cuda, backward,
+                                                         above):
+    """At the widest lattice whose ring of K6a (or K6b) holds 8 stages in a
+    block's shared memory, and one position wider (4 stages)."""
+    widest = max(n for n in range(1, 6145)
+                 if crf_cuda.lattice_depth(n, backward) == 8)
+    n = widest + above
+    assert crf_cuda.lattice_depth(n, backward) == (4 if above else 8)
+    _lattice_against_plain(*_lattice_case(n + 40, 4, n, seed=n))
+
+
+def _gathered_lattice(T=500, N=4, L=460, n_base=6, state_len=3):
+    """stay and move as the loss gathers them (``prepare_ctc_scores``:
+    non-contiguous slices of one [T, N, 2n-1] gather), the lattice lengths
+    and a cotangent, on the card."""
+    rng = np.random.default_rng(L)
+    C = (n_base + 1) * n_base ** state_len
+    s = torch.from_numpy(
+        (np.tanh(rng.standard_normal((T, N, C))) * 5).astype(np.float32))
+    lengths = np.array([L, L - 7, L // 2, state_len + 3][:N], np.int64)
+    targets = np.zeros((N, L), np.int64)
+    for i, k in enumerate(lengths):
+        targets[i, :k] = rng.integers(1, n_base + 1, size=k)
+    stay, move = crf.prepare_ctc_scores(
+        s.to("cuda"), torch.from_numpy(targets).to("cuda"), n_base,
+        state_len)
+    ct = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    return (stay, move, torch.from_numpy(lengths + 1 - state_len).to("cuda"),
+            ct.to("cuda"))
+
+
+def test_lattice_kernels_take_the_loss_gather_slices(cuda):
+    """The non-contiguous stay and move slices of the loss's gather give
+    the alphas, logZ, d_stay and d_move of their contiguous copies bit for
+    bit (both are packed), within tolerance of the plain versions."""
+    stay, move, lengths, ct = _gathered_lattice()
+    assert not stay.is_contiguous() and not move.is_contiguous()
+    got = _lattice_against_plain(stay, move, lengths, ct)
+    stay_c, move_c = stay.contiguous(), move.contiguous()
+    alphas, logz = crf_cuda.lattice_forward(stay_c, move_c, lengths)
+    want = (alphas, logz, *crf_cuda.lattice_backward(
+        stay_c, move_c, lengths, got[0], got[1], ct))
+    got = (*got[:2], *crf_cuda.lattice_backward(stay, move, lengths, got[0],
+                                                got[1], ct))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ctc_lattice_logz_gradient_is_the_wrappers(cuda):
+    """The gradient that ``ctc_loss`` takes through the lattice's logZ
+    (``crf.ctc_lattice_logz``, which packs the gather's slices once for
+    K6a and K6b) equals, bit for bit, d_stay and d_move of the wrappers on
+    contiguous copies, and its logZ theirs."""
+    stay, move, lengths, ct = _gathered_lattice()
+    n = stay.shape[2]
+    both = torch.cat([stay, move], 2).requires_grad_()
+    before = _loss_launches()
+    lz = crf.ctc_lattice_logz(both[:, :, :n], both[:, :, n:], lengths)
+    lz.backward(ct)
+    moved = {k: v - before[k] for k, v in _loss_launches().items()}
+    assert moved["lattice_forward"] == moved["lattice_backward"] == 1
+    stay_c, move_c = stay.contiguous(), move.contiguous()
+    alphas, logz = crf_cuda.lattice_forward(stay_c, move_c, lengths)
+    d_stay, d_move = crf_cuda.lattice_backward(stay_c, move_c, lengths,
+                                               alphas, logz, ct)
+    assert torch.equal(lz.detach(), logz)
+    assert torch.equal(both.grad[:, :, :n], d_stay)
+    assert torch.equal(both.grad[:, :, n:], d_move)
 
 
 def test_lattice_kernels_refuse_wider_than_their_limit(cuda):

@@ -152,3 +152,69 @@ def test_scan_scores_are_copied_only_when_not_8_byte_aligned(offset):
     assert (got is not s) == (offset == 1)
     assert got.data_ptr() % 8 == 0 and got.is_contiguous()
     assert torch.equal(got, s)
+
+
+# n = 4, 5, 6, 7: n = 0, 1, 2 and 3 mod 4; 1: no move at all
+@pytest.mark.parametrize("n", [4, 5, 6, 7, 1])
+def test_lattice_pack_layout(n):
+    """``lattice_pack`` lays stay and move out as K6a and K6b read them,
+    as JAX's ``_lat_pack`` does: [T, N, 2, npad], npad = n rounded up to 4;
+    row 0 the stay, row 1 the move into each position (slot j holds move
+    j-1); slot 0 of the move row and the pads -1e38.  ``lattice_unpack``
+    gives stay and move back exactly, as views that the wrappers take
+    without packing again."""
+    T, N = 3, 2
+    rng = np.random.default_rng(n)
+    stay = torch.from_numpy(rng.standard_normal((T, N, n)).astype(np.float32))
+    move = torch.from_numpy(
+        rng.standard_normal((T, N, n - 1)).astype(np.float32))
+    lat = crf_cuda.lattice_pack(stay, move)
+    npad = -(-n // 4) * 4
+    assert lat.shape == (T, N, 2, npad) and lat.is_contiguous()
+    assert torch.equal(lat[:, :, 0, :n], stay)
+    for j in range(1, n):
+        assert torch.equal(lat[:, :, 1, j], move[:, :, j - 1])
+    neg = torch.tensor(-1e38, dtype=torch.float32)
+    for pad in (lat[:, :, 0, n:], lat[:, :, 1, :1], lat[:, :, 1, n:]):
+        assert bool((pad == neg).all())
+    got_s, got_m = crf_cuda.lattice_unpack(lat, n)
+    assert torch.equal(got_s, stay) and torch.equal(got_m, move)
+    assert crf_cuda._packed(got_s, got_m).data_ptr() == lat.data_ptr()
+    assert torch.equal(crf_cuda._packed(stay, move), lat)
+
+
+def test_lattice_alphas_at_row_stride_npad():
+    """K6b reads the alphas at K6a's row stride npad: a view of such
+    alphas passes as it is, contiguous [T, N, n] alphas are copied into
+    that layout."""
+    T, N, n, npad = 3, 2, 5, 8
+    full = torch.arange(T * N * npad, dtype=torch.float32).view(T, N, npad)
+    view = full[:, :, :n]
+    assert crf_cuda._padded(view, npad).data_ptr() == full.data_ptr()
+    copied = crf_cuda._padded(view.contiguous(), npad)
+    assert copied.shape == (T, N, npad)
+    assert copied.data_ptr() != full.data_ptr()
+    assert torch.equal(copied[:, :, :n], view)
+
+
+@pytest.mark.parametrize("n_base,state_len,T,N,L", CASES)
+def test_lattice_logz_gradient_through_the_pack(n_base, state_len, T, N, L):
+    """logZ and the gradient of ``ctc_lattice_logz`` (which packs the
+    gather's slices once for K6a and K6b; the plain versions on the CPU,
+    reading the packed views) are those of the plain versions on
+    contiguous stay and move, bit for bit."""
+    stay, move, lengths = _lattice(n_base, state_len, T, N, L, seed=9)
+    ct = torch.from_numpy(
+        np.random.default_rng(10).standard_normal(N).astype(np.float32))
+    n = stay.shape[2]
+    both = torch.cat([stay, move], 2).requires_grad_()
+    lz = crf.ctc_lattice_logz(both[:, :, :n], both[:, :, n:], lengths)
+    lz.backward(ct)
+    alphas, want_z = crf.lattice_forward(stay.contiguous(),
+                                         move.contiguous(), lengths)
+    d_stay, d_move = crf.lattice_backward(stay.contiguous(),
+                                          move.contiguous(), lengths, alphas,
+                                          want_z, ct)
+    assert torch.equal(lz.detach(), want_z)
+    assert torch.equal(both.grad[:, :, :n], d_stay)
+    assert torch.equal(both.grad[:, :, n:], d_move)

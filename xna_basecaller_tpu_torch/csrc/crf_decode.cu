@@ -74,7 +74,7 @@ crf_backward_kernel(const float* __restrict__ scores,
   __syncthreads();
   for (int s = 0; s < D - 1; ++s) {
     if (s < T)
-      ring.fetch(last - s * row_stride, s);
+      ring.fetch(s, Row{last - s * row_stride, C});
     else
       ring.skip();
   }
@@ -84,7 +84,7 @@ crf_backward_kernel(const float* __restrict__ scores,
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s, cur = s & 1;
     if (s + D - 1 < T)
-      ring.fetch(last - (s + D - 1) * row_stride, s + D - 1);
+      ring.fetch(s + D - 1, Row{last - (s + D - 1) * row_stride, C});
     else
       ring.skip();
     const float* ms = ring.row(s);
@@ -215,7 +215,7 @@ int xna_crf_backward(const void* scores, void* betas, int T, int N, int nb,
   return ring_dispatch(route, nb, [&](auto r, auto b) {
     return ring_launch(
         crf_backward_kernel<decltype(r)::value, decltype(b)::value>, N,
-        smem, stream, static_cast<const float*>(scores),
+        kThreads, smem, stream, static_cast<const float*>(scores),
         static_cast<float*>(betas), T, N, nb, ns);
   });
 }

@@ -15,8 +15,13 @@
 // finite -1e38 stands for log(0) as there: at most two of them are summed,
 // which stays finite, so no inf - inf turns into NaN.
 //
-// Scores are read in their natural layout [T, N, n_state, n_base + 1]; the
-// lattice's stay [T, N, n] and move [T, N, n-1] as the gather gives them.
+// Scores are read in their natural layout [T, N, n_state, n_base + 1].
+// The lattice's stay [T, N, n] and move [T, N, n-1] are packed by the
+// wrappers (ops/crf_cuda.py::lattice_pack) as the JAX package's _lat_pack
+// packs them: lat [T, N, 2, npad], npad = n rounded up to 4, slot j of
+// row 0 the stay at j, slot j of row 1 the move into j (slot 0 and the
+// pads -1e38), so that a step's rows of one sequence are one 16-byte
+// aligned span.  K6a writes its alphas at row stride npad, for K6b.
 //
 // Bound on the card (flagship training: T=720, N=64, 216 states x 7
 // columns, n=448 lattice positions, f32): every kernel moves each byte
@@ -30,16 +35,23 @@
 //
 // Design: the scans run one block per sequence, with the recurrent vector
 // double-buffered in shared memory so that one __syncthreads separates the
-// steps.  K4 is K2b's alpha update alone, one thread per state, reading
-// each step's 6 KB score row straight from the ring of crf_ring.cuh (rows
-// D - 1 steps ahead in shared memory, by bulk copy or cp.async).  The
-// lattice kernels stride their threads over the n positions (any n up to
-// kLatMaxN), read each step's stay and move rows coalesced, prefetching
-// the next step's into registers while the current one computes, and K6b
-// writes d_stay and d_move as it walks back, so the lattice betas are
-// never stored.  K5b is one parallel pass, a block per (t, sequence) row.
+// steps, and read each step's span of rows straight from the ring of
+// crf_ring.cuh (spans D - 1 steps ahead in shared memory, by bulk copy or
+// cp.async), so that a step waits for no device-memory latency.  K4 is
+// K2b's alpha update alone, one thread per state, its span the 6 KB score
+// row.  The lattice kernels stride their threads over the n positions
+// (any n up to kLatMaxN) with one warp more than the positions need up to
+// 480 of them, whose last thread issues the bulk copies; K6a's span is the
+// step's packed stay and move (3.5 KB at n=448), K6b's those and the
+// alphas row (5.25 KB), in 8 stages, or 4 or 2 where a wide lattice's 8
+// do not fit (lattice_depth).  K6b writes d_stay and d_move as it
+// walks back, so the lattice betas are never stored.  K5b is one parallel
+// pass, a block per (t, sequence) row.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 #include "crf_common.cuh"
 #include "crf_ring.cuh"
@@ -47,10 +59,10 @@
 namespace {
 
 constexpr float kNeg = -1e38f;    // log(0), finite
-constexpr int kLatThreads = 512;  // 128 registers a thread, no spills
-constexpr int kLatPer = 12;       // positions per thread held in registers
-constexpr int kLatMaxN = 6144;    // 2 x n floats of shared memory in 48 KB,
-                                  // = kLatThreads * kLatPer
+constexpr int kLatThreads = 512;  // threads of a lattice block, at most
+constexpr int kLatMaxN = 6144;    // positions: K6b's ring of 2 stages and
+                                  // its two beta rows in 192 KB
+constexpr size_t kMaxSmem = 232448;   // a block's shared memory (227 KB)
 
 // K4: alphas [T+1, N, ns] with alphas[0] = 0, and logZ [N] = lse(alpha_T).
 //   alpha_{t+1}[j] = lse(alpha_t[j] + Ms[t,j,0],
@@ -81,7 +93,7 @@ crf_forward_kernel(const float* __restrict__ scores,
   __syncthreads();
   for (int t = 0; t < D - 1; ++t) {
     if (t < T)
-      ring.fetch(base + t * row_stride, t);
+      ring.fetch(t, Row{base + t * row_stride, C});
     else
       ring.skip();
   }
@@ -91,7 +103,7 @@ crf_forward_kernel(const float* __restrict__ scores,
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
     if (t + D - 1 < T)
-      ring.fetch(base + (t + D - 1) * row_stride, t + D - 1);
+      ring.fetch(t + D - 1, Row{base + (t + D - 1) * row_stride, C});
     else
       ring.skip();
     const float* ms = ring.row(t);
@@ -143,66 +155,55 @@ crf_posterior_kernel(const float* __restrict__ scores,
   }
 }
 
-// K6a: the stay/move lattice forward.  alphas [T, N, n] holds alpha_t
-// before step t; alpha_0 = 0 at position 0 and log(0) elsewhere; then
+// Padded positions of a lattice of n: a packed row is 16-byte aligned.
+__host__ __device__ inline int lat_pad(int n) { return (n + 3) & ~3; }
+
+// K6a: the stay/move lattice forward.  alphas [T, N, npad] holds alpha_t
+// before step t at positions 0..n-1; alpha_0 = 0 at position 0 and log(0)
+// elsewhere; then
 //   alpha'[0] = alpha[0] + stay[0],
-//   alpha'[j] = lse(alpha[j] + stay[j], alpha[j-1] + move[j-1]),
-// and logZ [N] = alpha_T[clamp(len-1, 0, n-1)].  Position j of a block's
-// walk is thread j % blockDim, register slot j / blockDim.
+//   alpha'[j] = lse(alpha[j] + stay[j], alpha[j-1] + move into j),
+// and logZ [N] = alpha_T[clamp(len-1, 0, n-1)].  Step t reads its span
+// lat[t, b] (stay, then move) from a ring of D stages; thread j of the
+// block walks positions j, j + blockDim, ...
+template <int D>
 __global__ void __launch_bounds__(kLatThreads)
-lattice_forward_kernel(const float* __restrict__ stay,
-                       const float* __restrict__ move,
+lattice_forward_kernel(const float* __restrict__ lat,
                        const int* __restrict__ lengths,
                        float* __restrict__ alphas, float* __restrict__ logz,
                        int T, int N, int n) {
-  extern __shared__ float sm[];   // [2][n]
-  const int b = blockIdx.x, nt = blockDim.x;
-  const size_t s_step = (size_t)N * n, m_step = (size_t)N * (n - 1);
-  const float* st = stay + (size_t)b * n;
-  const float* mv = move + (size_t)b * (n - 1);
-  float* al = alphas + (size_t)b * n;
-  float s_reg[kLatPer], m_reg[kLatPer];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int npad = lat_pad(n), b = blockIdx.x, nt = blockDim.x;
+  RowRing<kBulk, D> ring(smem, 2 * npad);
+  float* sm = ring.end();   // [2][n]
+  const size_t step = (size_t)N * npad;   // alphas' step; lat's is twice
+  const float* span = lat + (size_t)b * 2 * npad;
+  float* al = alphas + (size_t)b * npad;
 
-#pragma unroll
-  for (int p = 0; p < kLatPer; ++p) {
-    const int j = threadIdx.x + p * nt;
-    if (j < n) {
-      sm[j] = j == 0 ? 0.0f : kNeg;
-      s_reg[p] = st[j];
-      m_reg[p] = j > 0 ? mv[j - 1] : 0.0f;
-    }
-  }
+  ring.init();
+  for (int j = threadIdx.x; j < n; j += nt) sm[j] = j == 0 ? 0.0f : kNeg;
   __syncthreads();
+  for (int t = 0; t < D - 1 && t < T; ++t)
+    ring.fetch(t, Row{span + t * 2 * step, 2 * npad});
+  const float* next = span + (D - 1) * 2 * step;   // the span of t + D - 1
 
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < T; ++t, next += 2 * step, al += step) {
+    if (t + D - 1 < T) ring.fetch(t + D - 1, Row{next, 2 * npad});
+    const float* st = ring.row(t);
+    const float* mv = st + npad;
     const float* a = sm + (t & 1) * n;
     float* a_next = sm + ((t & 1) ^ 1) * n;
-    float s_next[kLatPer] = {}, m_next[kLatPer] = {};
-#pragma unroll
-    for (int p = 0; p < kLatPer; ++p) {
-      const int j = threadIdx.x + p * nt;
-      if (t + 1 < T && j < n) {
-        s_next[p] = st[(t + 1) * s_step + j];
-        m_next[p] = j > 0 ? mv[(t + 1) * m_step + j - 1] : 0.0f;
+    for (int j = threadIdx.x; j < n; j += nt) {
+      const float aj = a[j];
+      al[j] = aj;
+      const float stayed = aj + st[j];
+      float out = stayed;
+      if (j > 0) {
+        const float moved = a[j - 1] + mv[j];
+        const float m = fmaxf(stayed, moved);
+        out = m + logf(expf(stayed - m) + expf(moved - m));
       }
-    }
-#pragma unroll
-    for (int p = 0; p < kLatPer; ++p) {
-      const int j = threadIdx.x + p * nt;
-      if (j < n) {
-        const float aj = a[j];
-        al[t * s_step + j] = aj;
-        const float stayed = aj + s_reg[p];
-        float out = stayed;
-        if (j > 0) {
-          const float moved = a[j - 1] + m_reg[p];
-          const float m = fmaxf(stayed, moved);
-          out = m + logf(expf(stayed - m) + expf(moved - m));
-        }
-        a_next[j] = out;
-        s_reg[p] = s_next[p];
-        m_reg[p] = m_next[p];
-      }
+      a_next[j] = out;
     }
     __syncthreads();
   }
@@ -214,79 +215,66 @@ lattice_forward_kernel(const float* __restrict__ stay,
 
 // K6b: the lattice backward with the combine fused in.  beta_T = 0 at
 // position len-1 and log(0) elsewhere; walking t = T-1 .. 0 with
-// beta = beta_{t+1}:
+// beta = beta_{t+1} and move[t,j] the move from j into j+1:
 //   d_stay[t,j] = exp(((alphas[t,j] + stay[t,j]) + beta[j]) - logZ) * ct
 //   d_move[t,j] = exp(((alphas[t,j] + move[t,j]) + beta[j+1]) - logZ) * ct
 //   beta_t[j]   = logaddexp(stay[t,j] + beta[j], move[t,j] + beta[j+1]),
 //   beta_t[n-1] = stay[t,n-1] + beta[n-1],
 // with logaddexp(x, y) = max + log1p(exp(-|x - y|)), as torch computes it.
+// Step s reads the span of t = T-1-s: lat[t, b], then alphas[t, b].
+template <int D>
 __global__ void __launch_bounds__(kLatThreads)
-lattice_backward_kernel(const float* __restrict__ stay,
-                        const float* __restrict__ move,
+lattice_backward_kernel(const float* __restrict__ lat,
                         const int* __restrict__ lengths,
                         const float* __restrict__ alphas,
                         const float* __restrict__ logz,
                         const float* __restrict__ ct,
                         float* __restrict__ d_stay,
                         float* __restrict__ d_move, int T, int N, int n) {
-  extern __shared__ float sm[];   // [2][n]
-  const int b = blockIdx.x, nt = blockDim.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int npad = lat_pad(n), b = blockIdx.x, nt = blockDim.x;
+  RowRing<kBulk, D> ring(smem, 3 * npad);
+  float* sm = ring.end();   // [2][n]
+  const size_t step = (size_t)N * npad;
   const size_t s_step = (size_t)N * n, m_step = (size_t)N * (n - 1);
-  const float* st = stay + (size_t)b * n;
-  const float* mv = move + (size_t)b * (n - 1);
-  const float* al = alphas + (size_t)b * n;
-  float* ds = d_stay + (size_t)b * n;
-  float* dm = d_move + (size_t)b * (n - 1);
+  const float* span = lat + ((size_t)(T - 1) * N + b) * 2 * npad;
+  const float* al = alphas + ((size_t)(T - 1) * N + b) * npad;
+  float* ds = d_stay + ((size_t)(T - 1) * N + b) * n;
+  float* dm = d_move + ((size_t)(T - 1) * N + b) * (n - 1);
   const float lz = logz[b], c = ct[b];
   const int last = lengths[b] - 1;
-  float s_reg[kLatPer], m_reg[kLatPer], a_reg[kLatPer];
 
-#pragma unroll
-  for (int p = 0; p < kLatPer; ++p) {
-    const int j = threadIdx.x + p * nt;
-    if (j < n) {
-      sm[j] = j == last ? 0.0f : kNeg;
-      s_reg[p] = st[(T - 1) * s_step + j];
-      m_reg[p] = j < n - 1 ? mv[(T - 1) * m_step + j] : 0.0f;
-      a_reg[p] = al[(T - 1) * s_step + j];
-    }
-  }
+  ring.init();
+  for (int j = threadIdx.x; j < n; j += nt) sm[j] = j == last ? 0.0f : kNeg;
   __syncthreads();
+  for (int s = 0; s < D - 1 && s < T; ++s)
+    ring.fetch(s, Row{span - s * 2 * step, 2 * npad},
+               Row{al - s * step, npad});
+  span -= (D - 1) * 2 * step;   // the spans of step s + D - 1
+  al -= (D - 1) * step;
 
-  for (int s = 0; s < T; ++s) {
-    const int t = T - 1 - s;
+  for (int s = 0; s < T; ++s, span -= 2 * step, al -= step, ds -= s_step,
+           dm -= m_step) {
+    if (s + D - 1 < T)
+      ring.fetch(s + D - 1, Row{span, 2 * npad}, Row{al, npad});
+    const float* st = ring.row(s);
+    const float* mv = st + npad + 1;   // mv[j]: the move from j into j+1
+    const float* av = st + 2 * npad;
     const float* beta = sm + (s & 1) * n;
     float* beta_next = sm + ((s & 1) ^ 1) * n;
-    float s_next[kLatPer] = {}, m_next[kLatPer] = {}, a_next[kLatPer] = {};
-#pragma unroll
-    for (int p = 0; p < kLatPer; ++p) {
-      const int j = threadIdx.x + p * nt;
-      if (t > 0 && j < n) {
-        s_next[p] = st[(t - 1) * s_step + j];
-        m_next[p] = j < n - 1 ? mv[(t - 1) * m_step + j] : 0.0f;
-        a_next[p] = al[(t - 1) * s_step + j];
+    for (int j = threadIdx.x; j < n; j += nt) {
+      const float bj = beta[j];
+      ds[j] = expf(((av[j] + st[j]) + bj) - lz) * c;
+      const float stay_term = st[j] + bj;
+      float out = stay_term;
+      if (j < n - 1) {
+        const float bj1 = beta[j + 1];
+        dm[j] = expf(((av[j] + mv[j]) + bj1) - lz) * c;
+        const float move_term = mv[j] + bj1;
+        out = fmaxf(stay_term, move_term) +
+              log1pf(expf(-fabsf(stay_term - move_term)));
       }
-    }
-#pragma unroll
-    for (int p = 0; p < kLatPer; ++p) {
-      const int j = threadIdx.x + p * nt;
-      if (j < n) {
-        const float bj = beta[j];
-        ds[t * s_step + j] = expf(((a_reg[p] + s_reg[p]) + bj) - lz) * c;
-        const float stay_term = s_reg[p] + bj;
-        float out = stay_term;
-        if (j < n - 1) {
-          const float bj1 = beta[j + 1];
-          dm[t * m_step + j] = expf(((a_reg[p] + m_reg[p]) + bj1) - lz) * c;
-          const float move_term = m_reg[p] + bj1;
-          out = fmaxf(stay_term, move_term) +
-                log1pf(expf(-fabsf(stay_term - move_term)));
-        }
-        beta_next[j] = out;
-        s_reg[p] = s_next[p];
-        m_reg[p] = m_next[p];
-        a_reg[p] = a_next[p];
-      }
+      beta_next[j] = out;
     }
     __syncthreads();
   }
@@ -296,10 +284,36 @@ bool lattice_supported(int T, int N, int n) {
   return T >= 1 && N >= 1 && n >= 1 && n <= kLatMaxN;
 }
 
-// threads for a lattice of n positions: a warp multiple, at most
-// kLatThreads, so that each thread holds at most kLatPer positions
+// Threads for a lattice of n positions: a warp more than the positions
+// need, whose last thread issues the ring's copies, up to kLatThreads;
+// above 480 positions the last thread walks positions too.
 int lattice_threads(int n) {
-  return n >= kLatThreads ? kLatThreads : (n + 31) / 32 * 32;
+  return std::min((n + 31) / 32 * 32 + 32, kLatThreads);
+}
+
+// Shared memory of a lattice scan whose span is `rows` packed rows (K6a 2,
+// K6b 3) in a ring of D stages, with its two rows of alpha or beta.
+size_t lattice_smem(int n, int rows, int D) {
+  return ring_bytes(rows * lat_pad(n), D) + 2 * (size_t)n * 4;
+}
+
+// The ring's depth for a lattice of n positions: 8 stages where they fit
+// in a block's shared memory (K6a up to n = 3224, K6b up to 2232), else 4
+// (K6a up to 5808, K6b up to 4148), else 2 (any n up to kLatMaxN).
+int lattice_depth(int n, int rows) {
+  for (int D = kRingStages; D > 2; D /= 2)
+    if (lattice_smem(n, rows, D) <= kMaxSmem) return D;
+  return 2;
+}
+
+// Launch `kernel<D>` at the lattice's depth.
+template <class Launch>
+int lattice_launch(int n, int rows, Launch&& launch) {
+  switch (lattice_depth(n, rows)) {
+    case 8: return launch(IntC<8>{});
+    case 4: return launch(IntC<4>{});
+  }
+  return launch(IntC<2>{});
 }
 
 }  // namespace
@@ -307,7 +321,8 @@ int lattice_threads(int n) {
 extern "C" {
 
 // Each entry point returns 0, a cudaError_t, -2 (unsupported shape), or,
-// for the ring's scans, -3 (scores not 8-byte aligned).
+// for the ring's scans, -3 (scores not 8-byte aligned; the lattice's
+// packed rows or alphas not 16-byte aligned).
 // All tensors are contiguous f32 (lengths int32); scores are
 // [T, N, ns * (nb + 1)].
 
@@ -320,8 +335,8 @@ int xna_crf_forward(const void* scores, void* alphas, void* logz, int T, int N,
   if (route < 0) return -3;
   return ring_dispatch(route, nb, [&](auto r, auto b) {
     return ring_launch(
-        crf_forward_kernel<decltype(r)::value, decltype(b)::value>, N, smem,
-        stream, static_cast<const float*>(scores),
+        crf_forward_kernel<decltype(r)::value, decltype(b)::value>, N,
+        kThreads, smem, stream, static_cast<const float*>(scores),
         static_cast<float*>(alphas), static_cast<float*>(logz), T, N, nb,
         ns);
   });
@@ -341,33 +356,50 @@ int xna_crf_posteriors(const void* scores, const void* alphas,
   return cudaGetLastError();
 }
 
-// stay [T, N, n], move [T, N, n-1], lengths [N] -> alphas [T, N, n], logz [N]
-int xna_lattice_forward(const void* stay, const void* move,
-                        const void* lengths, void* alphas, void* logz, int T,
-                        int N, int n, void* stream) {
+// lat [T, N, 2, npad] (lattice_pack), lengths [N] -> alphas [T, N, npad],
+// logz [N]; -3 where lat or alphas is not 16-byte aligned
+int xna_lattice_forward(const void* lat, const void* lengths, void* alphas,
+                        void* logz, int T, int N, int n, void* stream) {
   if (!lattice_supported(T, N, n)) return -2;
-  lattice_forward_kernel<<<N, lattice_threads(n), 2 * (size_t)n * 4,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(stay), static_cast<const float*>(move),
-      static_cast<const int*>(lengths), static_cast<float*>(alphas),
-      static_cast<float*>(logz), T, N, n);
-  return cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(lat) % 16 ||
+      reinterpret_cast<uintptr_t>(alphas) % 16)
+    return -3;
+  return lattice_launch(n, 2, [&](auto d) {
+    return ring_launch(lattice_forward_kernel<decltype(d)::value>, N,
+                       lattice_threads(n), lattice_smem(n, 2, d), stream,
+                       static_cast<const float*>(lat),
+                       static_cast<const int*>(lengths),
+                       static_cast<float*>(alphas), static_cast<float*>(logz),
+                       T, N, n);
+  });
 }
 
-// ... alphas [T, N, n], logz [N], ct [N] -> d_stay [T, N, n], d_move
+// ... alphas [T, N, npad], logz [N], ct [N] -> d_stay [T, N, n], d_move
 // [T, N, n-1]
-int xna_lattice_backward(const void* stay, const void* move,
-                         const void* lengths, const void* alphas,
-                         const void* logz, const void* ct, void* d_stay,
-                         void* d_move, int T, int N, int n, void* stream) {
+int xna_lattice_backward(const void* lat, const void* lengths,
+                         const void* alphas, const void* logz, const void* ct,
+                         void* d_stay, void* d_move, int T, int N, int n,
+                         void* stream) {
   if (!lattice_supported(T, N, n)) return -2;
-  lattice_backward_kernel<<<N, lattice_threads(n), 2 * (size_t)n * 4,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(stay), static_cast<const float*>(move),
-      static_cast<const int*>(lengths), static_cast<const float*>(alphas),
-      static_cast<const float*>(logz), static_cast<const float*>(ct),
-      static_cast<float*>(d_stay), static_cast<float*>(d_move), T, N, n);
-  return cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(lat) % 16 ||
+      reinterpret_cast<uintptr_t>(alphas) % 16)
+    return -3;
+  return lattice_launch(n, 3, [&](auto d) {
+    return ring_launch(lattice_backward_kernel<decltype(d)::value>, N,
+                       lattice_threads(n), lattice_smem(n, 3, d), stream,
+                       static_cast<const float*>(lat),
+                       static_cast<const int*>(lengths),
+                       static_cast<const float*>(alphas),
+                       static_cast<const float*>(logz),
+                       static_cast<const float*>(ct),
+                       static_cast<float*>(d_stay),
+                       static_cast<float*>(d_move), T, N, n);
+  });
+}
+
+// The ring's depth of K6a (backward 0) or K6b (backward 1) at n positions.
+int xna_lattice_depth(int n, int backward) {
+  return lattice_depth(n, backward ? 3 : 2);
 }
 
 const char* xna_error_string(int code) {

@@ -1,34 +1,46 @@
-// The score-row ring of the CRF's log-semiring scans: the backward scan
-// K2a/K5a (crf_backward_kernel, crf_decode.cu) and the forward scan K4
-// (crf_forward_kernel, crf_loss.cu).
+// The row ring of the CRF's log-semiring scans: the backward scan K2a/K5a
+// (crf_backward_kernel, crf_decode.cu), the forward scan K4
+// (crf_forward_kernel, crf_loss.cu) and the stay/move lattice's scans K6a
+// and K6b (lattice_forward_kernel, lattice_backward_kernel, crf_loss.cu).
 //
-// A scan runs one block per sequence and one thread per state, and each of
-// its T dependent steps reads one score row scores[t, n, :] (C = n_state *
-// (n_base + 1) f32, contiguous: 6048 B for the flagship) and nothing else
-// from device memory.  The ring keeps the rows of the next D - 1 steps in
-// flight into D stages of shared memory, so that once it is full a step
-// waits for no device-memory latency, and the step reads its row straight
-// from its stage (no staging through registers).  The stage of step s is
-// refilled at the top of step s + 1 with the row of step s + D: the
-// __syncthreads that ends step s has shown that every thread is done with
-// it.
+// A scan runs one block per sequence, and each of its T dependent steps
+// reads one span of rows from device memory and nothing else: a score row
+// scores[t, n, :] for K2a and K4 (C = n_state * (n_base + 1) f32: 6048 B
+// for the flagship); for the lattice, the step's stay and move rows, packed
+// side by side (2 * npad f32, npad = n rounded up to 4: 3584 B at n=448),
+// and for K6b the alphas row after them (3 * npad f32: 5376 B).  The ring
+// keeps the spans of the next D - 1 steps in flight into D stages of shared
+// memory, so that once it is full a step waits for no device-memory
+// latency, and the step reads its span straight from its stage (no staging
+// through registers).  The stage of step s is refilled at the top of step
+// s + 1 with the span of step s + D: the __syncthreads that ends step s has
+// shown that every thread is done with it.
 //
-// The route a row takes into its stage (ring_route, by the row's
-// alignment):
-//   kBulk  one thread issues one bulk copy (TMA) a row, completing on the
-//          stage's mbarrier; the step waits for that barrier's phase.
-//          Rows 16-byte aligned and a multiple of 16 bytes.
+// The route a span takes into its stage (ring_route, by its alignment):
+//   kBulk  the block's last thread issues one bulk copy (TMA) for each row
+//          of the span, all completing on the stage's one mbarrier, which
+//          expects their summed bytes; the step waits for that barrier's
+//          phase.  Rows 16-byte aligned and multiples of 16 bytes.  The
+//          scans launch that thread where it has no state of its own to
+//          update (216 states of 256 threads; the lattice adds a warp to
+//          its n <= 480 positions), so the copies stay off the step's chain.
 //   8      every thread issues cp.async of 8 bytes for its part of the row
-//          and commits one group a step (an empty one past the end); before
-//          the barrier that ends step s, each thread waits for its own
-//          copies of step s + 1's row, and the barrier shows them to the
-//          others.  A 5-letter model's rows (125 states x 6 = 750 f32 =
-//          3000 B) take it.
-// A row is n_state * (n_base + 1) floats, an even number for every
+//          (one row a span) and commits one group a step (an empty one past
+//          the end); before the barrier that ends step s, each thread waits
+//          for its own copies of step s + 1's row, and the barrier shows
+//          them to the others.  A 5-letter model's score rows (125 states x
+//          6 = 750 f32 = 3000 B) take it.
+// A score row is n_state * (n_base + 1) floats, an even number for every
 // alphabet, so rows are 8-byte aligned wherever the scores start 8-byte
-// aligned; the wrappers copy scores that do not (ops/crf_cuda.py).
+// aligned; the wrappers copy scores that do not (ops/crf_cuda.py).  The
+// lattice's rows are packed by its wrappers to take the bulk route.
 // cp.async of 16 bytes a thread was slower than the bulk copy, or within
 // 1.3 % of it, and depths 4 and 16 within 2.2 % of 8 (PERF.md §6).
+// The depth D is 8 (kRingStages), except where 8 stages and the scan's two
+// rows of state do not fit in a block's 227 KB of shared memory: the
+// lattice's span grows with n, so K6a takes 8 stages up to n = 3224, 4 up
+// to 5808 and 2 up to its limit of 6144, K6b 8 up to 2232, 4 up to 4148,
+// then 2 (lattice_depth, crf_loss.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,10 +63,9 @@ __host__ __device__ inline int ring_bar_bytes(int D) {
   return (D * 8 + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of the ring, for rows of C floats.
-inline size_t ring_bytes(int C) {
-  return ring_bar_bytes(kRingStages) +
-         (size_t)kRingStages * ring_stride(C) * 4;
+// Dynamic shared memory of a ring of D stages of C floats.
+inline size_t ring_bytes(int C, int D = kRingStages) {
+  return ring_bar_bytes(D) + (size_t)D * ring_stride(C) * 4;
 }
 
 // The widest route the rows of `scores` (C floats each) can take, or -1
@@ -66,14 +77,19 @@ inline int ring_route(const void* scores, int C) {
   return -1;
 }
 
-template <int R>
+// One row of a span: `floats` f32 at `src` in device memory.
+struct Row {
+  const float* src;
+  int floats;
+};
+
+template <int R, int D = kRingStages>
 struct RowRing {
   static_assert(R == kBulk || R == 8, "a route of ring_route");
-  static constexpr int D = kRingStages;
   static_assert(D >= 2 && (D & (D - 1)) == 0, "D: a power of two");
   uint64_t* full;   // [D] mbarriers (bulk route)
   float* stage;     // [D][stride]
-  int C, stride;
+  int C, stride;    // floats of a span, and of a stage
 
   __device__ RowRing(unsigned char* smem, int C_)
       : full(reinterpret_cast<uint64_t*>(smem)),
@@ -93,20 +109,25 @@ struct RowRing {
     }
   }
 
-  // Start copying `row` (device memory) into the stage of step s.  The
-  // bulk copy is issued by the block's last thread, which has no state to
-  // update when n_state < 225 (216 for the flagship): off the step's chain.
-  __device__ void fetch(const float* row, int s) {
+  // Start copying the span of step s, its rows one after another (their
+  // floats summing to C), into its stage.  The cp.async route takes one
+  // row a span.
+  template <class... Rows>
+  __device__ void fetch(int s, Rows... rows) {
     float* dst = stage + (s % D) * stride;
     if constexpr (R == kBulk) {
       if (threadIdx.x == blockDim.x - 1) {
-        xna::mbar_expect_tx(full + s % D, C * 4);
-        xna::bulk_load(dst, row, C * 4, full + s % D);
+        uint64_t* bar = full + s % D;
+        xna::mbar_expect_tx(bar, C * 4);
+        ((xna::bulk_load(dst, rows.src, rows.floats * 4, bar),
+          dst += rows.floats), ...);
       }
     } else {
+      static_assert(sizeof...(Rows) == 1, "cp.async: one row a span");
+      const Row row{rows...};
       char* d = reinterpret_cast<char*>(dst);
-      const char* g = reinterpret_cast<const char*>(row);
-      for (int i = threadIdx.x; i < C / 2; i += blockDim.x)
+      const char* g = reinterpret_cast<const char*>(row.src);
+      for (int i = threadIdx.x; i < row.floats / 2; i += blockDim.x)
         xna::cp_async8(d + i * 8, g + i * 8);
       xna::cp_async_commit();
     }
@@ -185,14 +206,14 @@ int ring_dispatch(int route, int nb, F&& f) {
   });
 }
 
-// One block per sequence; the ring may take more than 48 KB.
+// One block of `threads` per sequence; the ring may take more than 48 KB.
 template <class... Params, class... Args>
-int ring_launch(void (*kernel)(Params...), int N, size_t smem,
+int ring_launch(void (*kernel)(Params...), int N, int threads, size_t smem,
                 void* stream, Args... args) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();
 }
 

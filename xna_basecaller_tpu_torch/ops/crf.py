@@ -304,12 +304,14 @@ class _CTCLatticeLogZ(torch.autograd.Function):
     """logZ [N] of the stay/move lattice, read at position length-1 (K6a),
     with the explicit backward of ``crf.py::_ctc_lattice_bwd`` (K6b): the
     edge posteriors of stay and move times the cotangent.  The forward
-    keeps the alphas that the JAX backward recomputes."""
+    keeps the alphas that the JAX backward recomputes, and packs stay and
+    move once for both kernels (``crf_cuda.lattice_pack``)."""
 
     @staticmethod
     def forward(ctx, stay, move, lengths):
         from xna_basecaller_tpu_torch.ops import crf_cuda
-        stay, move = stay.contiguous(), move.contiguous()
+        stay, move = crf_cuda.lattice_unpack(
+            crf_cuda.lattice_pack(stay, move), stay.shape[2])
         alphas, lz = crf_cuda.lattice_forward(stay, move, lengths)
         ctx.save_for_backward(stay, move, lengths, alphas, lz)
         return lz

@@ -17,10 +17,11 @@ stay/move lattice's forward K6a (``lattice_forward``, for
 Their bound on the card, and what the design does about it, is set out at
 the top of each CUDA source: the scans are bound by reading their inputs
 once and by their 720 dependent steps; one block per sequence keeps the
-recurrent vector in shared memory; K2a/K5a and K4 read each step's row
-from a ring of rows that bulk copies keep in flight into shared memory
-(``csrc/crf_ring.cuh``), the others read it coalesced, prefetching the
-next one.
+recurrent vector in shared memory; the scans K2a/K5a, K4, K6a and K6b read
+each step's rows from a ring that bulk copies keep in flight into shared
+memory (``csrc/crf_ring.cuh``), K2b reads its row coalesced, prefetching
+the next one.  The lattice kernels take stay and move packed side by side
+(``lattice_pack``).
 
 Each wrapper takes the plain version in ``ops/crf.py`` for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
@@ -46,15 +47,18 @@ _SIGNATURES = {
     "xna_crf_forward": ("crf_loss", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "xna_crf_posteriors": ("crf_loss",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "xna_lattice_forward": ("crf_loss", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "xna_lattice_forward": ("crf_loss", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "xna_lattice_backward": ("crf_loss",
-                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "xna_lattice_depth": ("crf_loss", [_I, _I]),
 }
 _MESSAGES = {-2: "shape not supported by the kernel (n_state <= 256, "
                  "n_base + 1 <= 8, n_state * (n_base + 1) <= 2048)"}
 _SCAN_MESSAGES = {**_MESSAGES, -3: "scores not 8-byte aligned"}
 _LATTICE_MESSAGES = {-2: "lattice not supported by the kernel (1 <= n <= "
-                         "6144 positions)"}
+                         "6144 positions)",
+                     -3: "packed lattice or alphas not 16-byte aligned"}
+_NEG = -1e38   # log(0) in the packed lattice's pads, as in the kernels
 
 
 def _fn(name: str):
@@ -66,10 +70,12 @@ def _fn(name: str):
     return lib, fn
 
 
-def _check(t: torch.Tensor, name: str, dtype, ndim: int):
+def _check(t: torch.Tensor, name: str, dtype, ndim: int,
+           contiguous: bool = True):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+    if t.dtype != dtype or t.ndim != ndim \
+            or (contiguous and not t.is_contiguous()):
         raise ValueError(
             f"{name}: expected a contiguous {ndim}-d {dtype} tensor, got "
             f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
@@ -199,12 +205,69 @@ def edge_posteriors(scores: torch.Tensor, alphas: torch.Tensor,
     return post
 
 
+def _npad(n: int) -> int:
+    """Positions of a packed lattice row: n rounded up to 4 floats, so
+    that every row is 16-byte aligned."""
+    return -(-n // 4) * 4
+
+
+def lattice_pack(stay: torch.Tensor, move: torch.Tensor) -> torch.Tensor:
+    """The layout of the lattice kernels K6a and K6b, as the JAX package's
+    ``_lat_pack`` lays it out: stay [T, N, n] and move [T, N, n-1] -> lat
+    [T, N, 2, npad] (npad = n rounded up to 4), lat[:, :, 0, j] the stay at
+    j, lat[:, :, 1, j] the move into j (move j-1), slot 0 of the move row
+    and the pads -1e38.  One pass over stay and move, so that a step's rows
+    of one sequence are one 16-byte aligned span of 2 npad floats."""
+    T, N, n = stay.shape
+    npad = _npad(n)
+    neg = stay.new_full((1, 1, 1), _NEG)
+    return torch.cat([stay, neg.expand(T, N, npad - n + 1), move,
+                      neg.expand(T, N, npad - n)], 2).view(T, N, 2, npad)
+
+
+def lattice_unpack(lat: torch.Tensor, n: int):
+    """stay [T, N, n] and move [T, N, n-1] of a packed lattice (views)."""
+    return lat[:, :, 0, :n], lat[:, :, 1, 1:n]
+
+
+def _packed(stay: torch.Tensor, move: torch.Tensor) -> torch.Tensor:
+    """The packed lattice whose ``lattice_unpack`` views ``stay`` and
+    ``move`` are, without a copy (the loss hands its kernels such views);
+    any other stay and move are packed."""
+    T, N, n = stay.shape
+    npad = _npad(n)
+    strides = (2 * N * npad, 2 * npad, 1)
+    if stay.stride() == strides and move.stride() == strides \
+            and move.untyped_storage().data_ptr() \
+            == stay.untyped_storage().data_ptr() \
+            and move.storage_offset() == stay.storage_offset() + npad + 1 \
+            and stay.data_ptr() % 16 == 0 \
+            and stay.untyped_storage().nbytes() \
+            >= 4 * (stay.storage_offset() + T * N * 2 * npad):
+        return stay.as_strided((T, N, 2, npad), (2 * N * npad, 2 * npad,
+                                                 npad, 1))
+    return lattice_pack(stay, move)
+
+
+def _padded(alphas: torch.Tensor, npad: int) -> torch.Tensor:
+    """alphas [T, N, n] at row stride npad, 16-byte aligned, as K6a writes
+    them (a view of them passes as it is, others are copied): [T, N,
+    npad], of which the kernels read the first n positions."""
+    T, N, n = alphas.shape
+    if alphas.stride() == (N * npad, npad, 1) and alphas.data_ptr() % 16 == 0 \
+            and alphas.untyped_storage().nbytes() \
+            >= 4 * (alphas.storage_offset() + T * N * npad):
+        return alphas.as_strided((T, N, npad), (N * npad, npad, 1))
+    out = alphas.new_empty(T, N, npad)
+    out[:, :, :n] = alphas
+    return out
+
+
 def _lattice_inputs(name, stay, move, lengths):
-    """Contiguous f32 stay [T, N, n] and move [T, N, n-1] on the card, and
-    the lengths [N] as int32 there."""
-    stay, move = stay.contiguous(), move.contiguous()
-    _check(stay, name, torch.float32, 3)
-    _check(move, name, torch.float32, 3)
+    """The packed lattice of f32 stay [T, N, n] and move [T, N, n-1] on the
+    card, and the lengths [N] as int32 there."""
+    _check(stay, name, torch.float32, 3, contiguous=False)
+    _check(move, name, torch.float32, 3, contiguous=False)
     T, N, n = stay.shape
     if move.shape != (T, N, n - 1) or lengths.shape != (N,):
         raise ValueError(
@@ -212,26 +275,27 @@ def _lattice_inputs(name, stay, move, lengths):
             f"[N], got {tuple(stay.shape)}, {tuple(move.shape)}, "
             f"{tuple(lengths.shape)}")
     lengths = lengths.to(device=stay.device, dtype=torch.int32).contiguous()
-    return stay, move, lengths
+    return _packed(stay, move), lengths
 
 
 def lattice_forward(stay: torch.Tensor, move: torch.Tensor,
                     lengths: torch.Tensor):
     """K6a: -> (alphas [T, N, n], alpha_t before step t; logZ [N] at
-    position clamp(length-1, 0, n-1))."""
+    position clamp(length-1, 0, n-1)).  On the card the alphas are a view
+    at row stride npad, which ``lattice_backward`` takes without a copy."""
     if stay.device.type == "cpu":
         return crf.lattice_forward(stay, move, lengths)
-    stay, move, lengths = _lattice_inputs("lattice_forward", stay, move,
-                                          lengths)
-    T, N, n = stay.shape
-    alphas = torch.empty_like(stay)
+    lat, lengths = _lattice_inputs("lattice_forward", stay, move, lengths)
+    T, N, _, npad = lat.shape
+    n = stay.shape[2]
+    alphas = torch.empty(T, N, npad, device=stay.device)
     logz = torch.empty(N, device=stay.device)
     lib, fn = _fn("xna_lattice_forward")
-    rc = fn(stay.data_ptr(), move.data_ptr(), lengths.data_ptr(),
-            alphas.data_ptr(), logz.data_ptr(), T, N, n, _stream())
+    rc = fn(lat.data_ptr(), lengths.data_ptr(), alphas.data_ptr(),
+            logz.data_ptr(), T, N, n, _stream())
     _build.check(lib, rc, "lattice forward kernel", _LATTICE_MESSAGES)
     lattice_forward.launches += 1
-    return alphas, logz
+    return alphas[:, :, :n], logz
 
 
 def lattice_backward(stay: torch.Tensor, move: torch.Tensor,
@@ -241,26 +305,34 @@ def lattice_backward(stay: torch.Tensor, move: torch.Tensor,
     posteriors times ``ct`` [N]."""
     if stay.device.type == "cpu":
         return crf.lattice_backward(stay, move, lengths, alphas, logz, ct)
-    stay, move, lengths = _lattice_inputs("lattice_backward", stay, move,
-                                          lengths)
-    alphas, logz, ct = alphas.contiguous(), logz.contiguous(), \
-        ct.contiguous()
-    _check(alphas, "lattice_backward", torch.float32, 3)
+    lat, lengths = _lattice_inputs("lattice_backward", stay, move, lengths)
+    logz, ct = logz.contiguous(), ct.contiguous()
+    _check(alphas, "lattice_backward", torch.float32, 3, contiguous=False)
     _check(logz, "lattice_backward", torch.float32, 1)
     _check(ct, "lattice_backward", torch.float32, 1)
-    T, N, n = stay.shape
+    T, N, _, npad = lat.shape
+    n = stay.shape[2]
     if alphas.shape != stay.shape or logz.shape != (N,) \
             or ct.shape != (N,):
         raise ValueError("lattice_backward: alphas/logz/ct do not match")
-    d_stay = torch.empty_like(stay)
-    d_move = torch.empty_like(move)
+    alphas = _padded(alphas, npad)
+    d_stay = torch.empty(T, N, n, device=stay.device)
+    d_move = torch.empty(T, N, n - 1, device=stay.device)
     lib, fn = _fn("xna_lattice_backward")
-    rc = fn(stay.data_ptr(), move.data_ptr(), lengths.data_ptr(),
-            alphas.data_ptr(), logz.data_ptr(), ct.data_ptr(),
-            d_stay.data_ptr(), d_move.data_ptr(), T, N, n, _stream())
+    rc = fn(lat.data_ptr(), lengths.data_ptr(), alphas.data_ptr(),
+            logz.data_ptr(), ct.data_ptr(), d_stay.data_ptr(),
+            d_move.data_ptr(), T, N, n, _stream())
     _build.check(lib, rc, "lattice backward kernel", _LATTICE_MESSAGES)
     lattice_backward.launches += 1
     return d_stay, d_move
+
+
+def lattice_depth(n: int, backward: bool) -> int:
+    """The stages of the ring of K6a (or K6b, ``backward``) for a lattice
+    of n positions: 8, or 4 or 2 where 8 do not fit in a block's shared
+    memory (``csrc/crf_loss.cu``).  Needs the built kernels."""
+    _, fn = _fn("xna_lattice_depth")
+    return fn(n, int(backward))
 
 
 backward_scan.launches = 0
