@@ -46,15 +46,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      time = a + b x rows, over N <= 64 and over 128-256 rows); K7 beside
      K1 on K7's input (bf16 W_hh) as medians of 21 in turns; with
      ``--baseline DIR``, the K1 and K7 of that tree in the same turns; the
-     CRF scans K2a at the basecall batch, K5a, K4, the lattice's K6a and
-     K6b at the training batch and K6a at the validation batch's 16 rows
-     as medians of 21 samples of 10 calls (with ``--baseline DIR``, in
-     turns with that tree's kernels, whose betas, alphas, logZ, d_stay and
-     d_move they must equal bit for bit), with the time a step, and the
-     other CRF kernels (K2b, K2c, K5b) by the same statistic; the batch's
-     other stages (conv, input projection, head, decode; for the quantized
-     batch the int8 projection and the int8 head), one batch through model and
-     decode, the pipeline's samples/s over the same reads four times, both
+     CRF kernels K2a at the basecall batch, K5a, K4, the lattice's K6a and
+     K6b at the training batch, K2b and K2c at the basecall batch and K2b,
+     K2c and K6a at the validation batch's 16 rows, and the decode chain
+     (K2a, logZ, K2b, K2c) at the basecall batch, as medians of 21 samples
+     of 10 calls (with ``--baseline DIR``, in turns with that tree's
+     kernels, whose betas, alphas, logZ, bp, v_final, labels, d_stay and
+     d_move they must equal bit for bit), with the time a step, and K5b by
+     the same statistic; the batch's other stages (conv, input
+     projection, head, decode; for the quantized batch the int8
+     projection and the int8 head), one batch through model and decode,
+     the pipeline's samples/s over the same reads four times, both
      unquantized and quantized, and one training step with its breakdown;
   10. print the ``kernels`` JSON line, then the result line.
 
@@ -242,10 +244,11 @@ def build_tree(root: str, names, tag: str, defines=()) -> dict:
 
 
 def scan_kernels(libs: dict, tag: str) -> dict:
-    """K2a and K4 through the C entry points of ``crf_decode`` and
-    ``crf_loss`` libraries built by ``build_tree``: {"K2a": fn(scores,
+    """K2a, K2b, K2c and K4 through the C entry points of ``crf_decode``
+    and ``crf_loss`` libraries built by ``build_tree``: {"K2a": fn(scores,
     n_base, state_len) -> betas, "K4": fn(scores, n_base, state_len) ->
-    (alphas, logZ)}."""
+    (alphas, logZ), "K2b": fn(scores, betas, logz, n_base, state_len) ->
+    (bp, v_final), "K2c": fn(bp, v_final, n_base, state_len) -> labels}."""
     import ctypes
 
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -253,7 +256,12 @@ def scan_kernels(libs: dict, tag: str) -> dict:
     backward.argtypes = [P, P, I, I, I, I, P]
     forward = libs["crf_loss"].xna_crf_forward
     forward.argtypes = [P, P, P, I, I, I, I, P]
-    backward.restype = forward.restype = ctypes.c_int
+    viterbi = libs["crf_decode"].xna_crf_fwd_viterbi
+    viterbi.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    traceback = libs["crf_decode"].xna_crf_traceback
+    traceback.argtypes = [P, P, P, I, I, I, I, P]
+    for fn in (backward, forward, viterbi, traceback):
+        fn.restype = ctypes.c_int
 
     def scan(is_forward, scores, n_base, state_len):
         T, N, _ = scores.shape
@@ -271,18 +279,42 @@ def scan_kernels(libs: dict, tag: str) -> dict:
             fail(f"{tag}: a CRF scan returned {rc}")
         return (out, logz) if is_forward else out
 
+    def forward_viterbi(scores, betas, logz, n_base, state_len):
+        T, N, _ = scores.shape
+        ns = n_base ** state_len
+        bp = torch.empty(T, N, ns, dtype=torch.uint8, device=scores.device)
+        v_final = torch.empty(N, ns, device=scores.device)
+        rc = viterbi(scores.data_ptr(), betas.data_ptr(), logz.data_ptr(),
+                     bp.data_ptr(), v_final.data_ptr(), T, N, n_base, ns,
+                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{tag}: its K2b returned {rc}")
+        return bp, v_final
+
+    def viterbi_traceback(bp, v_final, n_base, state_len):
+        T, N, ns = bp.shape
+        labels = torch.empty(N, T, dtype=torch.int8, device=bp.device)
+        rc = traceback(bp.data_ptr(), v_final.data_ptr(), labels.data_ptr(),
+                       T, N, n_base, ns,
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{tag}: its K2c returned {rc}")
+        return labels
+
     return {"K2a": lambda sc, nb, sl: scan(False, sc, nb, sl),
-            "K4": lambda sc, nb, sl: scan(True, sc, nb, sl)}
+            "K4": lambda sc, nb, sl: scan(True, sc, nb, sl),
+            "K2b": forward_viterbi, "K2c": viterbi_traceback}
 
 
 def baseline_kernels(root: str) -> dict:
-    """K1, K7, K2a, K4, K6a and K6b of another tree of this repository
-    (``--baseline DIR``, e.g. a ``git archive`` of the parent commit), to
-    be timed in turns with this tree's.  Their C interface is this tree's,
-    but the lattice's, which is that tree's (``lattice_kernels``); the
-    scratch given K1 and K7 is large enough for either tree's layout of h.
+    """K1, K7, K2a, K2b, K2c, K4, K6a and K6b of another tree of this
+    repository (``--baseline DIR``, e.g. a ``git archive`` of the parent
+    commit), to be timed in turns with this tree's.  Their C interface is
+    this tree's, but the lattice's, which is that tree's
+    (``lattice_kernels``); the scratch given K1 and K7 is large enough for
+    either tree's layout of h.
     Returns {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale,
-    reverse)} for bf16 xp of at most 256 rows, K2a and K4 as
+    reverse)} for bf16 xp of at most 256 rows, K2a, K2b, K2c and K4 as
     ``scan_kernels`` and "lattice" as ``lattice_kernels``."""
     import ctypes
 
@@ -899,17 +931,21 @@ def rows_sweep(card):
 
 
 def crf_scan_turns(scores, train_scores, lattice, nb, sl, card, baseline):
-    """Phase 9 (the CRF scans): K2a at the basecall batch, K5a (K2a's
-    kernel) and K4 at the training batch, then the lattice's K6a at the
-    training batch and at the validation batch's 16 rows and K6b at the
-    training batch, on stay and move packed as the loss packs them, each
-    the median of 21 samples of SCAN_BURST calls back to back (the
+    """Phase 9 (the CRF kernels): K2a at the basecall batch, K5a (K2a's
+    kernel) and K4 at the training batch, K2b and K2c at the basecall
+    batch and at the validation batch's 16 rows, then the lattice's K6a at
+    the training batch and at the validation batch's 16 rows and K6b at
+    the training batch, on stay and move packed as the loss packs them,
+    each the median of 21 samples of SCAN_BURST calls back to back (the
     wrapper's host time would show in a call timed alone: these kernels
     take well under a millisecond); with ``--baseline``, taken in turns
     with the baseline tree's kernel (on the lattice as that tree lays it
-    out) after checking that betas, alphas, logZ, d_stay and d_move are
-    bit-equal to its; and each plain version once.  Returns {kernel: (ms,
-    plain ms)} at the training batch."""
+    out) after checking that betas, alphas, logZ, bp, v_final, labels,
+    d_stay and d_move are bit-equal to its; the decode chain
+    (``decode_paths_cuda``) at the basecall batch by the same statistic,
+    in turns with the baseline tree's K2a, logZ, K2b and K2c; and each
+    plain version once.  Returns {kernel: (ms, plain ms)} at the basecall
+    batch (K2a, K2b, K2c) and the training batch (the others)."""
     from xna_basecaller_tpu_torch.ops import crf, crf_cuda
 
     def turns(k, T, shape, fns, outputs):
@@ -944,6 +980,40 @@ def crf_scan_turns(scores, train_scores, lattice, nb, sl, card, baseline):
                    "alphas, logZ" if k == "K4" else "betas")
         plain = crf.forward_scores if k == "K4" else crf.backward_scores
         out[k] = (ms, elapsed_ms(lambda: plain(sc, nb, sl), 1))
+
+    T, N = scores.shape[:2]
+    for rows in (N, 16):
+        sc = scores if rows == N else scores[:, :rows].contiguous()
+        betas = crf_cuda.backward_scan(sc, nb, sl)
+        logz = crf.logz_from_betas(betas)
+        bp, v_final = crf_cuda.forward_viterbi(sc, betas, logz, nb, sl)
+        fns = {"K2b": lambda: crf_cuda.forward_viterbi(sc, betas, logz, nb,
+                                                       sl)}
+        if baseline:
+            fns["K2b of the baseline tree"] = lambda: baseline["K2b"](
+                sc, betas, logz, nb, sl)
+        ms_b = turns("K2b", T, f"T={T}, N={rows}", fns, "bp, v_final")
+        fns = {"K2c": lambda: crf_cuda.viterbi_traceback(bp, v_final, nb,
+                                                         sl)}
+        if baseline:
+            fns["K2c of the baseline tree"] = lambda: baseline["K2c"](
+                bp, v_final, nb, sl)
+        ms_c = turns("K2c", T, f"T={T}, N={rows}", fns, "labels")
+        if rows == N:
+            out["K2b"] = (ms_b, elapsed_ms(lambda: crf.forward_viterbi(
+                sc, betas, logz, nb, sl), 1))
+            out["K2c"] = (ms_c, elapsed_ms(lambda: crf.viterbi_traceback(
+                bp, v_final, nb, sl), 1))
+    fns = {"decode": lambda: crf_cuda.decode_paths_cuda(scores, nb, sl)}
+    if baseline:
+        def theirs():
+            betas = baseline["K2a"](scores, nb, sl)
+            bp, v_final = baseline["K2b"](scores, betas,
+                                          crf.logz_from_betas(betas), nb, sl)
+            return baseline["K2c"](bp, v_final, nb, sl)
+        fns["decode of the baseline tree"] = theirs
+    turns("decode", T, f"K2a + logZ + K2b + K2c, T={T}, N={N}", fns,
+          "labels")
 
     stay, move, lengths, _, _, ct = lattice
     lengths = lengths.to(torch.int32)
@@ -1053,9 +1123,9 @@ def main() -> int:
     parser.add_argument(
         "--baseline", default=None, metavar="DIR",
         help="another tree of this repository (e.g. the parent commit, "
-             "unpacked by git archive) whose K1, K7, K2a, K4, K6a and K6b "
-             "are timed in turns with this tree's (the CRF scans also held "
-             "bit-equal)")
+             "unpacked by git archive) whose K1, K7, K2a, K2b, K2c, K4, K6a "
+             "and K6b are timed in turns with this tree's (the CRF kernels "
+             "also held bit-equal), and its decode chain")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1299,16 +1369,6 @@ def main() -> int:
                                 nb, sl, card, baseline)
         for k, v in scan_t.items():
             timings[k] = (*v, None)
-        timings["K2b"] = (
-            crf_ms(lambda: crf_cuda.forward_viterbi(
-                scores, betas, logz, nb, sl)),
-            elapsed_ms(lambda: crf.forward_viterbi(
-                scores, betas, logz, nb, sl), 1), None)
-        timings["K2c"] = (
-            crf_ms(lambda: crf_cuda.viterbi_traceback(
-                bp, v_final, nb, sl)),
-            elapsed_ms(lambda: crf.viterbi_traceback(
-                bp, v_final, nb, sl), 1), None)
 
         # the batch's other stages, for the breakdown of its time
         timings["conv stack (f32)"] = elapsed_ms(

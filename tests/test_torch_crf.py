@@ -105,6 +105,28 @@ def test_traceback_follows_backpointers():
     assert labels.tolist() == [[1, 0, 3]]
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+def test_decode_chain_aligns_scores_once_for_both_scans(monkeypatch, offset):
+    """``decode_paths_cuda`` hands K2a and K2b one tensor, 8-byte aligned
+    as their ring takes it: scores that start at an odd float are copied
+    once, for both; the labels are the plain decode's."""
+    seen = []
+    for name in ("backward_scan", "forward_viterbi"):
+        def spy(scores, *args, real=getattr(crf_cuda, name)):
+            seen.append(scores)
+            return real(scores, *args)
+        monkeypatch.setattr(crf_cuda, name, spy)
+    s = torch.from_numpy(_scores(6, 3))
+    flat = torch.zeros(offset + s.numel())
+    flat[offset:] = s.flatten()
+    scores = flat[offset:].view(s.shape)
+    assert scores.data_ptr() % 8 == 4 * offset
+    labels = crf_cuda.decode_paths_cuda(scores, 6, 3)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0].data_ptr() % 8 == 0 and torch.equal(seen[0], s)
+    assert torch.equal(labels, crf.decode_paths(s, 6, 3))
+
+
 def test_path_to_str():
     seqdist = crf.CTCCRF(3, "NACGTXY")
     assert seqdist.path_to_str(np.array([0, 1, 0, 5, 6, 0, 4])) == "AXYT"

@@ -236,6 +236,112 @@ def test_crf_scans_take_rows_at_any_alignment(cuda, offset, n_base,
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _decode_launches():
+    return (crf_cuda.forward_viterbi.launches,
+            crf_cuda.viterbi_traceback.launches)
+
+
+def _viterbi_inputs(s, n_base, state_len):
+    betas = crf_cuda.backward_scan(s, n_base, state_len)
+    return betas, crf.logz_from_betas(betas)
+
+
+@pytest.mark.parametrize("n_base,state_len", _RING_ALPHABETS)
+@pytest.mark.parametrize("N", _RING_N)
+@pytest.mark.parametrize("T", _RING_T)
+def test_decode_kernels_match_plain_at_the_ring_edges(cuda, T, N, n_base,
+                                                      state_len):
+    """K2b (forward_viterbi, on the ring with the betas row in its span
+    where n_state is a multiple of 4) and K2c (viterbi_traceback, chunks
+    of backpointers in shared memory) at the ring's edges, against their
+    plain versions on the same betas and logZ: backpointers within the
+    f32 near-ties (at most 1e-3 of them), the labels of the same bp and
+    v_final identical; one launch each.  v_final within 1e-6 T^2 (at
+    least 1e-4) and rtol 1e-5: each step's edge is a difference of alpha,
+    beta and logZ, which grow ~5 a step, so the two versions' last-bit
+    differences in those (another lse order, other exp/log) reach an edge
+    as ~1e-6 T, and v_final sums T of them (T=300: 0.018 seen, 0.09
+    allowed; a wrong row moves it by units)."""
+    s = _card_scores(n_base, state_len, T, N, seed=T * 1000 + N + 7)
+    betas, logz = _viterbi_inputs(s, n_base, state_len)
+    before = _decode_launches()
+    bp, v = crf_cuda.forward_viterbi(s, betas, logz, n_base, state_len)
+    labels = crf_cuda.viterbi_traceback(bp, v, n_base, state_len)
+    torch.cuda.synchronize()
+    assert _decode_launches() == (before[0] + 1, before[1] + 1)
+    bp_p, v_p = crf.forward_viterbi(s, betas, logz, n_base, state_len)
+    assert bp.dtype == torch.uint8 and bp.shape == bp_p.shape
+    assert (bp != bp_p).float().mean().item() <= 1e-3
+    torch.testing.assert_close(v, v_p, rtol=1e-5,
+                               atol=max(1e-4, 1e-6 * T * T))
+    torch.testing.assert_close(
+        labels, crf.viterbi_traceback(bp, v, n_base, state_len), rtol=0,
+        atol=0)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("n_base,state_len", _RING_ALPHABETS)
+def test_forward_viterbi_takes_rows_at_any_alignment(cuda, offset, n_base,
+                                                     state_len):
+    """Scores that start 4 or 8 bytes into their allocation (copied by the
+    wrapper, or taking cp.async of 8 bytes with beta_{t+1} read from
+    device memory), and betas that start at an odd float (off the span):
+    backpointers and v_final bit-equal to those of the same scores and
+    betas 16-byte aligned."""
+    for T in (_RING_D + 1, 300):
+        s = _card_scores(n_base, state_len, T, 75, seed=offset,
+                         offset=offset)
+        assert s.data_ptr() % 16 == 4 * offset
+        aligned = s.clone()
+        betas, logz = _viterbi_inputs(aligned, n_base, state_len)
+        want = crf_cuda.forward_viterbi(aligned, betas, logz, n_base,
+                                        state_len)
+        got = crf_cuda.forward_viterbi(s, betas, logz, n_base, state_len)
+        odd = torch.empty(betas.numel() + 1, device="cuda")[1:].view_as(
+            betas)
+        odd.copy_(betas)
+        assert odd.data_ptr() % 16 == 4
+        off_span = crf_cuda.forward_viterbi(aligned, odd, logz, n_base,
+                                            state_len)
+        for out in (got, off_span):
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+# K2c's chunks of backpointer rows: 219 steps of 216 states, 384 of 125,
+# 768 of 49, 3072 of 16 or 36 (tb_chunk, csrc/crf_decode.cu); rows of 16
+# or 216 bytes take cp.async of 8 bytes, of 36, 49 or 125 (or at an odd
+# address) plain loads.
+@pytest.mark.parametrize("bp_offset", [0, 1])
+@pytest.mark.parametrize("n_base,state_len",
+                         [(4, 2), (5, 3), (6, 2), (6, 3), (7, 2)])
+@pytest.mark.parametrize("T", [1, 2, 219, 220, 720, 5000])
+def test_traceback_starts_at_the_first_maximum(cuda, T, n_base, state_len,
+                                               bp_offset):
+    """K2c on hand-made backpointers and a v_final whose maximum ties at
+    several states (state 0, the last state, or states between): labels
+    identical to the plain traceback's, which starts at the first
+    maximum, as jnp.argmax does."""
+    ns = n_base ** state_len
+    N = 7
+    rng = np.random.default_rng(T * 10 + ns)
+    flat = torch.from_numpy(rng.integers(
+        0, n_base + 1, size=bp_offset + T * N * ns, dtype=np.uint8))
+    bp = flat.to(cuda)[bp_offset:].view(T, N, ns)
+    v = rng.standard_normal((N, ns)).astype(np.float32)
+    ties = [[0, ns - 1], [ns - 1, ns // 2], [1, 2, ns - 1], [ns // 3], [0],
+            list(range(ns)), [ns - 2, ns - 1]]
+    for n, states in enumerate(ties):
+        v[n, states] = 9.0
+    v_final = torch.from_numpy(v).to(cuda)
+    before = _decode_launches()[1]
+    labels = crf_cuda.viterbi_traceback(bp, v_final, n_base, state_len)
+    torch.cuda.synchronize()
+    assert _decode_launches()[1] == before + 1
+    torch.testing.assert_close(
+        labels, crf.viterbi_traceback(bp, v_final, n_base, state_len),
+        rtol=0, atol=0)
+
+
 def _max_rel(got, want):
     """max |got - want| over max |want|."""
     return ((got.float() - want.float()).abs().max()

@@ -1,7 +1,8 @@
 // Asynchronous copies into shared memory, shared by the LSTM kernels
-// (through lstm_common.cuh) and the CRF scans (crf_ring.cuh): cp.async of
-// 8 or 16 bytes a thread, waited by commit groups; mbarriers; and the bulk
-// copy (TMA without a tensor map) that completes on one.
+// (through lstm_common.cuh), the CRF scans (crf_ring.cuh) and the
+// traceback K2c (crf_decode.cu): cp.async of 8 or 16 bytes a thread,
+// waited by commit groups; mbarriers; and the bulk copy (TMA without a
+// tensor map) that completes on one.
 
 #pragma once
 

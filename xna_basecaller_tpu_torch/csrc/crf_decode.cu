@@ -21,28 +21,42 @@
 // 3.35 TB/s; K2a writes the betas (159 MB) that K2b reads again; the
 // arithmetic is ~100 flops per state and step (under 0.1 ms at 67 TFLOP/s
 // f32).  Both are bound by bytes, and by the 720 dependent steps of each
-// sequence.  K2c moves only the bytes its paths touch.
+// sequence.  K2c moves only the bytes its paths touch, and is held by its
+// walk: 720 dependent loads a sequence.
 //
-// Design: one block per sequence (N blocks), one thread per state.  The
-// recurrent vectors (beta; alpha and the Viterbi scores) live in shared
-// memory, double buffered so one __syncthreads separates the steps.  K2a
-// reads each step's 6 KB score row straight from a ring of D stages in
-// shared memory that bulk copies (or cp.async, for rows that are not
-// 16-byte multiples) keep D - 1 rows ahead (crf_ring.cuh), so that a step
-// waits for no device-memory latency; K2b reads its row coalesced into
-// shared memory, prefetching the next one into registers while the
-// current step computes.
+// Design: one block per sequence (N blocks).  K2a and K2b run one thread
+// per state; their recurrent vectors (beta; alpha beside the Viterbi
+// scores, as float2) live in shared memory, double buffered so one
+// __syncthreads separates the steps.  Each step reads its span straight
+// from a ring of D stages in shared memory that bulk copies (or cp.async
+// of 8 bytes, for rows that are not 16-byte multiples) keep D - 1 steps
+// ahead (crf_ring.cuh), so that a step waits for no device-memory latency:
+// K2a's span is the score row, K2b's the score row and, where both take
+// the bulk copy (n_state a multiple of 4, as the flagship's 216), the row
+// beta_{t+1} after it; elsewhere K2b reads beta_{t+1} from device memory a
+// step ahead.  n_base is a compile-time constant for 4, 5 and 6 bases, so
+// the columns unroll and their expf and logf run side by side.
 // Backpointers (0..n_base) are stored as uint8 [T, N, n_state]: 40 MB
-// instead of the 159 MB of int32.  K2c walks one sequence per thread.
+// instead of the 159 MB of int32.  K2c runs a block per sequence too: its
+// warps 1-3 copy the sequence's backpointer rows into shared memory in
+// chunks of Tc steps from the end, double buffered (cp.async of 8 bytes,
+// or plain loads for rows of other sizes), while thread 0 walks
+// the chunk before, reading shared memory only, and the labels go out as
+// coalesced rows a chunk behind the walk.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "crf_common.cuh"
 #include "crf_ring.cuh"
 
 namespace {
+
+constexpr int kTbThreads = 128;              // K2c: a walker warp, 3 copiers
+constexpr int kTbChunkBytes = 48 * 1024;     // K2c: a chunk of bp rows
 
 // K2a: betas [T+1, N, ns] with betas[t] = beta_t and betas[T] = 0.
 //   beta_t[k] = lse(stay: Ms[t,k,0] + beta_{t+1}[k],
@@ -107,94 +121,228 @@ crf_backward_kernel(const float* __restrict__ scores,
   }
 }
 
-// K2b: the forward scan fused with Viterbi over the log edge posteriors.
-// bp [T, N, ns] uint8 (the argmax column k), v_final [N, ns].
+// K2b: the forward scan fused with Viterbi over the log edge posteriors,
+// bp [T, N, ns] uint8 (the argmax column k) and v_final [N, ns]:
+//   a_0 = alpha_t[j] + Ms[t,j,0], a_{1+i} = alpha_t[p_i] + Ms[t,j,1+i],
+//   with p_0 = j and p_{1+i} = i*nsd + j/nb;
+//   c_k = v_t[p_k] + log(exp((a_k + beta_{t+1}[j]) - logZ) + 1e-8);
+//   v_{t+1}[j] = max_k c_k, bp[t,n,j] = the first k at it (k = 0 first);
+//   alpha_{t+1}[j] = lse(a_0 .. a_nb), in order.
+// Step t reads its span from the ring (crf_ring.cuh) of D stages, by route
+// R: the score row of t and, where BS, the row beta_{t+1} after it;
+// without BS each thread loads its beta_{t+2} during step t.  n_base is
+// NB, or nb_arg when NB is 0.
+template <int R, int NB, bool BS>
 __global__ void __launch_bounds__(kThreads)
 crf_fwd_viterbi_kernel(const float* __restrict__ scores,
                        const float* __restrict__ betas,
                        const float* __restrict__ logz,
                        uint8_t* __restrict__ bp, float* __restrict__ v_final,
-                       int T, int N, int nb, int ns) {
-  extern __shared__ float sm[];
+                       int T, int N, int nb_arg, int ns) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = NB ? NB : nb_arg;
   const int nb1 = nb + 1, C = ns * nb1, nsd = ns / nb;
-  float* ms_s = sm;                  // [2][C]
-  float* alpha_s = sm + 2 * C;       // [2][ns]
-  float* v_s = alpha_s + 2 * ns;     // [2][ns]
+  RowRing<R> ring(smem, BS ? C + ns : C);
+  constexpr int D = kRingStages;
+  float2* av_s = reinterpret_cast<float2*>(ring.end());   // [2][ns]
   const int n = blockIdx.x, j = threadIdx.x;
-  const size_t row_stride = (size_t)N * C;
+  const int q = j / nb;   // outside the loop, or it is redone
+  const size_t row_stride = (size_t)N * C, beta_stride = (size_t)N * ns;
   const float* base = scores + (size_t)n * C;
+  const float* beta1 = betas + beta_stride + (size_t)n * ns;   // beta_1
+  uint8_t* bpj = bp + (size_t)n * ns + j;
   const float lz = logz[n];
-  float regs[kPerThread];
+  const auto fetch = [&](int t) {
+    if constexpr (BS)
+      ring.fetch(t, Row{base + t * row_stride, C},
+                 Row{beta1 + t * beta_stride, ns});
+    else
+      ring.fetch(t, Row{base + t * row_stride, C});
+  };
 
-  if (j < ns) {
-    alpha_s[j] = 0.0f;
-    v_s[j] = 0.0f;
+  ring.init();
+  if (j < ns) av_s[j] = make_float2(0.0f, 0.0f);
+  __syncthreads();
+  for (int t = 0; t < D - 1; ++t) {
+    if (t < T)
+      fetch(t);
+    else
+      ring.skip();
   }
-  prefetch_row(base, C, regs);
-  commit_row(ms_s, C, regs);
-  float beta_next = j < ns ? betas[((size_t)1 * N + n) * ns + j] : 0.0f;
+  float beta_next = 0.0f;   // without BS
+  if (!BS && j < ns) beta_next = beta1[j];
+  ring.land_next();
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
-    if (t + 1 < T) prefetch_row(base + (size_t)(t + 1) * row_stride, C, regs);
-    const float beta_after =
-        (t + 2 <= T && j < ns) ? betas[((size_t)(t + 2) * N + n) * ns + j]
-                               : 0.0f;
+    if (t + D - 1 < T)
+      fetch(t + D - 1);
+    else
+      ring.skip();
+    float beta_after = 0.0f;
+    if (!BS && t + 1 < T && j < ns)
+      beta_after = beta1[(t + 1) * beta_stride + j];
+    const float* ms = ring.row(t);
     if (j < ns) {
-      const float* ms = ms_s + cur * C + j * nb1;
-      const float* alpha = alpha_s + cur * ns;
-      const float* v = v_s + cur * ns;
-      const int q = j / nb;
-      float avals[kMaxCols];
-      avals[0] = alpha[j] + ms[0];
-      float edge = (avals[0] + beta_next) - lz;
-      float best = v[j] + logf(expf(edge) + 1e-8f);
-      int best_k = 0;
-      for (int i = 0; i < nb; ++i) {
-        const int p = i * nsd + q;
-        avals[1 + i] = alpha[p] + ms[1 + i];
-        edge = (avals[1 + i] + beta_next) - lz;
-        const float cand = v[p] + logf(expf(edge) + 1e-8f);
-        if (cand > best) {
-          best = cand;
-          best_k = 1 + i;
+      const float bn = BS ? ms[C + j] : beta_next;
+      const float* msj = ms + j * nb1;
+      const float2* av = av_s + cur * ns;
+      float a[kMaxCols], v[kMaxCols];
+      float2 p = av[j];
+      a[0] = p.x + msj[0];
+      v[0] = p.y;
+#pragma unroll
+      for (int i = 0; i < kMaxCols - 1; ++i)
+        if (i < nb) {
+          p = av[i * nsd + q];
+          a[1 + i] = p.x + msj[1 + i];
+          v[1 + i] = p.y;
         }
-      }
-      alpha_s[(cur ^ 1) * ns + j] = lse(avals, nb1);
-      v_s[(cur ^ 1) * ns + j] = best;
-      bp[((size_t)t * N + n) * ns + j] = (uint8_t)best_k;
+      float best = v[0] + logf(expf((a[0] + bn) - lz) + 1e-8f);
+      int best_k = 0;
+#pragma unroll
+      for (int k = 1; k < kMaxCols; ++k)
+        if (k <= nb) {
+          const float cand = v[k] + logf(expf((a[k] + bn) - lz) + 1e-8f);
+          if (cand > best) {
+            best = cand;
+            best_k = k;
+          }
+        }
+      av_s[(cur ^ 1) * ns + j] = make_float2(lse_n(a, nb1), best);
+      bpj[t * beta_stride] = (uint8_t)best_k;
     }
-    if (t + 1 < T) commit_row(ms_s + (cur ^ 1) * C, C, regs);
     beta_next = beta_after;
+    ring.land_next();
     __syncthreads();
   }
-  if (j < ns) v_final[(size_t)n * ns + j] = v_s[(T & 1) * ns + j];
+  if (j < ns) v_final[(size_t)n * ns + j] = av_s[(T & 1) * ns + j].y;
 }
 
-// K2c: per sequence, start from argmax(v_final) (first maximum) and walk
-// the backpointers from T-1 down to 0; labels [N, T] int8 in 0..nb.
-__global__ void crf_traceback_kernel(const uint8_t* __restrict__ bp,
-                                     const float* __restrict__ v_final,
-                                     int8_t* __restrict__ labels, int T,
-                                     int N, int nb, int ns) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int nsd = ns / nb;
+// K2c's layout in shared memory: rows of a chunk at a stride of ns rounded
+// up to 16 bytes, Tc steps a chunk (all T where they fit in
+// kTbChunkBytes), two chunks, then two chunks' labels.
+__host__ __device__ inline int tb_stride(int ns) { return (ns + 15) & ~15; }
+
+int tb_chunk(int T, int ns) {
+  return std::min(T, kTbChunkBytes / tb_stride(ns));
+}
+
+size_t tb_smem(int Tc, int ns) {
+  return 2 * (size_t)Tc * tb_stride(ns) + 2 * (size_t)Tc;
+}
+
+// The bytes a copy of K2c moves: 8 where bp's rows are 8-byte aligned
+// (n_state a multiple of 8, as the flagship's 216), else 1 (plain loads).
+// (cp.async of 4 bytes was slower on the flagship's rows, PERF.md §6.)
+int tb_width(const void* bp, int ns) {
+  return reinterpret_cast<uintptr_t>(bp) % 8 == 0 && ns % 8 == 0 ? 8 : 1;
+}
+
+// K2c: per sequence, start from the first maximum of v_final[n] and walk
+// the backpointers from T-1 down to 0: labels [N, T] int8 in 0..nb.  Chunk
+// c holds steps [lo, hi), hi = T - c Tc, lo = max(hi - Tc, 0); warps 1..
+// copy it by cp.async of W bytes (W = 1: plain loads) during the walk of
+// chunk c - 1, and write chunk c - 2's labels.  n_base is NB, or nb_arg
+// when NB is 0.
+template <int NB, int W>
+__global__ void __launch_bounds__(kTbThreads)
+crf_traceback_kernel(const uint8_t* __restrict__ bp,
+                     const float* __restrict__ v_final,
+                     int8_t* __restrict__ labels, int T, int N, int nb_arg,
+                     int ns, int Tc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float warp_v[kTbThreads / 32];
+  __shared__ int warp_j[kTbThreads / 32];
+  const int nb = NB ? NB : nb_arg, nsd = ns / nb, rs = tb_stride(ns);
+  int8_t* lab_s = reinterpret_cast<int8_t*>(smem + 2 * Tc * rs);  // [2][Tc]
+  const int n = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int n_chunks = (T + Tc - 1) / Tc;
+  const size_t stride = (size_t)N * ns;
+  const uint8_t* seq = bp + (size_t)n * ns;
+  int8_t* out = labels + (size_t)n * T;
+  const auto span = [&](int c, int& lo) {
+    const int hi = T - c * Tc;
+    lo = max(hi - Tc, 0);
+    return hi - lo;
+  };
+  const auto copy = [&](int c) {   // by warps 1..
+    int lo;
+    const int rows = span(c, lo), per = ns / W;
+    unsigned char* dst = smem + (c & 1) * Tc * rs;
+    for (int u = tid - 32; u < rows * per; u += kTbThreads - 32) {
+      const int r = u / per, o = (u - r * per) * W;
+      const uint8_t* src = seq + (lo + r) * stride + o;
+      if constexpr (W == 8)
+        xna::cp_async8(dst + r * rs + o, src);
+      else
+        dst[r * rs + o] = *src;
+    }
+    if constexpr (W > 1) xna::cp_async_commit();
+  };
+  const auto write = [&](int c) {   // by warps 1..
+    int lo;
+    const int rows = span(c, lo);
+    const int8_t* src = lab_s + (c & 1) * Tc;
+    for (int r = tid - 32; r < rows; r += kTbThreads - 32) out[lo + r] = src[r];
+  };
+
+  if (tid >= 32) copy(0);
+  // the first maximum of v_final[n]: each thread's in order, then the
+  // lowest state among equal maxima
   const float* v = v_final + (size_t)n * ns;
-  int j = 0;
   float best = v[0];
-  for (int k = 1; k < ns; ++k) {
+  int best_j = 0;
+  for (int k = tid; k < ns; k += kTbThreads)
     if (v[k] > best) {
       best = v[k];
-      j = k;
+      best_j = k;
+    }
+#pragma unroll
+  for (int w = 16; w > 0; w /= 2) {
+    const float o = __shfl_down_sync(0xffffffffu, best, w);
+    const int oj = __shfl_down_sync(0xffffffffu, best_j, w);
+    if (o > best || (o == best && oj < best_j)) {
+      best = o;
+      best_j = oj;
     }
   }
-  for (int t = T - 1; t >= 0; --t) {
-    const int k = bp[((size_t)t * N + n) * ns + j];
-    labels[(size_t)n * T + t] = (int8_t)k;
-    if (k > 0) j = (k - 1) * nsd + j / nb;
+  if (lane == 0) {
+    warp_v[tid / 32] = best;
+    warp_j[tid / 32] = best_j;
   }
+  if (W > 1 && tid >= 32) xna::cp_async_wait<0>();
+  __syncthreads();
+  int j = 0;   // the walker's state
+  if (tid == 0) {
+    best = warp_v[0];
+    j = warp_j[0];
+    for (int w = 1; w < kTbThreads / 32; ++w)
+      if (warp_v[w] > best || (warp_v[w] == best && warp_j[w] < j)) {
+        best = warp_v[w];
+        j = warp_j[w];
+      }
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    if (tid >= 32) {
+      if (c > 0) write(c - 1);
+      if (c + 1 < n_chunks) copy(c + 1);
+      if (W > 1) xna::cp_async_wait<0>();
+    } else if (tid == 0) {
+      int lo;
+      const unsigned char* rows = smem + (c & 1) * Tc * rs;
+      int8_t* lab = lab_s + (c & 1) * Tc;
+      for (int r = span(c, lo) - 1; r >= 0; --r) {
+        const int k = rows[r * rs + j];
+        lab[r] = (int8_t)k;
+        j = k ? (k - 1) * nsd + j / nb : j;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid >= 32) write(n_chunks - 1);
 }
 
 }  // namespace
@@ -224,24 +372,45 @@ int xna_crf_fwd_viterbi(const void* scores, const void* betas,
                         const void* logz, void* bp, void* v_final, int T,
                         int N, int nb, int ns, void* stream) {
   if (!supported(T, N, nb, ns)) return -2;
-  const size_t smem = (2 * (size_t)ns * (nb + 1) + 4 * (size_t)ns) * 4;
-  crf_fwd_viterbi_kernel<<<N, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<const float*>(betas),
-      static_cast<const float*>(logz), static_cast<uint8_t*>(bp),
-      static_cast<float*>(v_final), T, N, nb, ns);
-  return cudaGetLastError();
+  const int C = ns * (nb + 1);
+  const int route = ring_route(scores, C);
+  if (route < 0) return -3;
+  // beta_{t+1} joins the span where its rows take the bulk copy too
+  const bool span = route == kBulk && ns % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(betas) % 16 == 0;
+  const size_t smem =
+      ring_bytes(span ? C + ns : C) + 2 * (size_t)ns * sizeof(float2);
+  return ring_dispatch(route, nb, [&](auto r, auto b) {
+    constexpr int R = decltype(r)::value, NB = decltype(b)::value;
+    const auto launch = [&](auto kernel) {
+      return ring_launch(kernel, N, kThreads, smem, stream,
+                         static_cast<const float*>(scores),
+                         static_cast<const float*>(betas),
+                         static_cast<const float*>(logz),
+                         static_cast<uint8_t*>(bp),
+                         static_cast<float*>(v_final), T, N, nb, ns);
+    };
+    if constexpr (R == kBulk)
+      if (span) return launch(crf_fwd_viterbi_kernel<R, NB, true>);
+    return launch(crf_fwd_viterbi_kernel<R, NB, false>);
+  });
 }
 
 int xna_crf_traceback(const void* bp, const void* v_final, void* labels,
                       int T, int N, int nb, int ns, void* stream) {
   if (!supported(T, N, nb, ns)) return -2;
-  constexpr int kBlock = 32;
-  crf_traceback_kernel<<<(N + kBlock - 1) / kBlock, kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bp), static_cast<const float*>(v_final),
-      static_cast<int8_t*>(labels), T, N, nb, ns);
-  return cudaGetLastError();
+  const int Tc = tb_chunk(T, ns), width = tb_width(bp, ns);
+  return nb_dispatch(nb, [&](auto b) {
+    constexpr int NB = decltype(b)::value;
+    const auto launch = [&](auto kernel) {
+      return ring_launch(kernel, N, kTbThreads, tb_smem(Tc, ns), stream,
+                         static_cast<const uint8_t*>(bp),
+                         static_cast<const float*>(v_final),
+                         static_cast<int8_t*>(labels), T, N, nb, ns, Tc);
+    };
+    if (width == 8) return launch(crf_traceback_kernel<NB, 8>);
+    return launch(crf_traceback_kernel<NB, 1>);
+  });
 }
 
 const char* xna_error_string(int code) {

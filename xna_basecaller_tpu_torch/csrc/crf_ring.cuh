@@ -1,14 +1,17 @@
 // The row ring of the CRF's log-semiring scans: the backward scan K2a/K5a
-// (crf_backward_kernel, crf_decode.cu), the forward scan K4
+// and the forward-Viterbi pass K2b (crf_backward_kernel,
+// crf_fwd_viterbi_kernel, crf_decode.cu), the forward scan K4
 // (crf_forward_kernel, crf_loss.cu) and the stay/move lattice's scans K6a
 // and K6b (lattice_forward_kernel, lattice_backward_kernel, crf_loss.cu).
 //
 // A scan runs one block per sequence, and each of its T dependent steps
 // reads one span of rows from device memory and nothing else: a score row
 // scores[t, n, :] for K2a and K4 (C = n_state * (n_base + 1) f32: 6048 B
-// for the flagship); for the lattice, the step's stay and move rows, packed
-// side by side (2 * npad f32, npad = n rounded up to 4: 3584 B at n=448),
-// and for K6b the alphas row after them (3 * npad f32: 5376 B).  The ring
+// for the flagship); for K2b the score row and, on the bulk route where
+// n_state is a multiple of 4, the row beta_{t+1} after it (6912 B); for
+// the lattice, the step's stay and move rows, packed side by side (2 *
+// npad f32, npad = n rounded up to 4: 3584 B at n=448), and for K6b the
+// alphas row after them (3 * npad f32: 5376 B).  The ring
 // keeps the spans of the next D - 1 steps in flight into D stages of shared
 // memory, so that once it is full a step waits for no device-memory
 // latency, and the step reads its span straight from its stage (no staging

@@ -17,11 +17,12 @@ stay/move lattice's forward K6a (``lattice_forward``, for
 Their bound on the card, and what the design does about it, is set out at
 the top of each CUDA source: the scans are bound by reading their inputs
 once and by their 720 dependent steps; one block per sequence keeps the
-recurrent vector in shared memory; the scans K2a/K5a, K4, K6a and K6b read
-each step's rows from a ring that bulk copies keep in flight into shared
-memory (``csrc/crf_ring.cuh``), K2b reads its row coalesced, prefetching
-the next one.  The lattice kernels take stay and move packed side by side
-(``lattice_pack``).
+recurrent vector in shared memory; the scans K2a/K5a, K2b, K4, K6a and K6b
+read each step's rows from a ring that bulk copies keep in flight into
+shared memory (``csrc/crf_ring.cuh``; K2b's span adds the row of betas it
+needs); K2c copies a sequence's backpointers into shared memory in chunks
+while one thread walks them.  The lattice kernels take stay and move packed
+side by side (``lattice_pack``).
 
 Each wrapper takes the plain version in ``ops/crf.py`` for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
@@ -86,9 +87,9 @@ def _stream():
 
 
 def _ring_aligned(scores: torch.Tensor) -> torch.Tensor:
-    """``scores`` as the ring of K2a/K5a and K4 takes them: starting 8-byte
-    aligned, so that every row is (``csrc/crf_ring.cuh``); a view that
-    starts at an odd float is copied."""
+    """``scores`` as the ring of K2a/K5a, K2b and K4 takes them: starting
+    8-byte aligned, so that every row is (``csrc/crf_ring.cuh``); a view
+    that starts at an odd float is copied."""
     return scores if scores.data_ptr() % 8 == 0 else scores.clone()
 
 
@@ -119,6 +120,7 @@ def forward_viterbi(scores: torch.Tensor, betas: torch.Tensor,
     _check(scores, "forward_viterbi", torch.float32, 3)
     _check(betas, "forward_viterbi", torch.float32, 3)
     _check(logz, "forward_viterbi", torch.float32, 1)
+    scores = _ring_aligned(scores)
     T, N, _ = scores.shape
     ns = n_base ** state_len
     if betas.shape != (T + 1, N, ns) or logz.shape != (N,):
@@ -128,7 +130,7 @@ def forward_viterbi(scores: torch.Tensor, betas: torch.Tensor,
     lib, fn = _fn("xna_crf_fwd_viterbi")
     rc = fn(scores.data_ptr(), betas.data_ptr(), logz.data_ptr(),
             bp.data_ptr(), v_final.data_ptr(), T, N, n_base, ns, _stream())
-    _build.check(lib, rc, "crf forward-Viterbi kernel", _MESSAGES)
+    _build.check(lib, rc, "crf forward-Viterbi kernel", _SCAN_MESSAGES)
     forward_viterbi.launches += 1
     return bp, v_final
 
@@ -347,8 +349,8 @@ lattice_backward.launches = 0
 def decode_paths_cuda(scores: torch.Tensor, n_base: int, state_len: int):
     """The decode chain through the three kernels: scores [T, N, C] ->
     labels [N, T] int8, in f32.  logZ between K2a and K2b is one torch
-    reduction."""
-    scores = scores.float().contiguous()
+    reduction.  The scores are aligned for the ring once, for both scans."""
+    scores = _ring_aligned(scores.float().contiguous())
     betas = backward_scan(scores, n_base, state_len)
     bp, v_final = forward_viterbi(scores, betas, crf.logz_from_betas(betas),
                                   n_base, state_len)
