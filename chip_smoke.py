@@ -3,7 +3,8 @@
 GPU, at the full width of the flagship model (conv 768, 5 x LSTM(768),
 1512-column CRF, chunks of 3600; random weights from a seed): its three
 paths, basecalling (batch 256), the int8 ``--quantize`` basecall (batch
-256) and training (batch 64).
+256) and training (batch 64), plain and with the spike and stitch
+augmentations.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. print the card's name and power limit, build every kernel in
@@ -38,6 +39,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and one validation through the ``train`` CLI on simulated ctc-data,
      read the counts, check the losses, the moved weights and that
      ``weights_1.npz`` loads back;
+  8b. hold ``spike_batch`` and ``stitch_batch`` on the card to the port's
+     CPU run where no draw enters the result (B=64, T=3600); set every
+     launch count to 0, train the flagship model for 4 steps and one
+     validation through the ``train`` CLI with both augmentations
+     (``--stitch --stitch-relax --spike --ubs XY --synth-prop-ubs 0.05``,
+     donors from ``simulate_donor_dataset``) under ``--profile``, read the
+     counts, check the losses and that the batches gained UBs, and read
+     the card's busy share over the steps from the trace;
   9. time each kernel, its plain version and its library yardstick with
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
@@ -58,6 +67,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      projection and the int8 head), one batch through model and decode,
      the pipeline's samples/s over the same reads four times, both
      unquantized and quantized, and one training step with its breakdown;
+     ``spike_batch``, ``stitch_batch`` and their pick loop at 64 x 3600
+     (CUDA events, and the card's share of one call of each by
+     ``torch.profiler``), the augment closures with their numpy round trip
+     (host clock), medians of 21 in turns, and the training step as the
+     ``Trainer`` runs it with and without both augmentations (host clock);
   10. print the ``kernels`` JSON line, then the result line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -94,6 +108,9 @@ PEAK_F32 = 67e12
 
 N_READS, MEAN_LEN, SEED = 16, 120_000, 0
 TRAIN_BATCH, TRAIN_STEPS, VALID_CHUNKS = 64, 8, 16
+# phase 8b: --chunks 272 of phase 8's data leaves 263 training chunks (4
+# steps of 64) and 9 validation chunks (one batch)
+AUG_CHUNKS, AUG_STEPS = 272, 4
 SCAN_BURST = 10   # calls a timed sample of the CRF kernels
 
 
@@ -716,6 +733,43 @@ def check_step_against_cpu():
         fail("the f32 training step on the card disagrees with the CPU")
 
 
+def training_wrappers() -> dict:
+    """The kernel wrappers of the training path, whose ``launches`` count
+    their launches; K5a is K2a's kernel: one counter for both."""
+    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
+
+    return {"K1": lstm_cuda.lstm_recurrence,
+            "K2a": crf_cuda.backward_scan,
+            "K2b": crf_cuda.forward_viterbi,
+            "K2c": crf_cuda.viterbi_traceback,
+            "K3a": lstm_cuda.lstm_forward_with_cells,
+            "K3b": lstm_cuda.lstm_backward_dxp,
+            "K4": crf_cuda.forward_scan,
+            "K5b": crf_cuda.edge_posteriors,
+            "K6a": crf_cuda.lattice_forward,
+            "K6b": crf_cuda.lattice_backward}
+
+
+def check_training_launches(launches: dict, steps: int, n_valid: int,
+                            where: str):
+    """Fails unless each training kernel launched at least as often as
+    ``steps`` steps and ``n_valid`` validation batches of the flagship
+    need: 5 LSTM layers a step (K3a, K3b) or a validation batch (K1); the
+    loss's scans every step; the validation runs the loss without
+    gradients (K4 and K6a only) and the decode."""
+    from xna_basecaller_tpu_torch.core.config import ModelConfig
+
+    n_layers = ModelConfig().encoder.num_rnn_layers
+    need = {"K3a": n_layers * steps, "K3b": n_layers * steps,
+            "K1": n_layers * n_valid, "K2a": steps + n_valid,
+            "K2b": n_valid, "K2c": n_valid, "K4": steps + n_valid,
+            "K5b": steps, "K6a": steps + n_valid, "K6b": steps}
+    for k, n in need.items():
+        if launches[k] < n:
+            fail(f"{k} launched {launches[k]} times on {where}, expected at "
+                 f"least {n}")
+
+
 def drive_training(workroot: str):
     """Phase 8: the training path through the ``train`` CLI; returns the
     launch counts of the run, the number of steps and the step times."""
@@ -727,7 +781,6 @@ def drive_training(workroot: str):
     from xna_basecaller_tpu_torch.data.ctc_data import save_ctc_data
     from xna_basecaller_tpu_torch.data.simulate import simulate_ctc_dataset
     from xna_basecaller_tpu_torch.models.crf_model import Model
-    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
     from xna_basecaller_tpu_torch.utils.model_io import load_model
     from xna_basecaller_tpu_torch.utils.weights import params_to_jax
 
@@ -736,17 +789,7 @@ def drive_training(workroot: str):
     # the 97/3 split of load_datasets leaves exactly VALID_CHUNKS
     save_ctc_data(data, *simulate_ctc_dataset(
         n_train + VALID_CHUNKS, chunk_len=3600, target_len=400, seed=SEED))
-    # K5a is K2a's kernel: one counter for both
-    wrappers = {"K1": lstm_cuda.lstm_recurrence,
-                "K2a": crf_cuda.backward_scan,
-                "K2b": crf_cuda.forward_viterbi,
-                "K2c": crf_cuda.viterbi_traceback,
-                "K3a": lstm_cuda.lstm_forward_with_cells,
-                "K3b": lstm_cuda.lstm_backward_dxp,
-                "K4": crf_cuda.forward_scan,
-                "K5b": crf_cuda.edge_posteriors,
-                "K6a": crf_cuda.lattice_forward,
-                "K6b": crf_cuda.lattice_backward}
+    wrappers = training_wrappers()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -772,17 +815,9 @@ def drive_training(workroot: str):
         fail("the training run did not give finite losses for every step")
     if not math.isfinite(float(val[-1]["validation_loss"])):
         fail("the validation loss is not finite")
-    n_layers = ModelConfig().encoder.num_rnn_layers
-    n_valid = math.ceil(VALID_CHUNKS / TRAIN_BATCH)
-    # validation runs the loss without gradients: K4 and K6a only
-    need = {"K3a": n_layers * steps, "K3b": n_layers * steps,
-            "K1": n_layers * n_valid, "K2a": steps + n_valid,
-            "K2b": n_valid, "K2c": n_valid, "K4": steps + n_valid,
-            "K5b": steps, "K6a": steps + n_valid, "K6b": steps}
-    for k, n in need.items():
-        if launches[k] < n:
-            fail(f"{k} launched {launches[k]} times on the training path, "
-                 f"expected at least {n}")
+    check_training_launches(launches, steps,
+                            math.ceil(VALID_CHUNKS / TRAIN_BATCH),
+                            "the training path")
     model, _ = load_model(run, device="cuda")
     saved = params_to_jax(model.state_dict())
     start = params_to_jax(Model(ModelConfig(), device="cpu",
@@ -794,6 +829,351 @@ def drive_training(workroot: str):
         fail("training left parameters where they started")
     times = [float(r["time"]) for r in rows]
     return launches, steps, np.diff(times)
+
+
+def fixed_augment_batch(periodic: bool, B: int = TRAIN_BATCH,
+                        L: int = 450, T: int = 3600):
+    """A batch whose spike and stitch results no draw enters: targets of 21
+    bases (position 10 is the only one 10 bases from either end; periodic
+    ones mirror their context, so exact-context donors exist) in chunks of
+    T samples, breakpoints from the simulator."""
+    from xna_basecaller_tpu_torch.data.pore_model import load_pore_model
+    from xna_basecaller_tpu_torch.data.simulate import (
+        MIRROR_HEX, simulate_squiggle,
+    )
+
+    pore = load_pore_model()
+    rng = np.random.default_rng(SEED)
+    chunks = rng.normal(size=(B, T)).astype(np.float32)
+    targets = np.zeros((B, L), np.int32)
+    bkps = np.zeros((B, L), np.int32)
+    for i in range(B):
+        t = (np.tile(MIRROR_HEX, 6)[i % 6: i % 6 + 21] if periodic
+             else rng.integers(1, 5, size=21)).astype(np.uint8)
+        sig, bk = simulate_squiggle(t, pore, rng)
+        targets[i, :21] = t
+        bkps[i, :21] = np.minimum(bk[:21], T)
+        chunks[i, :min(T, len(sig))] = sig[:T]
+    return chunks, targets, np.full(B, 21, np.int32), bkps
+
+
+def check_augment_card_vs_cpu(tables_cap1):
+    """Phase 8b: ``spike_batch`` and ``stitch_batch`` on the card against the
+    port's CPU run at B=64 and T=3600, where no draw enters the result
+    (``fixed_augment_batch``; one UB code; spike with k-mer stds 0 and no
+    noise, also fully synthetic; stitch from one donor a bucket, exact and
+    relaxed on random DNA): targets and success equal, chunks within 1e-6
+    (an f32 ulp of the normalised levels)."""
+    from xna_basecaller_tpu_torch.augment import spike, stitch
+    from xna_basecaller_tpu_torch.data.pore_model import load_pore_model
+
+    pore = load_pore_model()
+    zero_stds = np.zeros_like(pore.stds)
+    tbl = tables_cap1
+    fallback = stitch.build_relax_fallback(tbl.counts).astype(np.int64)
+    cases = {
+        name: (True, lambda gen, dev, b, kw=kw: spike.spike_batch(
+            gen, *b, *(torch.from_numpy(a).to(dev) for a in (
+                pore.means, zero_stds)), noise_std=0.0, ub_codes=(5,), **kw))
+        for name, kw in (("spike", {}),
+                         ("spike fully synthetic", {"fully_synth": True}))
+    }
+    for relax in (False, True):
+        cases[f"stitch{' relaxed' if relax else ''}"] = (
+            not relax, lambda gen, dev, b, relax=relax: stitch.stitch_batch(
+                gen, *b, *(torch.from_numpy(a).to(dev) for a in (
+                    tbl.signals, tbl.lens, tbl.counts)), ub_codes=(6,),
+                tbl_fallback=(torch.from_numpy(fallback).to(dev) if relax
+                              else None)))
+    report = []
+    for name, (periodic, fn) in cases.items():
+        batch = fixed_augment_batch(periodic)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            res = fn(gen, dev, [torch.from_numpy(a).to(dev) for a in batch])
+            out[dev] = [r.cpu().numpy() for r in res]
+        (c_g, t_g, *s_g), (c_c, t_c, *s_c) = out["cuda"], out["cpu"]
+        err = float(np.max(np.abs(c_g - c_c) / (1 + np.abs(c_c))))
+        inserted = int((t_g[:, 10] != batch[1][:, 10]).sum())
+        report.append(f"{name}: chunks max |a-b|/(1+|b|) {err:.3e}, "
+                      f"inserted at position 10 in {inserted} of "
+                      f"{len(t_g)}")
+        if (not np.array_equal(t_g, t_c) or err > 1e-6
+                or any(not np.array_equal(a, b) for a, b in zip(s_g, s_c))
+                or inserted != len(t_g)):
+            fail(f"{name} on the card disagrees with the CPU")
+    print("augmentation on the card vs the CPU (B=64, T=3600, no draw in "
+          "the result; targets and success equal, tolerance 1e-6): "
+          + "; ".join(report))
+
+
+def busy_share(trace_path: str, span: str = "train_steps"):
+    """The card's busy share over the profiler span ``span`` of the Chrome
+    trace that ``torch.profiler`` wrote: the union of the kernels'
+    intervals over the window from the span's start to the end of the last
+    kernel launched within it (the host enqueues ahead of the card).
+    Returns (share, window ms, busy ms, kernels launched in the span,
+    [(name, ms)] of the 8 largest by summed time), or None where the trace
+    holds no kernel."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [e for e in events if e.get("name") == span
+             and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("ph") == "X"]
+    if not spans or not kernels:
+        return None
+    t0 = spans[0]["ts"]
+    t1 = t0 + spans[0]["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and t0 <= e["ts"] <= t1
+                and "correlation" in e.get("args", {})}
+    mine = [k for k in kernels
+            if k.get("args", {}).get("correlation") in launched]
+    if not mine:
+        return None
+    end = max(k["ts"] + k["dur"] for k in mine)
+    busy, last = 0.0, t0
+    for a, b in sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels):
+        a, b = max(a, last), min(b, end)
+        if b > a:
+            busy += b - a
+            last = b
+    by_name = {}
+    for k in mine:
+        by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy / (end - t0), (end - t0) / 1e3, busy / 1e3, len(mine), top
+
+
+def drive_augmented_training(workroot: str):
+    """Phase 8b: the training path with both augmentations through the
+    ``train`` CLI on the card: ``--stitch --stitch-relax --spike --ubs XY
+    --synth-prop-ubs 0.05`` with donors from ``simulate_donor_dataset`` (a
+    single-UB library with mirrored contexts), 4 steps of 64 and one
+    validation on phase 8's ctc-data, under ``--profile``.  First holds the
+    augmentations on the card to the CPU (``check_augment_card_vs_cpu``).
+    Counts the UBs of the batches before and after the augmentation, checks
+    the losses and the launch counts, and reads the card's busy share over
+    the steps from the trace.  Returns the donor tables (cap 32)."""
+    import csv
+
+    from xna_basecaller_tpu_torch.augment.stitch import slice_xna_tables
+    from xna_basecaller_tpu_torch.cli import main as cli
+    from xna_basecaller_tpu_torch.data import ctc_data
+    from xna_basecaller_tpu_torch.data.simulate import simulate_donor_dataset
+
+    data, donors = (os.path.join(workroot, d) for d in ("data", "donors"))
+    run, prof = (os.path.join(workroot, d) for d in ("aug_run", "profile"))
+    ctc_data.save_ctc_data(donors, *simulate_donor_dataset(40, seed=SEED))
+    check_augment_card_vs_cpu(slice_xna_tables(donors, cap=1))
+
+    # the UBs of the training batches before and after the augmentation
+    seen = {"batches": 0, "in": 0, "out": 0}
+    load = ctc_data.load_datasets
+
+    def counting(*a, augment=None, **kw):
+        def counted(c, t, l, b, rng):
+            seen["batches"] += 1
+            seen["in"] += int((t > 4).sum())
+            c, t = augment(c, t, l, b, rng)
+            seen["out"] += int((t > 4).sum())
+            return c, t
+        return load(*a, augment=counted if augment else None, **kw)
+
+    wrappers = training_wrappers()
+    ctc_data.load_datasets = counting
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        cli(["train", run, "--directory", data, "--chunks", str(AUG_CHUNKS),
+             "--epochs", "1", "--batch", str(TRAIN_BATCH), "--seed",
+             str(SEED), "--device", "cuda", "-f", "--stitch",
+             "--stitch-relax", "--spike", "--ubs", "XY", "--synth-prop-ubs",
+             "0.05", "--xna-ctc-dir", donors, "--profile", prof])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        ctc_data.load_datasets = load
+    with open(os.path.join(run, "losses_1.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    with open(os.path.join(run, "training.csv")) as fh:
+        val = list(csv.DictReader(fh))[-1]
+    losses = [float(r["loss"]) for r in rows]
+    print(f"augmented training path (stitch relaxed + spike, XY, under "
+          f"--profile): {len(rows)} steps of {TRAIN_BATCH} x 3600 + one "
+          f"validation in {wall:.1f} s; losses "
+          f"{[round(v, 4) for v in losses]}; validation loss "
+          f"{val['validation_loss']}; UBs in the {seen['batches']} training "
+          f"batches {seen['in']} -> {seen['out']} after the augmentation; "
+          f"launches {launches}")
+    if len(rows) != AUG_STEPS or not all(math.isfinite(v) for v in losses):
+        fail("the augmented training run did not give finite losses for "
+             "every step")
+    if not math.isfinite(float(val["validation_loss"])):
+        fail("the augmented validation loss is not finite")
+    if seen["batches"] != AUG_STEPS or seen["out"] <= seen["in"]:
+        fail("the augmentation inserted no UB into the training batches")
+    check_training_launches(launches, len(rows), 1,
+                            "the augmented training path")
+    share = busy_share(os.path.join(prof, "trace.json"))
+    if share is None:
+        print("card busy share over the augmented steps: not measured (the "
+              "trace holds no kernel)")
+    else:
+        frac, window, busy, n, top = share
+        print(f"card busy share over the augmented steps (trace of "
+              f"--profile, span train_steps): {frac:.4f} ({busy:.2f} of "
+              f"{window:.2f} ms, {n} kernels); largest kernels: "
+              + ", ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+    return slice_xna_tables(donors)
+
+
+def host_turns(fns: dict, reps: int = 21, burst: int = 1) -> dict:
+    """Median host-clock time (ms) of each function over ``reps`` samples
+    taken in turns as ``in_turns`` takes them, for work that waits on the
+    host (a numpy round trip): a sample is ``burst`` calls back to back,
+    then a synchronize, over ``burst``."""
+    names = list(fns)
+    for n in names:
+        fns[n]()
+    torch.cuda.synchronize()
+    times = {n: [] for n in names}
+    for r in range(reps):
+        for n in names if r % 2 == 0 else names[::-1]:
+            t0 = time.perf_counter()
+            for _ in range(burst):
+                fns[n]()
+            torch.cuda.synchronize()
+            times[n].append((time.perf_counter() - t0) * 1e3 / burst)
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+def time_augmentation(model, sim, tables, card):
+    """Phase 9 (augmentation), on phase 5's training batch (64 x 3600,
+    breakpoints from the simulator): ``spike_batch`` and ``stitch_batch``
+    (relaxed, as phase 8b runs it) alone with the flagship's defaults, and
+    the pick loop alone, by CUDA events, and the card's share of one call
+    of each (a ``torch.profiler`` trace); the closures with their numpy
+    round trip beside the two functions on the card's tensors, by the host
+    clock, medians of 21 in turns; the training step as the ``Trainer``
+    runs it with and without both augmentations (as phase 8b runs them),
+    by the host clock."""
+    import csv
+
+    from xna_basecaller_tpu_torch.augment import spike, stitch
+    from xna_basecaller_tpu_torch.data.ctc_data import ChunkDataset
+    from xna_basecaller_tpu_torch.data.pore_model import load_pore_model
+    from xna_basecaller_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    host = [np.ascontiguousarray(a, dt) for a, dt in zip(
+        sim, (np.float32, np.int32, np.int32, np.int32))]
+    batch = [torch.from_numpy(a).to(dev) for a in host]
+    pore = load_pore_model()
+    kmer = [torch.from_numpy(a).to(dev) for a in (pore.means, pore.stds)]
+    tbl = [torch.from_numpy(a).to(dev) for a in (
+        tables.signals, tables.lens, tables.counts)]
+    fallback = torch.from_numpy(
+        stitch.build_relax_fallback(tables.counts)).long().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lengths = batch[2].long()
+    n_pos = spike._n_positions(batch[2], 0.10, 0, 64)
+    no_ub = torch.zeros(batch[1].shape, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        t_dev = in_turns({
+            "spike_batch": lambda: spike.spike_batch(gen, *batch, *kmer),
+            "stitch_batch (relaxed)": lambda: stitch.stitch_batch(
+                gen, *batch, *tbl, tbl_fallback=fallback),
+            "the pick loop alone (_choose_positions, 64 rounds)":
+                lambda: spike._choose_positions(gen, lengths, n_pos, 64, 5,
+                                                no_ub),
+        })
+    aug_stitch = stitch.make_stitch_augment(None, tables=tables, relax=True,
+                                            device=dev)
+    aug_spike = spike.make_spike_augment(prop_ubs=0.05, device=dev)
+    rng = np.random.default_rng(SEED)
+    c, t, l, b = host
+    # each closure beside its function on tensors already on the card: the
+    # difference is the numpy round trip (upload, download, the wait)
+    with torch.no_grad():
+        t_host = host_turns({
+            "stitch_batch (relaxed)": lambda: stitch.stitch_batch(
+                gen, *batch, *tbl, tbl_fallback=fallback),
+            "stitch closure (relaxed; numpy in, numpy out)":
+                lambda: aug_stitch(c, t, l, b, rng),
+            "spike_batch (prop 0.05)": lambda: spike.spike_batch(
+                gen, *batch, *kmer, prop_ubs=0.05),
+            "spike closure (prop 0.05; numpy in, numpy out)":
+                lambda: aug_spike(c, t, l, b, rng),
+        })
+
+    def both(cc, tt, ll, bb, rng):
+        cc, tt = aug_stitch(cc, tt, ll, bb, rng)
+        return aug_spike(cc, tt, ll, bb, rng)
+
+    # the step as the Trainer runs it (the next batch made in a background
+    # thread on a stream of its own): the median spacing of the steps in
+    # losses_1.csv, epochs of 8 steps over the same 64 chunks, plain and
+    # augmented in turns (plain, augmented, augmented, plain)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                        "chip_smoke_epoch")
+    tiled = [np.concatenate([a] * 8) for a in host]
+    plain, augmented = "train step", "train step with stitch + spike"
+    spacing = {plain: [], augmented: []}
+    for name in (plain, augmented, augmented, plain):
+        shutil.rmtree(work, ignore_errors=True)
+        Trainer(model, ChunkDataset(
+                    *tiled, augment=both if name == augmented else None),
+                ChunkDataset(*(a[:1] for a in host)),
+                batchsize=TRAIN_BATCH, log=lambda *a: None).fit(work)
+        with open(os.path.join(work, "losses_1.csv")) as fh:
+            times = [float(r["time"]) for r in csv.DictReader(fh)]
+        spacing[name] += list(np.diff(times) * 1e3)
+    shutil.rmtree(work, ignore_errors=True)
+    t_step = {k: statistics.median(v) for k, v in spacing.items()}
+    print("time augmentation at 64 x 3600 (CUDA events, medians of 21 in "
+          "turns): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_dev.items())
+          + f" on {card}")
+    print("time augmentation functions and closures (host clock, medians of "
+          "21 in turns): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t_host.items())
+          + "; training step as the Trainer runs it (host clock, medians "
+          "of 14 step spacings, epochs in turns): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in t_step.items())
+          + f" on {card}")
+    # the card's share of each: one call traced, its kernels over its span
+    # (the profiler slows the host's side, not the kernels; it comes after
+    # the host-clock times above, so that none of them follows these traces)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                         "chip_smoke_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    shares = {}
+    for name, fn in (("spike_batch", lambda: spike.spike_batch(
+            gen, *batch, *kmer)), ("stitch_batch", lambda: stitch.stitch_batch(
+                gen, *batch, *tbl, tbl_fallback=fallback)),
+            ("the pick loop", lambda: spike._choose_positions(
+                gen, lengths, n_pos, 64, 5, no_ub))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(name):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        shares[name] = busy_share(trace, span=name)
+    os.remove(trace)
+    print("card inside the augmentation (one call traced by torch.profiler): "
+          + ", ".join(f"{k} {v[3]} kernels, {v[2]:.3f} ms of kernels over "
+                      f"{v[1]:.3f} ms" if v else f"{k} not measured"
+                      for k, v in shares.items()) + f" on {card}")
+    gap = t_step[augmented] - t_step[plain]
+    print(f"augmentation's cost in the step: {gap:.3f} ms "
+          f"({gap / t_step[augmented]:.1%} of the augmented step) on {card}")
 
 
 def lstm_yardsticks(model, keep, k1_inputs, xb, card, baseline):
@@ -1328,6 +1708,8 @@ def main() -> int:
     shutil.rmtree(workroot, ignore_errors=True)
     try:
         train_launches, train_steps, step_s = drive_training(workroot)
+        # -- 8b. the training path with both augmentations ---------------
+        donor_tables = drive_augmented_training(workroot)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     print(f"training path step times (host clock, losses_1.csv): "
@@ -1419,6 +1801,7 @@ def main() -> int:
         print(f"time {k}: {v} ms on {card}")
     t_train = time_training(model, tbatch, loss_inputs, card)
     timings["K5b"] = (*t_train["K5b"], None)
+    time_augmentation(model, sim, donor_tables, card)
     print(f"device-only: {batchsize * chunksize / t_batch * 1e3:.4e} "
           f"samples/s ({t_batch:.3f} ms per batch of {batchsize} x "
           f"{chunksize}) on {card}")

@@ -1,5 +1,6 @@
-"""The port's training step, optimizer, schedule, checkpoints, Trainer and
-``train`` CLI (CPU) against the JAX package.
+"""The port's training step, optimizer, schedule, checkpoints, Trainer,
+``merge_ctc_dirs``, ``load_script`` and ``train`` CLI (CPU, with and
+without the augmentations) against the JAX package.
 
 Tolerances (f32): one ``train_step`` from the same weights on the same
 batch: loss rtol 1e-5, grad_norm rtol 1e-4 (a sum of squares over
@@ -365,16 +366,6 @@ def test_cli_trains_on_cpu(tmp_path):
     assert not np.array_equal(after["rnn/1/w_hh"], before["rnn/1/w_hh"])
 
 
-@pytest.mark.parametrize("flag", [["--spike"], ["--stitch"],
-                                  ["--profile", "trace"],
-                                  ["--stitch", "--ubs", "X"]])
-def test_cli_refuses_unported_flags(flag, tmp_path):
-    with pytest.raises(SystemExit) as exc:
-        port_cli(["train", str(tmp_path / "run"), "--directory",
-                  str(tmp_path), "--device", "cpu", *flag])
-    assert f"{flag[0]} is not ported" in str(exc.value)
-
-
 def test_cli_trains_without_augmentation_given_only_its_knobs(tmp_path):
     """``--ubs X --ub-prop 0.1`` without ``--spike``/``--stitch``: JAX's
     ``need_bkps`` is false and it trains with no augmentation; so does the
@@ -408,3 +399,187 @@ def test_load_model_weights_0_loads_epoch_0(tmp_path):
         got = params_to_jax(model.state_dict())
         for k, v in _flat(params[epoch]).items():
             np.testing.assert_array_equal(got[k], v)
+
+
+@pytest.mark.parametrize("limits", [None, [3, None]])
+def test_merge_ctc_dirs_matches_jax(tmp_path, limits):
+    """Hybrid data prep: a DNA pack and an XNA pack merged, padded to the
+    widest target and shuffled, bit-equal to JAX's for one seed."""
+    from xna_basecaller_tpu.data import ctc_data as jdata
+    from xna_basecaller_tpu_torch.data import ctc_data
+
+    save_ctc_data(str(tmp_path / "dna"), *simulate_ctc_dataset(
+        6, chunk_len=400, target_len=50, seed=1))
+    save_ctc_data(str(tmp_path / "xna"), *simulate_ctc_dataset(
+        4, chunk_len=400, target_len=60, seed=2, ub_prop=0.05))
+    dirs = (str(tmp_path / "dna"), str(tmp_path / "xna"))
+    n = ctc_data.merge_ctc_dirs(str(tmp_path / "port"), *dirs, limits=limits)
+    n_j = jdata.merge_ctc_dirs(str(tmp_path / "jax"), *dirs, limits=limits)
+    assert n == n_j == (10 if limits is None else 7)
+    for f in ("chunks", "references", "reference_lengths", "breakpoints"):
+        got = np.load(tmp_path / "port" / f"{f}.npy")
+        want = np.load(tmp_path / "jax" / f"{f}.npy")
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+    assert np.load(tmp_path / "port" / "references.npy").shape[1] >= 60
+    a = np.zeros((2, 300), np.float16)
+    save_ctc_data(str(tmp_path / "short"), a, a[:, :5], np.zeros(2), a[:, :5])
+    with pytest.raises(ValueError, match="chunk lengths"):
+        ctc_data.merge_ctc_dirs(str(tmp_path / "bad"), dirs[0],
+                                str(tmp_path / "short"))
+
+
+_DATASET_PY = {
+    "datasets": (
+        "import numpy as np\n"
+        "from xna_basecaller_tpu_torch.data.ctc_data import ChunkDataset\n"
+        "def _mk(n, **kw):\n"
+        "    rng = np.random.default_rng(n)\n"
+        "    return ChunkDataset(rng.normal(size=(n, 100)).astype(np.float16),\n"
+        "                        rng.integers(1, 5, (n, 10)).astype(np.uint8),\n"
+        "                        np.full((n,), 10, np.uint16))\n"
+        "class Loader:\n"
+        "    def train_dataset(self, **kw):\n"
+        "        return _mk(8, **kw)\n"
+        "    def valid_dataset(self, **kw):\n"
+        "        return _mk(2, **kw)\n"),
+    "loader_kwargs": (
+        "import numpy as np\n"
+        "from xna_basecaller_tpu_torch.data.ctc_data import ChunkDataset\n"
+        "def _mk(n):\n"
+        "    rng = np.random.default_rng(n)\n"
+        "    return ChunkDataset(rng.normal(size=(n, 100)).astype(np.float16),\n"
+        "                        rng.integers(1, 5, (n, 10)).astype(np.uint8),\n"
+        "                        np.full((n,), 10, np.uint16))\n"
+        "class Loader:\n"
+        "    def train_loader_kwargs(self, **kw):\n"
+        "        return {'dataset': _mk(kw.get('n', 8)), 'shuffle': True}\n"
+        "    def valid_loader_kwargs(self, **kw):\n"
+        "        return {'dataset': _mk(2)}\n"),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_DATASET_PY))
+def test_load_script_matches_jax(tmp_path, form):
+    """``<dir>/dataset.py``'s Loader (either form) gives the datasets that
+    JAX's load_script gives for the same file (reference data.py:89-96)."""
+    from xna_basecaller_tpu.data.ctc_data import load_script as jload_script
+    from xna_basecaller_tpu_torch.data.ctc_data import load_script
+
+    (tmp_path / "dataset.py").write_text(_DATASET_PY[form])
+    kw = {"n": 6} if form == "loader_kwargs" else {}
+    got = load_script(str(tmp_path), **kw)
+    want = jload_script(str(tmp_path), **kw)
+    assert [len(d) for d in got] == [len(d) for d in want] == \
+        [6 if kw else 8, 2]
+    for g, w in zip(got, want):
+        for f in ("chunks", "targets", "lengths"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+    batch = next(got[0].batches(4))
+    assert batch[0].shape == (4, 100) and batch[0].dtype == np.float32
+
+
+@pytest.fixture()
+def cli_data(tmp_path):
+    """Simulated ctc-data with breakpoints, a stitch donor directory and a
+    tiny model's config; returns the train command's common arguments."""
+    from test_torch_stitch import write_donors
+
+    c, t, l, b = simulate_ctc_dataset(12, chunk_len=600, target_len=70)
+    save_ctc_data(str(tmp_path / "data"), c, t, l, b)
+    write_donors(tmp_path / "xna", chunk_len=600)
+    jconfig.save(_cfg(), str(tmp_path / "config.toml"))
+    return ["--directory", str(tmp_path / "data"), "--config",
+            str(tmp_path / "config.toml"), "--device", "cpu", "--epochs", "1",
+            "--batch", "4", "--valid-chunks", "2"]
+
+
+def _losses(run):
+    import csv
+
+    with open(os.path.join(run, "losses_1.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    with open(os.path.join(run, "training.csv")) as fh:
+        val = list(csv.DictReader(fh))[-1]
+    return [float(r["loss"]) for r in rows], float(val["validation_loss"])
+
+
+def test_cli_spike_without_ubs_trains_the_plain_run(tmp_path, cli_data):
+    """``--spike`` without ``--ubs`` inserts nothing: JAX's ``need_bkps``
+    is false, so the weights are the plain run's."""
+    port_cli(["train", str(tmp_path / "plain"), *cli_data])
+    port_cli(["train", str(tmp_path / "spike"), *cli_data, "--spike"])
+    want = ckpt.load_flat(str(tmp_path / "plain" / "weights_1.npz"))
+    got = ckpt.load_flat(str(tmp_path / "spike" / "weights_1.npz"))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--spike", "--ubs", "XY"],
+    ["--stitch", "--ubs", "X", "--xna-ctc-dir", "{xna}"],
+    ["--stitch", "--stitch-relax", "--spike", "--ubs", "XY",
+     "--synth-prop-ubs", "0.05", "--xna-ctc-dir", "{xna}"],
+], ids=["spike", "stitch", "stitch-relax-spike"])
+def test_cli_trains_with_augmentation(tmp_path, cli_data, flags):
+    """One epoch to finite losses; the augmented runs differ from the
+    plain run where UBs were inserted (the exact-context stitch of random
+    DNA finds no donor and inserts nothing, as in JAX)."""
+    xna = str(tmp_path / "xna")
+    run = str(tmp_path / "run")
+    port_cli(["train", run, *cli_data, *(f.format(xna=xna) for f in flags)])
+    losses, val = _losses(run)
+    assert len(losses) == 2 and np.isfinite(losses + [val]).all()
+
+
+def _count_inserted(monkeypatch):
+    """Wrap the train command's ``load_datasets`` so that the UBs in the
+    batches it hands the trainer are counted: {"in": n, "out": n}."""
+    from xna_basecaller_tpu_torch.data import ctc_data
+
+    seen = {"in": 0, "out": 0}
+    load = ctc_data.load_datasets
+
+    def counting(*a, augment=None, **kw):
+        def wrapped(c, t, l, b, rng):
+            seen["in"] += int((t > 4).sum())
+            c, t = augment(c, t, l, b, rng)
+            seen["out"] += int((t > 4).sum())
+            return c, t
+        return load(*a, augment=None if augment is None else wrapped, **kw)
+
+    monkeypatch.setattr(ctc_data, "load_datasets", counting)
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["fully_synth", "hybrid", "spliced",
+                                  "spliced_relax"])
+def test_cli_runs_the_quickrun_modes(tmp_path, cli_data, mode, monkeypatch):
+    """The four modes of scripts/quickrun_matrix.py, with the XNA donor
+    directory passed whenever --stitch is set; the periodic donors' five
+    contexts are rare in random DNA, so only relax is sure to splice."""
+    flags = {"fully_synth": ["--spike", "--fully-synth"],
+             "hybrid": ["--spike"], "spliced": ["--stitch"],
+             "spliced_relax": ["--stitch", "--stitch-relax"]}[mode]
+    if "--stitch" in flags:
+        flags += ["--xna-ctc-dir", str(tmp_path / "xna")]
+    seen = _count_inserted(monkeypatch)
+    run = str(tmp_path / mode)
+    port_cli(["train", run, *cli_data, "--ubs", "X", "--ub-prop", "0.1",
+              *flags])
+    losses, val = _losses(run)
+    assert np.isfinite(losses + [val]).all()
+    assert seen["in"] == 0
+    if mode != "spliced":
+        assert seen["out"] > 0
+
+
+def test_cli_profile_writes_a_trace(tmp_path, cli_data):
+    import json
+
+    port_cli(["train", str(tmp_path / "run"), *cli_data, "--spike", "--ubs",
+              "X", "--profile", str(tmp_path / "prof")])
+    with open(tmp_path / "prof" / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "train_steps" in names and "aten::cumsum" in names

@@ -2,13 +2,13 @@
 
 Port of ``xna_basecaller_tpu/cli/train.py`` (reference surface:
 ub-bonito/bonito/cli/train.py) with every flag of the JAX command plus
-``--device``.  The augmentations (``--spike``, ``--stitch``) and
-``--profile`` (a JAX trace) are not ported yet: each is refused with an
-error instead of being ignored.  Their knobs (``--ubs``, ``--ub-prop``
-...) are accepted: JAX reads them only with ``--spike`` or ``--stitch``
-(``need_bkps``) and trains without augmentation otherwise, as this
-command does.  Without ``--config`` or ``--pretrained`` the flagship
-``ModelConfig()`` is trained.
+``--device``.  ``--spike`` and ``--stitch`` augment each batch (stitch
+first, then spike) on ``--device`` when ``--ubs`` names the bases to
+insert; without ``--ubs`` they change nothing, as in JAX (``need_bkps``).
+The validation set is augmented the same way.  ``--profile DIR`` writes a
+``torch.profiler`` trace of the fit (CPU and, on the card, CUDA
+activities) to ``DIR/trace.json`` as a Chrome trace.  Without ``--config``
+or ``--pretrained`` the flagship ``ModelConfig()`` is trained.
 """
 
 from __future__ import annotations
@@ -17,29 +17,44 @@ import argparse
 import os
 import sys
 
-# flag -> argparse dest of the options that are not ported yet
-NOT_PORTED = {"--profile": "profile", "--spike": "spike", "--stitch": "stitch"}
-# the augmentations' knobs, inert without --spike and --stitch
-AUGMENT_KNOBS = (
-    "--ubs", "--ub-prop", "--var-prop-ubs", "--no-mix-ubs", "--ub-pad",
-    "--synth-prop-ubs", "--xna-ctc-dir", "--cand-sample-size",
-    "--stitch-relax", "--weighted-pos-pick", "--permute-win-size",
-    "--stitch-noise-std", "--stitch-noise-mode", "--noise-std", "--std-dist",
-    "--fully-synth",
-)
-_FLAGS = {"--no-mix-ubs", "--stitch-relax", "--weighted-pos-pick",
-          "--fully-synth", "--spike", "--stitch"}
-_FLOATS = {"--ub-prop", "--var-prop-ubs", "--synth-prop-ubs",
-           "--stitch-noise-std", "--noise-std"}
-_INTS = {"--ub-pad", "--cand-sample-size", "--permute-win-size"}
+
+def build_augment(args):
+    """The batch augmentation of ``args`` (stitch, then spike; each closure
+    on ``args.device``), or None when no UB is to be inserted."""
+    if not (args.ubs and (args.spike or args.stitch)):
+        return None
+    augments = []
+    if args.stitch:
+        from xna_basecaller_tpu_torch.augment.stitch import (
+            make_stitch_augment,
+        )
+        augments.append(make_stitch_augment(
+            args.xna_ctc_dir or args.directory, ubs=args.ubs,
+            prop_ubs=args.ub_prop, cand_sample_size=args.cand_sample_size,
+            noise_std=args.stitch_noise_std,
+            noise_mode=args.stitch_noise_mode,
+            weighted_pos_pick=args.weighted_pos_pick,
+            permute_win_size=args.permute_win_size, pad=args.ub_pad,
+            relax=args.stitch_relax, device=args.device))
+    if args.spike:
+        from xna_basecaller_tpu_torch.augment.spike import make_spike_augment
+        augments.append(make_spike_augment(
+            ubs=args.ubs, prop_ubs=args.synth_prop_ubs or args.ub_prop,
+            noise_std=args.noise_std, std_dist=args.std_dist,
+            fully_synth=args.fully_synth, pad=args.ub_pad,
+            var_prop_ubs=args.var_prop_ubs, mix_ubs=not args.no_mix_ubs,
+            device=args.device))
+
+    def augment(chunks, targets, lengths, bkps, rng, _augs=tuple(augments)):
+        # reference order: stitch first, then spike (data.py:70-79)
+        for a in _augs:
+            chunks, targets = a(chunks, targets, lengths, bkps, rng)
+        return chunks, targets
+
+    return augment
 
 
 def main(args):
-    for flag, dest in NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            sys.exit(f"xnacall train: {flag} is not ported to "
-                     "xna_basecaller_tpu_torch yet")
-
     from xna_basecaller_tpu_torch.core import config as config_lib
     from xna_basecaller_tpu_torch.data.ctc_data import load_datasets
     from xna_basecaller_tpu_torch.models.crf_model import Model
@@ -53,9 +68,11 @@ def main(args):
         exit(1)
     os.makedirs(workdir, exist_ok=True)
 
+    augment = build_augment(args)
     train_data, valid_data = load_datasets(
         args.directory, limit=args.chunks or None,
-        valid_limit=args.valid_chunks or None)
+        load_bkps=augment is not None, augment=augment,
+        valid_augment=augment, valid_limit=args.valid_chunks or None)
 
     if args.pretrained:
         model, cfg = load_model(
@@ -91,14 +108,32 @@ def main(args):
                 return int(key.split("/")[1]) < n_rnn - keep
             return True
 
-    Trainer(
+    trainer = Trainer(
         model, train_data, valid_data,
         batchsize=args.batch, lr=args.lr, seed=args.seed,
         restore_optim=args.restore_optim,
         save_optim_every=args.save_optim_every,
         grad_accum_split=args.grad_accum_split,
         frozen_predicate=frozen_predicate,
-    ).fit(workdir, epochs=args.epochs)
+    )
+    if not args.profile:
+        trainer.fit(workdir, epochs=args.epochs)
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = trainer.device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        trainer.fit(workdir, epochs=args.epochs)
+        if on_card:
+            torch.cuda.synchronize()
+    os.makedirs(args.profile, exist_ok=True)
+    trace = os.path.join(args.profile, "trace.json")
+    prof.export_chrome_trace(trace)
+    sys.stderr.write(f"[profile trace: {trace}]\n")
 
 
 def argparser():
@@ -133,16 +168,43 @@ def argparser():
     # freeze knobs
     parser.add_argument("--freeze-bottom", action="store_true")
     parser.add_argument("--unfreeze-top", default=3, type=int)
-    not_ported = parser.add_argument_group(
-        "not ported yet (each is refused with an error)")
-    not_ported.add_argument("--profile", default=None)
-    knobs = parser.add_argument_group(
-        "augmentation knobs (read only with --spike or --stitch)")
-    for flag in ("--spike", "--stitch", *AUGMENT_KNOBS):
-        group = not_ported if flag in NOT_PORTED else knobs
-        if flag in _FLAGS:
-            group.add_argument(flag, action="store_true")
-        else:
-            kind = float if flag in _FLOATS else int if flag in _INTS else str
-            group.add_argument(flag, default=None, type=kind)
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the fit to "
+                             "DIR/trace.json")
+    # augmentation knobs (spike / stitch)
+    parser.add_argument("--spike", action="store_true",
+                        help="synthetic-signal UB spiking augmentation")
+    parser.add_argument("--stitch", action="store_true",
+                        help="real-signal splice augmentation")
+    parser.add_argument("--ubs", default="", choices=["", "X", "Y", "XY", "N"],
+                        help="unnatural bases to insert")
+    parser.add_argument("--ub-prop", default=0.10, type=float)
+    parser.add_argument("--var-prop-ubs", default=0.0, type=float,
+                        help="vary UB proportion per chunk by +-this")
+    parser.add_argument("--no-mix-ubs", action="store_true",
+                        help="one UB letter per chunk instead of mixing")
+    parser.add_argument("--ub-pad", default=5, type=int,
+                        help="min base spacing between inserted UBs")
+    parser.add_argument("--synth-prop-ubs", default=0.0, type=float,
+                        help="separate spike proportion when combining "
+                             "stitch + spike")
+    parser.add_argument("--xna-ctc-dir", default=None,
+                        help="real-XNA ctc-data for stitch slices")
+    parser.add_argument("--cand-sample-size", default=5, type=int)
+    parser.add_argument("--stitch-relax", action="store_true",
+                        help="sparse-library donor fallback: redirect "
+                             "empty exact-context stitch buckets to the "
+                             "deepest-suffix occupied bucket (no-op on "
+                             "fully-occupied donor tables)")
+    parser.add_argument("--weighted-pos-pick", action="store_true",
+                        help="k-mer-frequency-weighted insert positions")
+    parser.add_argument("--permute-win-size", default=0, type=int,
+                        help="permute stitched samples within windows")
+    parser.add_argument("--stitch-noise-std", default=0.0, type=float)
+    parser.add_argument("--stitch-noise-mode", default="single",
+                        choices=["single", "single_variable", "block_add",
+                                 "block_mult"])
+    parser.add_argument("--noise-std", default=1.0, type=float)
+    parser.add_argument("--std-dist", default="truncnorm_shift_1.5_0.5")
+    parser.add_argument("--fully-synth", action="store_true")
     return parser

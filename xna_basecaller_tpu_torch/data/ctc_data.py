@@ -1,8 +1,5 @@
-"""Copied from ``xna_basecaller_tpu/data/ctc_data.py``
-(``load_numpy_datasets``, ``atomic_np_save``, ``save_ctc_data``,
-``ChunkDataset``, ``load_datasets``);
-only the package imports differ.  ``load_script`` and ``merge_ctc_dirs`` are
-not ported yet.
+"""Copied from ``xna_basecaller_tpu/data/ctc_data.py``;
+only the package imports differ.
 
 ctc-data (.npy) loading and batch iteration.
 
@@ -162,3 +159,65 @@ def load_datasets(directory: str, limit: int | None = None,
     valid = ChunkDataset(*valid_arrays, augment=valid_augment,
                          epoch_reset_seed=True)
     return train, valid
+
+
+def load_script(directory: str, name: str = "dataset",
+                suffix: str = ".py", **kwargs):
+    """Custom-dataset escape hatch (reference data.py:89-96): import
+    ``<directory>/dataset.py``, instantiate its ``Loader``, and return
+    (train, valid) datasets.
+
+    The Loader may expose either the TPU-idiomatic
+    ``train_dataset(**kw)/valid_dataset(**kw)`` (returning ChunkDataset-
+    shaped objects) or the reference's
+    ``train_loader_kwargs/valid_loader_kwargs`` (dicts whose ``dataset``
+    entry is used)."""
+    import importlib.util
+
+    filepath = os.path.join(directory, name + suffix)
+    spec = importlib.util.spec_from_file_location(name, filepath)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    loader = module.Loader()
+    if hasattr(loader, "train_dataset"):
+        return loader.train_dataset(**kwargs), loader.valid_dataset(**kwargs)
+    return (loader.train_loader_kwargs(**kwargs)["dataset"],
+            loader.valid_loader_kwargs(**kwargs)["dataset"])
+
+
+def merge_ctc_dirs(out_dir: str, *dirs: str, limits=None,
+                   load_bkps: bool = True, seed: int = 25) -> int:
+    """Merge several ctc-data directories into one (shuffled).
+
+    The "hybrid" training mode (BASELINE config: real XNA chunks + DNA
+    chunks; the reference pre-mixes npy packs for it).  Handles differing
+    target widths by padding to the widest; optional per-dir limits.
+    """
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i, d in enumerate(dirs):
+        limit = None if limits is None else limits[i]
+        parts.append(load_numpy_datasets(d, limit=limit,
+                                         load_bkps=load_bkps))
+    width = max(p[1].shape[1] for p in parts)
+    chunk_len = parts[0][0].shape[1]
+    if any(p[0].shape[1] != chunk_len for p in parts):
+        raise ValueError("chunk lengths differ between directories")
+
+    def pad_w(a):
+        if a.shape[1] == width:
+            return np.asarray(a)
+        out = np.zeros((a.shape[0], width), a.dtype)
+        out[:, : a.shape[1]] = a
+        return out
+
+    chunks = np.concatenate([np.asarray(p[0]) for p in parts])
+    targets = np.concatenate([pad_w(p[1]) for p in parts])
+    lengths = np.concatenate([np.asarray(p[2]) for p in parts])
+    order = rng.permutation(len(chunks))
+    bkps = None
+    if load_bkps:
+        bkps = np.concatenate([pad_w(p[3]) for p in parts])[order]
+    save_ctc_data(out_dir, chunks[order], targets[order], lengths[order],
+                  breakpoints=bkps)
+    return len(chunks)

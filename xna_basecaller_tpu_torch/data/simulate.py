@@ -1,5 +1,7 @@
 """Copied from ``xna_basecaller_tpu/data/simulate.py``;
-only the package imports differ.
+only the package imports differ, and ``simulate_donor_dataset`` is the
+port's own: the stitch donors that the JAX package's tests build inline
+(``tests/test_stitch.py:43-67``).
 
 Synthetic nanopore read/chunk simulation from the k-mer pore model.
 
@@ -250,4 +252,41 @@ def simulate_ctc_dataset(n_chunks: int, chunk_len: int = 3600,
         refs[i, :n_fit] = codes[:n_fit]
         lens[i] = n_fit
         bkps[i, :n_fit] = np.minimum(bk[:n_fit], chunk_len)
+    return chunks, refs, lens, bkps
+
+
+# Period-6 base pattern: a target tiled with it mirrors its 5-base context
+# around every position (target[p+1+j] == target[p-5+j]), the XNA1024
+# library property the stitch per_kmer lookup relies on.
+MIRROR_HEX = np.array([1, 2, 3, 4, 2, 3], np.uint8)
+
+
+def simulate_donor_dataset(n_reads: int, chunk_len: int = 1200,
+                           seed: int = 0, pore: PoreModel | None = None):
+    """Single-UB ctc-data shaped like the XNA library, as stitch donors:
+    read i is 20 random bases, a 5-base context, one UB (X for reads
+    0-5, Y for 6-11, X again ...), the same context, 20 random bases; the
+    context is the five bases of ``MIRROR_HEX`` after residue i % 6.
+    Returns (chunks, references, reference_lengths, breakpoints) as
+    ``simulate_ctc_dataset`` does."""
+    pore = pore or load_pore_model()
+    rng = np.random.default_rng(seed)
+    max_len = 80
+    chunks = np.zeros((n_reads, chunk_len), np.float16)
+    refs = np.zeros((n_reads, max_len), np.uint8)
+    lens = np.zeros(n_reads, np.uint16)
+    bkps = np.zeros((n_reads, max_len), np.uint16)
+    for i in range(n_reads):
+        ub = 5 if (i // 6) % 2 == 0 else 6
+        ctx = MIRROR_HEX[(i % 6 + 1 + np.arange(5)) % 6]
+        pre = rng.integers(1, 5, size=20).astype(np.uint8)
+        post = rng.integers(1, 5, size=20).astype(np.uint8)
+        target = np.concatenate([pre, ctx, [ub], ctx, post]).astype(np.uint8)
+        signal, bk = simulate_squiggle(target, pore, rng)
+        n = len(target)
+        chunks[i, : min(len(signal), chunk_len)] = \
+            signal[:chunk_len].astype(np.float16)
+        refs[i, :n] = target
+        lens[i] = n
+        bkps[i, :n] = np.minimum(bk[:n], chunk_len)
     return chunks, refs, lens, bkps

@@ -20,7 +20,9 @@ device:
 * ``Trainer``: per-step ``losses_N.csv``, per-epoch ``weights_N.npz`` (+
   ``optim_N.npz``), resume, validation (the inference forward, K1, then the
   decode K2a/b/c, the loss and Smith-Waterman accuracy) and
-  ``training.csv``, as the JAX Trainer writes them.
+  ``training.csv``, as the JAX Trainer writes them; the training batches
+  (and their augmentation) are prefetched in a background thread, as the
+  JAX Trainer prefetches them, on a CUDA stream of their own.
 
 Dropout draws from a ``torch.Generator`` on the model's device seeded from
 (seed, step), as ``fold_in(base_rng, step)`` keys it in JAX (the bits
@@ -41,12 +43,14 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from xna_basecaller_tpu_torch.core.alphabet import decode as decode_codes
 from xna_basecaller_tpu_torch.eval.accuracy import accuracy
 from xna_basecaller_tpu_torch.models.crf_model import Model
 from xna_basecaller_tpu_torch.train import checkpoint as ckpt
 from xna_basecaller_tpu_torch.train.schedule import linear_warmup_cosine_decay
+from xna_basecaller_tpu_torch.utils.pipeline import thread_iter
 from xna_basecaller_tpu_torch.utils.weights import (
     jax_key, params_from_jax, params_to_jax,
 )
@@ -265,22 +269,35 @@ class Trainer:
         chunks_seen = 0
         # losses stay on the device until the epoch ends: one transfer
         stats, rows = [], []
-        for batch in self.train_data.batches(
-                self.batchsize, shuffle=True, seed=self.seed + epoch,
-                drop_last=True):
-            c, t, l = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                       for a in batch)
-            loss, grad_norm = train_step(
-                self.model, optimizer, c, t, l, self.compute_dtype,
-                self.grad_accum_split,
-                _step_generator(dev, self.seed, step) if use_dropout
-                else None)
-            stats.append(torch.stack([loss, grad_norm]))
-            chunks_seen += c.shape[0]
-            rows.append({"chunks": chunks_seen,
-                         "time": perf_counter() - t0,
-                         "lr": float(schedule(step))})
-            step += 1
+        # the batches, their augmentation included, are made in a
+        # background thread on a CUDA stream of its own, so that batch k+1
+        # is made while the card runs step k (JAX's Trainer prefetches the
+        # same way)
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+        def prefetched():
+            with torch.cuda.stream(stream):
+                yield from self.train_data.batches(
+                    self.batchsize, shuffle=True, seed=self.seed + epoch,
+                    drop_last=True)
+
+        # one profiler span over the epoch's steps, their batches and
+        # augmentation included: a trace's busy share is read over it
+        with record_function("train_steps"):
+            for batch in thread_iter(prefetched(), maxsize=2):
+                c, t, l = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in batch)
+                loss, grad_norm = train_step(
+                    self.model, optimizer, c, t, l, self.compute_dtype,
+                    self.grad_accum_split,
+                    _step_generator(dev, self.seed, step) if use_dropout
+                    else None)
+                stats.append(torch.stack([loss, grad_norm]))
+                chunks_seen += c.shape[0]
+                rows.append({"chunks": chunks_seen,
+                             "time": perf_counter() - t0,
+                             "lr": float(schedule(step))})
+                step += 1
         values = torch.stack(stats).cpu().numpy() if stats else []
         smoothed = None
         with CSVLogger(os.path.join(workdir,
