@@ -4,7 +4,8 @@ GPU, at the full width of the flagship model (conv 768, 5 x LSTM(768),
 1512-column CRF, chunks of 3600; random weights from a seed): its three
 paths, basecalling (batch 256), the int8 ``--quantize`` basecall (batch
 256) and training (batch 64), plain and with the spike and stitch
-augmentations.
+augmentations, and the bootstrap-data phase that makes stitch's donors
+(basecall, alignment, ctc-data, DTW breakpoints).
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. print the card's name and power limit, build every kernel in
@@ -12,7 +13,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      build log with the ptxas register and spill lines;
   2. hold each kernel against its plain PyTorch version on the card, on the
      tensors the main path gives it for one batch of simulated reads:
-     K1 (LSTM recurrence) in bf16 and f32, K7 (the int8 recurrence, layer
+     K1 (LSTM recurrence) in bf16 and f32 (called twice: its
+     repeatability is printed), K7 (the int8 recurrence, layer
      0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode);
   3. check the model's scores and labels against the plain CPU path on a
      small input, in f32 and quantized; the quantized model's scores
@@ -47,6 +49,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      donors from ``simulate_donor_dataset``) under ``--profile``, read the
      counts, check the losses and that the batches gained UBs, and read
      the card's busy share over the steps from the trace;
+  8c. the paper's bootstrap-data phase (B) on the card: 256 chunk-reads
+     of 3600 through ``cli/basecaller.py::call_reads``, alone, then with
+     the launch counts set to 0 with ``--reference`` (templates made from
+     the first run's calls, on both strands), ``--save-ctc``,
+     ``--ub-only`` and ``--sam``; read the counts, check the kept chunks,
+     their UB targets, the SAM, the calls that changed between the runs
+     and ``filter_stats.csv``; ``dtw_segmentation`` with the native
+     library; 2 steps of ``train --stitch --stitch-relax --ubs XY`` on
+     B's ctc-data and its breakpoints (donors from phase 8b), then an
+     epoch more with ``--restore-optim`` from the optimizer file in the
+     JAX package's layout; print the chunk-reads/s of both runs, the
+     alignment's time, DTW ms a chunk, both also against each template
+     library of the repo's assets at real read lengths, and the phase's
+     wall time;
   9. time each kernel, its plain version and its library yardstick with
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
@@ -72,7 +88,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      ``torch.profiler``), the augment closures with their numpy round trip
      (host clock), medians of 21 in turns, and the training step as the
      ``Trainer`` runs it with and without both augmentations (host clock);
-  10. print the ``kernels`` JSON line, then the result line.
+  10. print the whole run's wall time, the ``kernels`` JSON line, then
+     the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 To compare with another tree (e.g. the parent commit, unpacked with
@@ -85,6 +102,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import math
@@ -111,6 +129,21 @@ TRAIN_BATCH, TRAIN_STEPS, VALID_CHUNKS = 64, 8, 16
 # phase 8b: --chunks 272 of phase 8's data leaves 263 training chunks (4
 # steps of 64) and 9 validation chunks (one batch)
 AUG_CHUNKS, AUG_STEPS = 272, 4
+# phase 8c: --chunks 136 of B's ctc-data leaves 131 training chunks (2
+# steps of 64) and 5 validation chunks (one batch)
+SPLICED_CHUNKS = 136
+# phase 8c: the --ub-bias values tried for the calls the reference is made of
+UB_BIASES = (0.0, -1.0, -2.0, -3.0, -4.0, -6.0, -10.0)
+# phase 8c: K1 in bf16 at 65-256 rows adds its h chunks in arrival order,
+# so a second basecall of the same 256 chunk-reads changed 15 and 16 calls
+# in two runs (~6 %); more than twice that fails the phase (ROADMAP Queue 3)
+K1_DIFFER_MAX = 32
+# phase 8c: the template libraries phase B aligns to, read as data files
+# from the JAX package's assets (nothing of that package is imported), and
+# the call of a chunk-read of 3600 samples at ~9 samples a base
+XNA_LIBS = os.path.join("xna_basecaller_tpu", "assets", "xna_libs")
+LIBRARIES = ("XNA_4Ds", "POC", "XNA16", "CPLX")
+CHUNK_CALL_BASES = 400
 SCAN_BURST = 10   # calls a timed sample of the CRF kernels
 
 
@@ -1032,6 +1065,373 @@ def drive_augmented_training(workroot: str):
     return slice_xna_tables(donors)
 
 
+def time_library_alignment(align, chunksize: int, card: str):
+    """Phase 8c at the traffic of real reads, which random weights do not
+    call: for each template library of ``LIBRARIES`` (``refdb_short.fasta``
+    under ``XNA_LIBS``), the CLI's ``align`` (every template, both strands)
+    of 8 probes of the templates' own length (a library read: a template
+    with its N called X and 5 % of its bases substituted, every other one
+    reverse-complemented) and of 8 of ``CHUNK_CALL_BASES`` (such a template
+    inside random flanks: the call of a chunk-read of ``chunksize``
+    samples), and DTW (``segment_read``, native ``dtw_band``) of 8
+    simulated chunks of ``chunksize`` samples onto their template.  Prints
+    the host-clock ms of each and the chunk-reads/s that they leave
+    phase B; fails if a probe aligns to nothing."""
+    from xna_basecaller_tpu_torch.core.alphabet import (
+        CODE, reverse_complement_str,
+    )
+    from xna_basecaller_tpu_torch.data.pore_model import load_pore_model
+    from xna_basecaller_tpu_torch.data.simulate import simulate_squiggle
+    from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
+    from xna_basecaller_tpu_torch.tools.dtw_segmentation import segment_read
+
+    rng = np.random.default_rng(SEED)
+    pore = load_pore_model()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), XNA_LIBS)
+
+    def random_bases(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+
+    def called(t):
+        q = np.array(list(t.replace("N", "X")))
+        pos = rng.choice(len(q), size=len(q) // 20, replace=False)
+        q[pos] = rng.choice(list("ACGT"), size=len(pos))
+        return "".join(q)
+
+    def align_ms(probes, want):
+        t0 = time.perf_counter()
+        got = [align(q, targets)[0] for q in probes]
+        ms = (time.perf_counter() - t0) / len(probes) * 1e3
+        if any(m is None for m in got):
+            fail(f"a probe of library {name} aligned to nothing")
+        return ms, sum(m["target_id"] == w for m, w in zip(got, want))
+
+    for name in LIBRARIES:
+        targets = read_fasta(os.path.join(root, name, "refdb_short.fasta"))
+        ids = list(targets)
+        picks = [ids[i] for i in rng.choice(len(ids), size=8,
+                                            replace=len(ids) < 8)]
+        reads, chunks, dtw_in = [], [], []
+        for i, tid in enumerate(picks):
+            t = called(targets[tid])
+            flank = CHUNK_CALL_BASES - len(t)
+            c = random_bases(flank // 2) + t + random_bases(flank - flank // 2)
+            codes = np.array([CODE[b] for b in c])
+            sig, _ = simulate_squiggle(codes, pore, rng)
+            dtw_in.append((sig[:chunksize], len(t),
+                           np.array([CODE[b] for b in t])))
+            if i % 2:
+                t, c = reverse_complement_str(t), reverse_complement_str(c)
+            reads.append(t)
+            chunks.append(c)
+        ms_read, hits_read = align_ms(reads, picks)
+        ms_chunk, hits_chunk = align_ms(chunks, picks)
+        t0 = time.perf_counter()
+        seg = [segment_read(*x, pore) for x in dtw_in]
+        ms_dtw = (time.perf_counter() - t0) / len(dtw_in) * 1e3
+        lens = sorted(len(v) for v in targets.values())
+        print(f"library {name} ({len(targets)} templates of {lens[0]}-"
+              f"{lens[-1]} bases): the CLI's alignment {ms_read:.2f} ms a "
+              f"read of its template's length, {ms_chunk:.2f} ms a "
+              f"chunk-read's call of {CHUNK_CALL_BASES} bases (on their "
+              f"template {hits_read} and {hits_chunk} of 8); DTW "
+              f"{ms_dtw:.2f} ms a chunk of {chunksize} samples onto its "
+              f"template (DTW-aligned {sum(ok for _, ok in seg)} of 8): "
+              f"phase B at most {1e3 / (ms_chunk + ms_dtw):.1f} chunk-reads/s"
+              f" on this host's one core (host clock, native sw_score_batch"
+              f" + sw_align, dtw_band; {card})")
+
+
+def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
+    """Phase 8c: the paper's bootstrap-data phase (B) on the card at the
+    flagship's width, then its output feeding spliced training (C).
+
+    256 chunk-reads of 3600 (one basecall batch) from phase 4's simulated
+    reads go through ``cli/basecaller.py::call_reads`` twice: alone
+    (FASTQ), then, with the launch counts set to 0, with ``--reference``
+    (templates made from the first run's calls), ``--save-ctc``,
+    ``--ub-only`` and ``--sam``; every other template is reverse-
+    complemented, so the SAM holds both flags 0 and 16 and the targets
+    both UB codes 5 ('+') and 6 ('-').  The random weights move on ~1 %
+    of the frames, and call X/Y on many of those; a read's X/Y matches no
+    template base.  So both runs pass the ``--ub-bias`` of ``UB_BIASES``
+    whose calls hold the most canonical bases (a bias below 0 trades X/Y
+    moves for canonical moves or stays), and the writer's filters are
+    lowered to accuracy 0.2 and coverage 0.5.  Checks the counts (K1 5,
+    K2a/b/c 1), the kept chunks, their UB targets, the chunks against the
+    inputs' f16 slices, ``filter_stats.csv``, the SAM, and that at most
+    ``K1_DIFFER_MAX`` calls of the second run differ from the first's; then
+    ``dtw_segmentation`` with the native library (``breakpoints.npy``
+    monotone, ending at or below 3600).  Then phase C on B's output: 2
+    steps of ``train --stitch --stitch-relax --ubs XY`` whose training
+    data is B's ctc-data with its DTW breakpoints (stitch splices at
+    them), donors from phase 8b's library (B's targets of ~10 bases over
+    3600 samples have k-mers far longer than the 100 samples stitch takes
+    from a donor; the count of B's donor slices is printed),
+    ``--save-optim-every 1``, then one more epoch with
+    ``--restore-optim`` from the optimizer file, which must hold the JAX
+    package's keys.  Also prints whether two forwards of the batch are
+    bit-equal, and times the alignment and DTW against the repo's template
+    libraries (``time_library_alignment``), at the lengths of real calls,
+    which random weights do not give."""
+    import csv
+    import types
+
+    from xna_basecaller_tpu_torch.augment.stitch import slice_xna_tables
+    from xna_basecaller_tpu_torch.cli import basecaller
+    from xna_basecaller_tpu_torch.cli import main as cli
+    from xna_basecaller_tpu_torch.core.alphabet import reverse_complement_str
+    from xna_basecaller_tpu_torch.data.fast5 import read_chunks
+    from xna_basecaller_tpu_torch.data.simulate import self_reference
+    from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
+    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
+    from xna_basecaller_tpu_torch.tools.dtw_segmentation import (
+        dtw_segmentation,
+    )
+    from xna_basecaller_tpu_torch.train.checkpoint import load_flat
+    from xna_basecaller_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        fail("the native library (native/xna_native.cpp) did not build: "
+             "phase B would align and segment through the numpy fallbacks")
+    chunksize, batchsize = cfg.basecaller.chunksize, cfg.basecaller.batchsize
+    chunk_reads = []
+    for r in reads:
+        read = types.SimpleNamespace(
+            read_id=r.read_id, signal=r.signal, run_id="sim", filename="",
+            mux=0, channel=0, start=0.0, duration=0.0)
+        chunk_reads.extend(read_chunks(read, chunksize=chunksize,
+                                       overlap=cfg.basecaller.overlap))
+    chunk_reads = chunk_reads[:batchsize]
+    if len(chunk_reads) != batchsize:
+        fail(f"only {len(chunk_reads)} chunk-reads: fewer than one batch")
+    bdir = os.path.join(workroot, "bootstrap")
+    ctc_dir, fasta = os.path.join(bdir, "ctc"), os.path.join(bdir, "ref.fa")
+    os.makedirs(bdir)
+
+    def run(bias, *flags):
+        out = io.StringIO()
+        args = basecaller.argparser().parse_args(
+            ["flagship", "reads", "--ub-bias", str(bias), *flags])
+        t0 = time.perf_counter()
+        stats = basecaller.call_reads(args, model, cfg, iter(chunk_reads),
+                                      out=out)
+        torch.cuda.synchronize()
+        return stats, out.getvalue(), time.perf_counter() - t0
+
+    # the card's repeatability: two forwards of the batch, bit for bit
+    x = torch.from_numpy(np.stack([c.signal for c in chunk_reads]).astype(
+        np.float16)).to(next(model.parameters()).device)
+    with torch.inference_mode():
+        a, b = model(x), model(x)
+    print(f"two forwards of the phase-B batch: scores bit-equal "
+          f"{torch.equal(a, b)}, max abs {(a - b).abs().max().item():.3e}")
+    del x, a, b
+
+    # 1. the basecall alone, at each bias; phase B takes the bias whose
+    # calls hold the most canonical bases
+    ladder = []
+    for bias in UB_BIASES:
+        _, fastq, t = run(bias)
+        lines = fastq.split("\n")
+        c = dict(zip((h[1:] for h in lines[0::4]), lines[1::4]))
+        canonical = sum(len(v) - v.count("X") - v.count("Y")
+                        for v in c.values())
+        ladder.append((canonical, bias, t, c))
+    print("phase B calls by --ub-bias (canonical bases of the 256 calls, "
+          "s): " + ", ".join(f"{b}: {n} ({t:.3f})"
+                             for n, b, t, _ in ladder))
+    _, bias, t_call, calls = max(ladder, key=lambda x: x[0])
+    # random weights call a few nested strings (one inside another's
+    # template ties, and ties go to '+'): take the orientation of the
+    # templates under which the fewer of the calls on one strand are most
+    counts = collections.Counter(calls.values())
+
+    def strands_of(reverse_first):
+        n = self_reference(calls.values(), fasta,
+                           reverse_first=reverse_first)
+        targets = read_fasta(fasta)
+        on = collections.Counter()
+        for c, k in counts.items():
+            m = basecaller.align(c, targets)[0] if c and targets else None
+            on[m["strand"] if m else "unmapped"] += k
+        return min(on["+"], on["-"]), n, on
+
+    reverse_first = max((False, True), key=lambda r: strands_of(r)[0])
+    _, n_templates, strands = strands_of(reverse_first)
+    lengths = sorted(len(v) for v in calls.values())
+    ub_share = sum(v.count("X") + v.count("Y") for v in calls.values()) \
+        / max(sum(lengths), 1)
+    print(f"phase B step 1, the basecall alone at --ub-bias {bias}: "
+          f"{len(chunk_reads)} "
+          f"chunk-reads of {chunksize} in {t_call:.3f} s, "
+          f"{len(chunk_reads) / t_call:.1f} chunk-reads/s (host clock) on "
+          f"{card}; calls {len(calls)}, lengths min {lengths[0]} median "
+          f"{lengths[len(lengths) // 2]} max {lengths[-1]}, X/Y share "
+          f"{ub_share:.3f}; templates (distinct calls of >= 8 bases, every "
+          f"other one reverse-complemented) {n_templates}")
+    print("phase B step 1's most frequent calls: " + ", ".join(
+        f"{c} x{k}" for c, k in counts.most_common(6)) + f"; on the "
+        f"templates (first reverse-complemented: {reverse_first}) they "
+        f"align {dict(strands)}")
+    if n_templates == 0:
+        fail("no call of 8 bases or more: nothing to build a reference of")
+    if min(strands["+"], strands["-"]) < 8:
+        fail("fewer than 8 of step 1's calls align to one of the strands "
+             "in either orientation of the templates")
+
+    # 2. with the reference, the SAM and the ctc-data writer
+    wrappers = {"K1": lstm_cuda.lstm_recurrence,
+                "K2a": crf_cuda.backward_scan,
+                "K2b": crf_cuda.forward_viterbi,
+                "K2c": crf_cuda.viterbi_traceback}
+    align, spent, mapped = basecaller.align, [0, 0.0], []
+
+    def timed_align(seq, targets):
+        t0 = time.perf_counter()
+        try:
+            mapping, refseq = align(seq, targets)
+        finally:
+            spent[0] += 1
+            spent[1] += time.perf_counter() - t0
+        if mapping is not None:
+            mapped.append((mapping["percent_match"], (
+                mapping["read_end"] - mapping["read_start"]) / len(seq)))
+        return mapping, refseq
+
+    for w in wrappers.values():
+        w.launches = 0
+    basecaller.align = timed_align
+    try:
+        stats, sam, t_b = run(bias, "--reference", fasta, "--save-ctc",
+                              ctc_dir,
+                              "--ub-only", "--sam", "--ctc-min-accuracy",
+                              "0.2", "--ctc-min-coverage", "0.5")
+    finally:
+        basecaller.align = align
+    launches = {k: w.launches for k, w in wrappers.items()}
+    need = {"K1": cfg.encoder.num_rnn_layers, "K2a": 1, "K2b": 1, "K2c": 1}
+    print(f"phase B step 2, the basecall with alignment and the writer: "
+          f"{stats['reads']} chunk-reads in {t_b:.3f} s, "
+          f"{stats['reads'] / t_b:.1f} chunk-reads/s (host clock) on {card};"
+          f" alignment {spent[1]:.3f} s over {spent[0]} calls "
+          f"({spent[1] / max(spent[0], 1) * 1e3:.2f} ms a call, "
+          f"{len(calls)} x {n_templates} templates x 2 strands); mapped "
+          f"{len(mapped)}, accuracy quartiles "
+          f"{np.percentile([m[0] for m in mapped] or [0], [25, 50, 75])}, "
+          f"coverage quartiles "
+          f"{np.percentile([m[1] for m in mapped] or [0], [25, 50, 75])}; "
+          f"launches {launches} (expected {need})")
+    if launches != need:
+        fail("phase B did not go through the kernels once a batch")
+    records = [l.split("\t") for l in sam.splitlines()
+               if not l.startswith("@")]
+    n_called = sum(1 for v in calls.values() if v)
+    by_flag = {f: sum(1 for r in records if r[1] == f)
+               for f in ("0", "16", "4")}
+    # step 2 cuts each chunk-read into one chunk-read of its own: id ":1:1"
+    first = {r[0]: calls[r[0].rsplit(":", 2)[0]] for r in records}
+    other = [(r[0], r[9], first[r[0]]) for r in records
+             if (reverse_complement_str(r[9]) if r[1] == "16" else r[9])
+             != first[r[0]]]
+    print(f"SAM: {len(records)} records for {n_called} called chunk-reads "
+          f"(flags {by_flag}); calls that differ from step 1's: "
+          f"{len(other)} (at most {K1_DIFFER_MAX}: K1 in bf16 is not "
+          f"bit-repeatable)" + (f", e.g. {other[0]}" if other else ""))
+    if len(records) != n_called:
+        fail(f"the SAM holds {len(records)} records for {n_called} called "
+             "chunk-reads")
+    if len(other) > K1_DIFFER_MAX:
+        fail(f"{len(other)} of {n_called} calls changed between two "
+             f"basecalls of the same chunk-reads, more than {K1_DIFFER_MAX}")
+    if not by_flag["0"] or not by_flag["16"]:
+        fail("phase B's SAM holds no record on one of the strands")
+    if not os.path.exists(os.path.join(ctc_dir, "chunks.npy")):
+        fail("phase B kept no chunk")
+    kept = np.load(os.path.join(ctc_dir, "chunks.npy"))
+    refs = np.load(os.path.join(ctc_dir, "references.npy"))
+    ref_lens = np.load(os.path.join(ctc_dir, "reference_lengths.npy"))
+    with open(os.path.join(ctc_dir, "filter_stats.csv")) as fh:
+        fstats = {k: int(v) for k, v in csv.reader(fh) if k}
+    failed = (sum(fstats[k] for k in (
+        "count_failed_seq", "count_failed_map", "non_ubs_skipped",
+        "count_failed_acc", "count_failed_cov"))
+        - fstats["count_failed_both"])
+    inputs = {np.asarray(c.signal[:chunksize], np.float16).tobytes()
+              for c in chunk_reads}
+    n5 = int((refs == 5).any(axis=1).sum())
+    n6 = int((refs == 6).any(axis=1).sum())
+    print(f"phase B output: {len(kept)} chunks kept of {stats['reads']}; "
+          f"targets with a 5 (X, '+') {n5}, with a 6 (Y, '-') "
+          f"{n6}; lengths {int(ref_lens.min())}-{int(ref_lens.max())}; "
+          f"filter_stats {fstats}; passed the filters "
+          f"{stats['reads'] - failed}, of which the typical-length filter "
+          f"kept {len(kept)}")
+    if not ((refs == 5) | (refs == 6)).any(axis=1).all():
+        fail("a kept target holds no UB code under --ub-only")
+    if not n5 or not n6:
+        fail("no kept target holds the UB code of one of the strands")
+    if not all(k.tobytes() in inputs for k in kept):
+        fail("a kept chunk is not the f16 slice of a chunk-read")
+    if not len(kept) <= stats["reads"] - failed <= stats["reads"]:
+        fail("filter_stats.csv's counts do not add up to the reads")
+
+    # 3. DTW breakpoints
+    t0 = time.perf_counter()
+    bkps, ok = dtw_segmentation(ctc_dir, log=lambda *a: None)
+    t_dtw = time.perf_counter() - t0
+    rows = [bkps[i, :int(ref_lens[i])].astype(np.int64)
+            for i in range(len(bkps))]
+    print(f"DTW breakpoints: {len(bkps)} chunks in {t_dtw:.3f} s, "
+          f"{t_dtw / len(bkps) * 1e3:.2f} ms a chunk (host, native "
+          f"dtw_band); DTW-aligned {int(ok.sum())} of {len(ok)} "
+          f"({ok.mean():.3f}), the rest naive")
+    if not os.path.exists(os.path.join(ctc_dir, "breakpoints.npy")) or any(
+            np.any(np.diff(r) < 0) or r[-1] > chunksize for r in rows):
+        fail("breakpoints.npy is missing, not monotone or past the chunk")
+    time_library_alignment(align, chunksize, card)
+
+    # 4. spliced training (C) on B's output, resumed
+    print(f"B's chunks as stitch donors: "
+          f"{int(slice_xna_tables(ctc_dir).counts.sum())} slices")
+    if len(kept) < SPLICED_CHUNKS:
+        fail(f"phase B kept {len(kept)} chunks, fewer than the "
+             f"{SPLICED_CHUNKS} of 2 training steps and a validation")
+    run_dir = os.path.join(bdir, "spliced")
+    train_args = ["train", run_dir, "--directory", ctc_dir, "--chunks",
+                  str(SPLICED_CHUNKS), "--batch", str(TRAIN_BATCH), "--seed",
+                  str(SEED), "--device", "cuda", "-f", "--stitch",
+                  "--stitch-relax", "--ubs", "XY", "--xna-ctc-dir",
+                  os.path.join(workroot, "donors"), "--save-optim-every",
+                  "1"]
+    twrappers = training_wrappers()
+    for epochs, extra in ((1, []), (2, ["--restore-optim"])):
+        for w in twrappers.values():
+            w.launches = 0
+        cli([*train_args, "--epochs", str(epochs), *extra])
+        torch.cuda.synchronize()
+        tl = {k: w.launches for k, w in twrappers.items()}
+        with open(os.path.join(run_dir, f"losses_{epochs}.csv")) as fh:
+            losses = [float(r["loss"]) for r in csv.DictReader(fh)]
+        optim = load_flat(os.path.join(run_dir, f"optim_{epochs}.npz"))
+        print(f"spliced training on phase B's ctc-data, epoch {epochs}"
+              f"{' (--restore-optim)' if extra else ''}: losses "
+              f"{[round(v, 4) for v in losses]}; optimizer count "
+              f"{int(optim.get('1/0/count', -1))}; launches {tl}")
+        if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+            fail("spliced training on phase B's ctc-data did not give "
+                 "finite losses for its 2 steps")
+        check_training_launches(tl, 2, 1, "spliced training on phase B")
+        if not {"1/0/count", "1/2/count", "1/0/mu/rnn/0/w_hh",
+                "1/0/nu/conv/0/w"} <= optim.keys() \
+                or int(optim["1/0/count"]) != 2 * epochs:
+            fail(f"optim_{epochs}.npz lacks the JAX package's keys or did "
+                 "not resume the count")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 8c wall time: {wall:.1f} s on {card}")
+
+
 def host_turns(fns: dict, reps: int = 21, burst: int = 1) -> dict:
     """Median host-clock time (ms) of each function over ``reps`` samples
     taken in turns as ``in_turns`` takes them, for work that waits on the
@@ -1507,6 +1907,7 @@ def main() -> int:
              "and K6b are timed in turns with this tree's (the CRF kernels "
              "also held bit-equal), and its decode chain")
     args = parser.parse_args()
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1536,6 +1937,11 @@ def main() -> int:
     baseline = baseline_kernels(args.baseline) if args.baseline else None
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(_build.build_log())
+    t0 = time.perf_counter()
+    from xna_basecaller_tpu_torch.utils import native
+    print(f"native host library (g++, native/xna_native.cpp): "
+          f"{'built' if native.available() else 'NOT BUILT'} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda")
     cfg = ModelConfig()
@@ -1583,6 +1989,12 @@ def main() -> int:
             if not bool(torch.isfinite(got.float()).all()) \
                     or err.max().item() > tol:
                 fail(f"K1 {name} disagrees with its plain version")
+            # repeatability: at N > 64 in bf16 the kernel adds the h
+            # chunks in the order they become ready (ROADMAP Queue 3)
+            again = lstm_cuda.lstm_recurrence(xp, p["w_hh"], rev0)
+            print(f"K1 {name} called twice on the same xp: elements "
+                  f"differing {(again != got).float().mean().item():.4f}, "
+                  f"max abs {(again.float() - got.float()).abs().max().item():.3e}")
             results[f"K1_{name}_err"] = err.max().item()
             if name == "bf16":
                 k1_inputs = (xp, p["w_hh"])
@@ -1710,6 +2122,8 @@ def main() -> int:
         train_launches, train_steps, step_s = drive_training(workroot)
         # -- 8b. the training path with both augmentations ---------------
         donor_tables = drive_augmented_training(workroot)
+        # -- 8c. phase B (bootstrap data) on the card, feeding phase C ---
+        drive_bootstrap_data(workroot, model, cfg, reads, card)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     print(f"training path step times (host clock, losses_1.csv): "
@@ -1905,6 +2319,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[k],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    print(f"whole run: {time.perf_counter() - t_run:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

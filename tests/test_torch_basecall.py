@@ -1,10 +1,13 @@
 """Port basecall pipeline and CLI (CPU, f32) against the JAX package: the
 FASTQ must be identical on the F strand, the R strand and with
 ``legacy_char_stitch``, from simulated reads through ``run_basecaller``,
-and from a fast5 directory through each package's ``basecaller`` CLI."""
+and from a fast5 directory through each package's ``basecaller`` CLI;
+with ``--reference --save-ctc --ub-only --sam`` (the bootstrap-data phase)
+the SAM text, the ctc-data files and the summary must be identical."""
 
 import functools
 import io
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,9 @@ from xna_basecaller_tpu.infer import basecall as jbasecall
 from xna_basecaller_tpu.models.crf_model import Model as JaxModel
 from xna_basecaller_tpu.train import checkpoint as ckpt
 from xna_basecaller_tpu_torch.cli import main as port_cli
-from xna_basecaller_tpu_torch.data.simulate import simulate_reads
+from xna_basecaller_tpu_torch.data.simulate import (
+    self_reference, simulate_reads,
+)
 from xna_basecaller_tpu_torch.infer import basecall as tbasecall
 from xna_basecaller_tpu_torch.utils.model_io import load_model
 
@@ -75,12 +80,11 @@ def test_basecall_bf16_runs_on_cpu(model_dir):
         assert len(attrs["sequence"]) == len(attrs["qstring"]) > 0
 
 
-def test_cli_fastq_matches_jax_cli(model_dir, tmp_path, capsys,
-                                   monkeypatch):
+@pytest.fixture(scope="module")
+def fast5_dir(tmp_path_factory):
+    """Two reads of 6000 samples in one fast5 file."""
     h5py = pytest.importorskip("h5py")
-    d, _, _ = model_dir
-    reads_dir = tmp_path / "reads"
-    reads_dir.mkdir()
+    reads_dir = tmp_path_factory.mktemp("reads")
     rng = np.random.default_rng(0)
     with h5py.File(reads_dir / "batch0.fast5", "w") as fh:
         for i, rid in enumerate(["aaa", "bbb"]):
@@ -96,13 +100,23 @@ def test_cli_fastq_matches_jax_cli(model_dir, tmp_path, capsys,
             ch.attrs["digitisation"] = 8192.0
             ch.attrs["offset"] = 10.0
             ch.attrs["sampling_rate"] = 4000.0
-    # both CLIs decode in f32 here, where their FASTQ must be identical
+    return str(reads_dir)
+
+
+@pytest.fixture()
+def f32_clis(monkeypatch):
+    """Both CLIs decode in f32, where their output must be identical."""
     from xna_basecaller_tpu_torch.infer import basecall as tb
     monkeypatch.setattr(jbasecall, "basecall", functools.partial(
         jbasecall.basecall, compute_dtype=jnp.float32))
     monkeypatch.setattr(tb, "basecall", functools.partial(
         tb.basecall, compute_dtype=torch.float32))
-    args = [d, str(reads_dir), "--chunksize", "1200", "--overlap", "200",
+
+
+def test_cli_fastq_matches_jax_cli(model_dir, fast5_dir, tmp_path, capsys,
+                                   f32_clis):
+    d, _, _ = model_dir
+    args = [d, fast5_dir, "--chunksize", "1200", "--overlap", "200",
             "--batchsize", "4"]
     jax_cli(["basecaller", *args])
     want = capsys.readouterr().out
@@ -114,3 +128,78 @@ def test_cli_fastq_matches_jax_cli(model_dir, tmp_path, capsys,
     assert {l[1:] for l in got.splitlines() if l.startswith("@")} \
         == {"aaa", "bbb"}
     assert "read_id" in summary.read_text().splitlines()[0].split("\t")
+
+
+def test_cli_bootstrap_data_matches_jax_cli(model_dir, fast5_dir, tmp_path,
+                                            capsys, f32_clis):
+    """Phase B of the paper's chain through both CLIs: chunk-reads called,
+    aligned to a reference made from JAX's own calls of them, SAM on
+    stdout, ctc-data of the kept chunks and the summary with its
+    alignment columns.  The SAM text, every file of the ctc directory and
+    the summary TSV are identical."""
+    from xna_basecaller_tpu.data.fast5 import get_reads, read_chunks
+
+    d, jmodel, jparams = model_dir
+    chunks = [c for r in get_reads(fast5_dir, n_proc=1)
+              for c in read_chunks(r, chunksize=1200, overlap=200)]
+    calls = {r.read_id: a["sequence"] for r, a in jbasecall.basecall(
+        jmodel, jparams, iter(chunks), compute_dtype=jnp.float32, **OPTS)}
+    fasta = tmp_path / "ref.fasta"
+    n_templates = self_reference(calls.values(), fasta)
+    assert n_templates >= 4
+
+    def run(cli, name, *extra):
+        args = [d, fast5_dir, "--chunksize", "1200", "--overlap", "200",
+                "--batchsize", "4", "--reference", str(fasta), "--save-ctc",
+                str(tmp_path / name), "--ub-only", "--sam", "--read-group",
+                "X", "--summary", str(tmp_path / f"{name}.tsv"),
+                # the random model's calls are half X/Y, which no template
+                # base matches: accuracy ~0.5 where they align
+                "--ctc-min-accuracy", "0.4", "--ctc-min-coverage", "0.8"]
+        cli(["basecaller", *args, *extra])
+        return capsys.readouterr().out
+
+    want = run(jax_cli, "jax")
+    got = run(port_cli, "port", "--device", "cpu")
+    assert got == want
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert files == sorted(os.listdir(tmp_path / "port"))
+    assert "chunks.npy" in files and "filter_stats.csv" in files
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() \
+            == (tmp_path / "jax" / f).read_bytes(), f
+    assert (tmp_path / "port.tsv").read_text() \
+        == (tmp_path / "jax.tsv").read_text()
+
+    records = [l.split("\t") for l in got.splitlines()
+               if not l.startswith("@")]
+    assert len(records) == sum(1 for s in calls.values() if s)
+    assert {r[0] for r in records} <= set(calls)
+    assert all(r[-1] == "RG:Z:X" for r in records)
+    assert {r[1] for r in records} == {"0", "4", "16"}
+    refs = np.load(tmp_path / "port" / "references.npy")
+    assert len(refs) > 0 and ((refs == 5) | (refs == 6)).any(axis=1).all()
+    assert {5, 6} <= set(np.unique(refs).tolist())
+    # the chunks kept are f16 copies of chunk-reads' signal
+    kept = np.load(tmp_path / "port" / "chunks.npy")
+    signals = {c.signal.astype(np.float16).tobytes() for c in chunks}
+    assert all(k.tobytes() in signals for k in kept)
+    with open(tmp_path / "port" / "filter_stats.csv") as fh:
+        stats = dict(line.strip().split(",") for line in fh)
+    failed = sum(int(stats[k]) for k in (
+        "count_failed_seq", "count_failed_map", "non_ubs_skipped",
+        "count_failed_acc", "count_failed_cov")) \
+        - int(stats["count_failed_both"])
+    assert failed + len(kept) == len(chunks)
+
+
+def test_cli_save_ctc_needs_a_reference(model_dir, fast5_dir, tmp_path,
+                                        capsys):
+    d, _, _ = model_dir
+    args = [d, fast5_dir, "--save-ctc", str(tmp_path / "ctc")]
+    for cli, extra in ((jax_cli, []), (port_cli, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            cli(["basecaller", *args, *extra])
+        assert exc.value.code == 1
+        assert "a reference is needed" in capsys.readouterr().err
+    assert not (tmp_path / "ctc").exists()

@@ -254,14 +254,15 @@ def test_resume_restores_the_optimizer(tmp_path):
     Trainer(Model(cfg, device="cpu", seed=0), train, valid, **kw).fit(
         str(tmp_path), epochs=1)
     flat = ckpt.load_flat(str(tmp_path / "optim_1.npz"))
-    assert int(flat["count"]) == 3 and "rnn/0/w_hh/mu" in flat
+    assert int(flat["1/0/count"]) == int(flat["1/2/count"]) == 3
+    assert "1/0/mu/rnn/0/w_hh" in flat
     model = Model(cfg, device="cpu", seed=0)
     tr = Trainer(model, train, valid, **kw)
     opt = make_optimizer(model, lambda _: 1e-3)
     opt.load_state_flat(flat)
     assert opt.count == 3
-    np.testing.assert_array_equal(opt.state_flat()["rnn/0/w_hh/nu"],
-                                  flat["rnn/0/w_hh/nu"])
+    np.testing.assert_array_equal(opt.state_flat()["1/0/nu/rnn/0/w_hh"],
+                                  flat["1/0/nu/rnn/0/w_hh"])
     assert [h["epoch"] for h in tr.fit(str(tmp_path), 2)["history"]] == [2]
 
 

@@ -1,47 +1,40 @@
-"""``xnacall basecaller`` — basecall fast5 reads to FASTQ on the card.
+"""``xnacall basecaller`` — basecall fast5 reads on the card to FASTQ or
+SAM, optionally aligning to a reference and writing new ctc training data.
 
-Port of ``xna_basecaller_tpu/cli/basecaller.py`` for the CRF model and
-FASTQ output.  The flags of the JAX command that this package does not
-port yet are still recognised, and each is refused with an error instead
-of being ignored, but only where it would change the result: the JAX
-defaults (``--beam 0``, ``--superbatch 1``), ``--beamsize`` (JAX reads it
-only for the CTC family, which this package does not load) and the
-``--ctc-min-*`` filters without ``--save-ctc`` are accepted, as JAX does
-nothing with them.
+Port of ``xna_basecaller_tpu/cli/basecaller.py`` for the CRF model:
+FASTQ, or with ``--reference`` SAM (``--sam``, ``--read-group``), the
+summary's alignment columns and, with ``--save-ctc``, ctc-data made of the
+reads' chunks that align (``--ctc-min-coverage``, ``--ctc-min-accuracy``,
+``--ub-only``): phase B of the paper's chain, whose DTW breakpoints
+``tools/dtw_segmentation.py`` writes.  The flags of the JAX command that
+this package does not port yet are still recognised, and each is refused
+with an error instead of being ignored, but only where it would change the
+result: the JAX defaults (``--beam 0``, ``--superbatch 1``) and
+``--beamsize`` (JAX reads it only for the CTC family, which this package
+does not load) are accepted, as JAX does nothing with them.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import os
 import sys
 from time import perf_counter
 
 # flag -> argparse dest of the options that are not ported yet
 NOT_PORTED = {
-    "--reference": "reference", "--sam": "sam", "--cram": "cram",
-    "--bam": "bam", "--beam": "beam", "--qscores": "qscores",
-    "--superbatch": "superbatch", "--ctc-min-coverage": "ctc_min_coverage",
-    "--ctc-min-accuracy": "ctc_min_accuracy", "--save-ctc": "save_ctc",
-    "--ub-only": "ub_only", "--mods-model": "mods_model",
-    "--read-group": "read_group", "--profile": "profile",
+    "--cram": "cram", "--bam": "bam", "--beam": "beam",
+    "--qscores": "qscores", "--superbatch": "superbatch",
+    "--mods-model": "mods_model", "--profile": "profile",
 }
 # the values with which JAX does what this package does
-INERT = {"beam": 0, "superbatch": 1, "ctc_min_coverage": 0.90,
-         "ctc_min_accuracy": 0.95}
-
-
-def _refused(args, dest: str) -> bool:
-    """Whether the value of ``dest`` would make JAX do what this package
-    does not; the --ctc-min-* filters act only with --save-ctc."""
-    if dest.startswith("ctc_min") and args.save_ctc is None:
-        return False
-    return getattr(args, dest) not in (None, False, INERT.get(dest))
+INERT = {"beam": 0, "superbatch": 1}
 
 
 def main(args):
     for flag, dest in NOT_PORTED.items():
-        if _refused(args, dest):
+        if getattr(args, dest) not in (None, False, INERT.get(dest)):
             sys.exit(f"xnacall basecaller: {flag} is not ported to "
                      "xna_basecaller_tpu_torch yet")
     if "," in args.model_directory:
@@ -50,10 +43,6 @@ def main(args):
                  "xna_basecaller_tpu_torch yet")
 
     from xna_basecaller_tpu_torch.data.fast5 import get_reads
-    from xna_basecaller_tpu_torch.data.writers import (
-        mean_qscore_from_qstring, summary_row, write_fastq,
-    )
-    from xna_basecaller_tpu_torch.infer.basecall import basecall
     from xna_basecaller_tpu_torch.utils.model_io import load_model
     from xna_basecaller_tpu_torch.utils.pipeline import cancel_on_sigint
 
@@ -74,6 +63,66 @@ def main(args):
                       cancel=cancel)
     if args.max_reads:
         reads = itertools.islice(reads, args.max_reads)
+    call_reads(args, model, cfg, reads, cancel=cancel)
+
+
+def align(seq: str, targets: dict[str, str]):
+    """The read's best alignment to the templates, as a PAF record dict,
+    and the aligned span of its template; (None, None) if none scores."""
+    from xna_basecaller_tpu_torch.eval.ref_align import align_read
+
+    rec = align_read("q", seq, targets)
+    if rec is None:
+        return None, None
+    return (rec.as_dict(),
+            targets[rec.target_id][rec.target_start:rec.target_end])
+
+
+def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
+    """What ``main`` does once the model is loaded and the reads are open:
+    basecall ``reads`` (objects with ``read_id`` and ``signal``; with
+    ``--save-ctc`` cut into chunk-reads of the model's chunk size first),
+    align each call to ``--reference``'s templates, and write FASTQ or
+    SAM to ``out`` (standard output by default), the summary and the
+    ctc-data, as the JAX command does.  Returns {"reads", "samples",
+    "seconds"}: the reads (chunk-reads) called, their samples, and the
+    host-clock time of the calls, alignment and writing (the ctc-data's
+    save excluded)."""
+    from xna_basecaller_tpu_torch.data.fast5 import read_chunks
+    from xna_basecaller_tpu_torch.data.writers import (
+        CtcDataWriter, SamWriter, mean_qscore_from_qstring, summary_row,
+        write_fastq,
+    )
+    from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
+    from xna_basecaller_tpu_torch.infer.basecall import basecall
+
+    out = sys.stdout if out is None else out
+    targets = None
+    if args.reference:
+        sys.stderr.write("> loading reference\n")
+        targets = read_fasta(args.reference)
+    if args.save_ctc and not args.reference:
+        sys.stderr.write(
+            "> a reference is needed to output ctc training data\n")
+        sys.exit(1)
+
+    chunksize = cfg.basecaller.chunksize
+    ctc_writer = None
+    if args.save_ctc:
+        reads = (chunk for read in reads
+                 for chunk in read_chunks(read, chunksize=chunksize,
+                                          overlap=cfg.basecaller.overlap))
+        ctc_writer = CtcDataWriter(
+            args.save_ctc, min_coverage=args.ctc_min_coverage,
+            min_accuracy=args.ctc_min_accuracy, ub_only=args.ub_only,
+            log=lambda *a: sys.stderr.write(" ".join(map(str, a)) + "\n"))
+    # read group <model_name> (reference io.py:86-111 uses
+    # <run_id>_<model>; run_id is per-read here, so the stable part)
+    read_group = args.read_group or os.path.basename(
+        os.path.normpath(args.model_directory))
+    sam = None
+    if args.sam and targets is not None:
+        sam = SamWriter(out, targets, read_group=read_group)
 
     summary_fh = open(args.summary, "w") if args.summary else None
     header_written = False
@@ -81,7 +130,7 @@ def main(args):
     n_reads = n_samples = 0
     try:
         for read, attrs in basecall(
-                model, reads, chunksize=cfg.basecaller.chunksize,
+                model, reads, chunksize=chunksize,
                 overlap=cfg.basecaller.overlap,
                 batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
                 cancel=cancel, ub_bias=args.ub_bias,
@@ -89,17 +138,29 @@ def main(args):
             n_reads += 1
             n_samples += len(read.signal)
             seq, qstring = attrs["sequence"], attrs["qstring"]
+            mapping, refseq = (None, None)
+            if targets is not None and len(seq):
+                mapping, refseq = align(seq, targets)
+            if ctc_writer is not None:
+                ctc_writer.add(read.signal[:chunksize], seq, mapping,
+                               refseq=refseq)
             if len(seq):
-                write_fastq(sys.stdout, read.read_id, seq, qstring)
+                if sam is not None:
+                    sam.write(read.read_id, seq, qstring, mapping)
+                else:
+                    write_fastq(out, read.read_id, seq, qstring)
             if summary_fh is not None:
                 row = summary_row(read, len(seq),
-                                  mean_qscore_from_qstring(qstring))
+                                  mean_qscore_from_qstring(qstring),
+                                  alignment=mapping)
                 if not header_written:
                     summary_fh.write("\t".join(row) + "\n")
                     header_written = True
                 summary_fh.write(
                     "\t".join(str(v) for v in row.values()) + "\n")
         duration = perf_counter() - t0
+        if ctc_writer is not None:
+            ctc_writer.save()
         sys.stderr.write(f"> completed reads: {n_reads}\n")
         sys.stderr.write(f"> duration: {duration:.2f}s\n")
         if duration > 0:
@@ -109,6 +170,7 @@ def main(args):
     finally:
         if summary_fh:
             summary_fh.close()
+    return {"reads": n_reads, "samples": n_samples, "seconds": duration}
 
 
 def argparser():
@@ -147,19 +209,26 @@ def argparser():
     parser.add_argument("--max-reads", default=0, type=int)
     parser.add_argument("--summary", default=None,
                         help="write per-read summary tsv here")
+    parser.add_argument("--reference", default=None,
+                        help="reference fasta for alignment")
+    parser.add_argument("--sam", action="store_true",
+                        help="emit SAM instead of FASTQ (needs --reference)")
+    parser.add_argument("--read-group", default=None,
+                        help="@RG id for SAM output (default: model "
+                             "directory name)")
+    parser.add_argument("--save-ctc", default=None,
+                        help="directory to write ctc training data")
+    parser.add_argument("--ctc-min-coverage", default=0.90, type=float)
+    parser.add_argument("--ctc-min-accuracy", default=0.95, type=float)
+    parser.add_argument("--ub-only", action="store_true",
+                        help="keep only chunks whose reference contains a UB")
     not_ported = parser.add_argument_group(
         "not ported yet (each is refused with an error)")
-    for flag in ("--reference", "--cram", "--bam", "--save-ctc",
-                 "--mods-model", "--read-group", "--profile"):
+    for flag in ("--cram", "--bam", "--mods-model", "--profile"):
         not_ported.add_argument(flag, default=None)
     not_ported.add_argument("--beam", default=0, type=int,
                             help="only 0 (Viterbi)")
     not_ported.add_argument("--superbatch", default=1, type=int,
                             help="only 1")
-    not_ported.add_argument("--ctc-min-coverage", default=0.90, type=float,
-                            help="read with --save-ctc only")
-    not_ported.add_argument("--ctc-min-accuracy", default=0.95, type=float,
-                            help="read with --save-ctc only")
-    for flag in ("--sam", "--qscores", "--ub-only"):
-        not_ported.add_argument(flag, action="store_true")
+    not_ported.add_argument("--qscores", action="store_true")
     return parser

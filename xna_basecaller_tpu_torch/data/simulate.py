@@ -1,7 +1,9 @@
 """Copied from ``xna_basecaller_tpu/data/simulate.py``;
-only the package imports differ, and ``simulate_donor_dataset`` is the
-port's own: the stitch donors that the JAX package's tests build inline
-(``tests/test_stitch.py:43-67``).
+only the package imports differ, and two functions are the port's own:
+``simulate_donor_dataset``, the stitch donors that the JAX package's tests
+build inline (``tests/test_stitch.py:43-67``), and ``self_reference``, the
+templates that the bootstrap-data phase's tests and ``chip_smoke.py`` make
+from a model's own calls.
 
 Synthetic nanopore read/chunk simulation from the k-mer pore model.
 
@@ -16,11 +18,14 @@ pipeline can run without real fast5 data.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 
-from xna_basecaller_tpu_torch.core.alphabet import BASES, decode
+from xna_basecaller_tpu_torch.core.alphabet import (
+    BASES, decode, reverse_complement_str,
+)
 from xna_basecaller_tpu_torch.data.pore_model import PoreModel, load_pore_model
 
 MAD_FACTOR = 1.4826
@@ -290,3 +295,31 @@ def simulate_donor_dataset(n_reads: int, chunk_len: int = 1200,
         lens[i] = n
         bkps[i, :n] = np.minimum(bk[:n], chunk_len)
     return chunks, refs, lens, bkps
+
+
+def self_reference(calls, path, min_len: int = 8,
+                   reverse_first: bool = False) -> int:
+    """A reference made from a model's own calls, for random weights that
+    align to no real library: a template ``tpl<i>`` per distinct call of
+    at least ``min_len`` bases (8: the aligner's min_score of 30 needs 7
+    matches), the most frequent first, equal to the call with its X/Y as A
+    and its middle base as N (the template's one UB), every other one
+    reverse-complemented (the first with ``reverse_first``).  Each
+    such call aligns to its own template, on '+' or '-', at the share of
+    its bases that are not X/Y (a read's X/Y matches no template base), so
+    a kept chunk's target holds 5 on '+' and 6 on '-'.  (A call repeated
+    with a template on each strand would tie, and the aligner takes '+';
+    so may a call held inside another call's template.)  Writes the FASTA
+    to ``path``; returns the number of templates."""
+    n = 0
+    distinct = [s for s, _ in Counter(
+        s for s in calls if len(s) >= min_len).most_common()]
+    with open(path, "w") as fh:
+        for i, seq in enumerate(distinct):
+            t = seq.replace("X", "A").replace("Y", "A")
+            t = t[:len(t) // 2] + "N" + t[len(t) // 2 + 1:]
+            if i % 2 != reverse_first:
+                t = reverse_complement_str(t)
+            fh.write(f">tpl{i}\n{t}\n")
+            n += 1
+    return n

@@ -1,6 +1,6 @@
-"""Copied from ``xna_basecaller_tpu/eval/accuracy.py``, without the branch
-that calls the JAX package's native library (the numpy Smith-Waterman
-always runs).
+"""Copied from ``xna_basecaller_tpu/eval/accuracy.py``; only the package
+imports differ (the native branch calls this package's
+``utils/native.py``).
 
 Local alignment accuracy for train-time validation.
 
@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from xna_basecaller_tpu_torch.utils import native
+
 MATCH = 5
 MISMATCH = -4
 N_SCORE = -2
@@ -38,9 +40,11 @@ def sw_align(query: str, ref: str):
 
     cigar ops is a list of (op, count) with ops in '=XID' covering the local
     aligned region; bounds = (q_start, q_end, r_start, r_end) exclusive-end.
-    The numpy version (the JAX package's native C++ branch is not carried
-    over).
+    Backed by the native C++ kernel when available (same DP and
+    tie-breaking); this numpy version is the fallback/oracle.
     """
+    if native.available():
+        return native.sw_align(query, ref)
     q = _codes(query)
     r = _codes(ref)
     nq, nr = len(q), len(r)

@@ -6,12 +6,13 @@ the highest epoch in the workdir (with an optimizer file, when the
 optimizer is restored), never from the reserved pseudo-epochs 90 (SWA
 candidate) and 99 (best-epoch alias), and ``link_best_epoch``.
 
-Both files are flat npz archives written atomically.  ``weights_N.npz``
-uses the JAX package's '/'-joined keys (``utils/weights.py``), so each
-package resumes from, and loads, the other's weights.  ``optim_N.npz``
-uses this package's own keys (``train/loop.py::Optimizer.state_flat``):
-``count`` and, per trained parameter, ``<key>/mu`` and ``<key>/nu``;
-the two packages do not read each other's optimizer state.
+Both files are flat npz archives written atomically, keyed and laid out
+as the JAX package writes them, so that each package resumes from the
+other's: ``weights_N.npz`` by '/'-joined parameter keys
+(``utils/weights.py``), ``optim_N.npz`` by optax's state tree
+(``1/0/count``, ``1/0/mu/<key>``, ``1/0/nu/<key>``, ``1/2/count``; under
+``inner_states/train/inner_state/`` with frozen parameters), which
+``train/loop.py::Optimizer`` writes and reads.
 """
 
 from __future__ import annotations

@@ -17,6 +17,8 @@ device:
   AdamW step is ``torch.optim.AdamW``'s, which gives optax's update (b1
   0.9, b2 0.999, eps 1e-8 outside the square root, decoupled decay), at
   the lr ``schedule(count)``, count being the updates already made.
+  ``state_flat`` writes optax's state tree as the JAX package saves it
+  (``optim_N.npz``), so that each package resumes from the other's.
 * ``Trainer``: per-step ``losses_N.csv``, per-epoch ``weights_N.npz`` (+
   ``optim_N.npz``), resume, validation (the inference forward, K1, then the
   decode K2a/b/c, the loss and Smith-Waterman accuracy) and
@@ -52,10 +54,12 @@ from xna_basecaller_tpu_torch.train import checkpoint as ckpt
 from xna_basecaller_tpu_torch.train.schedule import linear_warmup_cosine_decay
 from xna_basecaller_tpu_torch.utils.pipeline import thread_iter
 from xna_basecaller_tpu_torch.utils.weights import (
-    jax_key, params_from_jax, params_to_jax,
+    jax_key, params_from_jax, params_to_jax, swap_layout,
 )
 
 CLIP_NORM = 2.0
+# optax.multi_transform's path to the trained parameters' state
+MULTI_PREFIX = "inner_states/train/inner_state/"
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -75,6 +79,7 @@ class Optimizer:
         named = [(jax_key(n), p) for n, p in model.named_parameters()]
         self.named = [(k, p) for k, p in named
                       if frozen_predicate is None or not frozen_predicate(k)]
+        self.multi = frozen_predicate is not None
         self.schedule = lr_schedule
         self.count = 0
         self.adamw = torch.optim.AdamW(
@@ -97,25 +102,56 @@ class Optimizer:
         self.count += 1
 
     def state_flat(self) -> dict[str, np.ndarray]:
-        """The state for ``optim_N.npz``: ``count`` and the first and second
-        moments (``<key>/mu``, ``<key>/nu``) of each trained parameter."""
-        flat = {"count": np.asarray(self.count, np.int64)}
+        """The state for ``optim_N.npz``, keyed as the JAX package writes
+        optax's state for the same run: ``1/0/count``, ``1/0/mu/<key>`` and
+        ``1/0/nu/<key>`` (AdamW's moments, in JAX's parameter layout) and
+        ``1/2/count`` (the schedule's), under
+        ``inner_states/train/inner_state/`` when a frozen predicate is set
+        (``optax.multi_transform``; moments of the trained keys only)."""
+        pre = MULTI_PREFIX if self.multi else ""
+        count = np.asarray(self.count, np.int32)
+        flat = {f"{pre}1/0/count": count, f"{pre}1/2/count": count}
         for k, p in self.named:
             st = self.adamw.state.get(p)
-            if st:
-                flat[f"{k}/mu"] = st["exp_avg"].float().cpu().numpy()
-                flat[f"{k}/nu"] = st["exp_avg_sq"].float().cpu().numpy()
+            for m, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                arr = (st[name] if st else torch.zeros_like(p)).float()
+                flat[f"{pre}1/0/{m}/{k}"] = np.ascontiguousarray(
+                    swap_layout(k, arr.cpu().numpy()))
         return flat
 
     def load_state_flat(self, flat: dict[str, np.ndarray]) -> None:
-        self.count = int(flat["count"])
+        """Load ``state_flat``'s layout, with or without the
+        ``multi_transform`` prefix, whichever wrote it, or this package's
+        earlier one (``count``, ``<key>/mu``, ``<key>/nu`` in this
+        package's parameter layout).  One count serves AdamW's bias
+        correction and the schedule, as optax's two counts agree."""
+        pre = next((p for p in (MULTI_PREFIX, "")
+                    if f"{p}1/0/count" in flat), None)
+        if pre is None:
+            self.count = int(flat["count"])
+
+            def moment(k, m):
+                return flat.get(f"{k}/{m}")
+        else:
+            self.count = int(flat[f"{pre}1/0/count"])
+            if int(flat[f"{pre}1/2/count"]) != self.count:
+                raise ValueError(
+                    f"optimizer state counts differ: Adam "
+                    f"{self.count}, schedule {int(flat[f'{pre}1/2/count'])}")
+
+            def moment(k, m):
+                arr = flat.get(f"{pre}1/0/{m}/{k}")
+                return None if arr is None else swap_layout(k, arr)
         for k, p in self.named:
-            if f"{k}/mu" not in flat:
+            mu, nu = moment(k, "mu"), moment(k, "nu")
+            if mu is None:
                 continue
             self.adamw.state[p] = {
                 "step": torch.tensor(float(self.count)),
-                "exp_avg": torch.from_numpy(flat[f"{k}/mu"]).to(p),
-                "exp_avg_sq": torch.from_numpy(flat[f"{k}/nu"]).to(p),
+                "exp_avg": torch.from_numpy(
+                    np.ascontiguousarray(mu)).to(p),
+                "exp_avg_sq": torch.from_numpy(
+                    np.ascontiguousarray(nu)).to(p),
             }
 
 

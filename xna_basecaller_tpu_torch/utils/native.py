@@ -1,0 +1,160 @@
+"""Copied from ``xna_basecaller_tpu/utils/native.py``: the ctypes loader
+and the bindings this package uses (``levenshtein``, ``sw_align``,
+``sw_score_batch``, ``dtw_band``).  The library is built into this
+package's ``build/`` directory, beside the CUDA kernels (a ``.so`` file
+beside the modules would be listed as a Python extension module by
+``pkgutil``), through a temporary file renamed into place.
+
+ctypes bindings for the native (C++) host-side kernels.
+
+The shared library (native/xna_native.cpp, outside both packages) replaces
+the reference's external native deps — parasail SW, C Levenshtein,
+dtw-python core.  It is built on demand with g++ and cached; every
+caller has a pure-python/numpy fallback, so a missing toolchain degrades
+gracefully.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+_SRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native", "xna_native.cpp")
+_LIB_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "xna_native.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _build() -> bool:
+    """Compile to a temporary name and rename it into place, so that a
+    process loading the library never sees a half-written file."""
+    if not os.path.exists(_SRC):
+        return False
+    tmp = None
+    try:
+        os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(prefix=".tmp-", suffix=".so",
+                                   dir=os.path.dirname(_LIB_PATH))
+        os.close(fd)
+        subprocess.run(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+             "-std=c++17", _SRC, "-o", tmp],
+            check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        if tmp is not None and os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not os.path.exists(_LIB_PATH) or (
+                os.path.exists(_SRC)
+                and os.path.getmtime(_SRC) > os.path.getmtime(_LIB_PATH)):
+            if not _build():
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+        except OSError:
+            return None
+        lib.levenshtein.restype = ctypes.c_int
+        lib.levenshtein.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        lib.sw_align.restype = ctypes.c_int
+        lib.sw_align.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.sw_score_batch.restype = None
+        lib.sw_score_batch.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        lib.dtw_band.restype = ctypes.c_int
+        lib.dtw_band.argtypes = [
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            ctypes.c_int,
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_float,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def levenshtein(a: str, b: str) -> int:
+    lib = _load()
+    ab, bb = a.encode(), b.encode()
+    return lib.levenshtein(ab, len(ab), bb, len(bb))
+
+
+def sw_align(query: str, ref: str):
+    """Native SW; returns (score, cigar [(op, n)], (q0, q1, r0, r1))."""
+    lib = _load()
+    qb, rb = query.encode(), ref.encode()
+    bounds = (ctypes.c_int * 4)()
+    ops_buf = ctypes.create_string_buffer(len(qb) + len(rb) + 1)
+    ops_len = ctypes.c_int(0)
+    score = lib.sw_align(qb, len(qb), rb, len(rb), bounds, ops_buf,
+                         ctypes.byref(ops_len))
+    if score == 0:
+        return 0, [], (0, 0, 0, 0)
+    ops = ops_buf.raw[: ops_len.value].decode()
+    cigar = []
+    for op in ops:
+        if cigar and cigar[-1][0] == op:
+            cigar[-1][1] += 1
+        else:
+            cigar.append([op, 1])
+    return score, [(o, c) for o, c in cigar], tuple(bounds)
+
+
+def sw_score_batch(query: str, refs: list[str]):
+    """Best local SW score of query vs each ref (int32 [n]), or None when
+    the native library is unavailable (callers loop sw_align)."""
+    lib = _load()
+    if lib is None:
+        return None
+    qb = query.encode()
+    flat = "".join(refs).encode()
+    offsets = np.zeros(len(refs) + 1, np.int32)
+    np.cumsum([len(r) for r in refs], out=offsets[1:])
+    out = np.zeros(len(refs), np.int32)
+    lib.sw_score_batch(qb, len(qb), flat, offsets, len(refs), out)
+    return out
+
+
+def dtw_band(query: np.ndarray, ref: np.ndarray,
+             band: float | None = None):
+    """Native DTW; returns per-query ref indices or None if infeasible."""
+    lib = _load()
+    q = np.ascontiguousarray(query, np.float32)
+    r = np.ascontiguousarray(ref, np.float32)
+    out = np.empty(len(q), np.int32)
+    rc = lib.dtw_band(q, len(q), r, len(r),
+                      np.float32(band if band else 0.0), out)
+    if rc != 0:
+        return None
+    return out

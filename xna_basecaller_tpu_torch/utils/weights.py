@@ -51,9 +51,7 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
         parts = key.split("/")
         if parts[0] == "conv" and len(parts) == 3 and parts[2] in "wb":
             name = "weight" if parts[2] == "w" else "bias"
-            if name == "weight":
-                arr = arr.transpose(2, 1, 0)
-            state[f"conv.{parts[1]}.{name}"] = arr
+            state[f"conv.{parts[1]}.{name}"] = swap_layout(key, arr)
         elif parts[0] == "rnn" and len(parts) == 3 \
                 and parts[2] in ("w_ih", "w_hh", "bias"):
             state[f"rnn.{parts[1]}.{parts[2]}"] = arr
@@ -81,13 +79,22 @@ def jax_key(name: str) -> str:
     raise KeyError(f"unexpected parameter {name!r}")
 
 
+def swap_layout(key: str, arr: np.ndarray) -> np.ndarray:
+    """The array of JAX key ``key`` in the other package's layout: a
+    convolution weight (``conv/{i}/w``) transposed between [out, in, k] and
+    [k, in, out] (either way), anything else as it is."""
+    parts = key.split("/")
+    if parts[0] == "conv" and parts[-1] == "w":
+        return arr.transpose(2, 1, 0)
+    return arr
+
+
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """A state_dict -> the JAX package's flat checkpoint mapping ('/'-joined
     keys, f32 arrays, convolution weights as [k, in, out])."""
     flat = {}
     for name, t in state.items():
-        arr = t.detach().float().cpu().numpy()
-        if name.startswith("conv.") and name.endswith(".weight"):
-            arr = arr.transpose(2, 1, 0)
-        flat[jax_key(name)] = np.ascontiguousarray(arr)
+        key = jax_key(name)
+        flat[key] = np.ascontiguousarray(
+            swap_layout(key, t.detach().float().cpu().numpy()))
     return flat
