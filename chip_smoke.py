@@ -5,7 +5,8 @@ GPU, at the full width of the flagship model (conv 768, 5 x LSTM(768),
 paths, basecalling (batch 256), the int8 ``--quantize`` basecall (batch
 256) and training (batch 64), plain and with the spike and stitch
 augmentations, and the bootstrap-data phase that makes stitch's donors
-(basecall, alignment, ctc-data, DTW breakpoints).
+(basecall, alignment, ctc-data, DTW breakpoints), and the paper's whole
+north-star chain A -> E through the port's north-star script.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. print the card's name and power limit, build every kernel in
@@ -13,8 +14,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      build log with the ptxas register and spill lines;
   2. hold each kernel against its plain PyTorch version on the card, on the
      tensors the main path gives it for one batch of simulated reads:
-     K1 (LSTM recurrence) in bf16 and f32 (called twice: its
-     repeatability is printed), K7 (the int8 recurrence, layer
+     K1 (LSTM recurrence) in bf16 and f32 (called twice: bit-equal or
+     the phase fails), K7 (the int8 recurrence, layer
      0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode);
   3. check the model's scores and labels against the plain CPU path on a
      small input, in f32 and quantized; the quantized model's scores
@@ -56,13 +57,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      ``--ub-only`` and ``--sam``; read the counts, check the kept chunks,
      their UB targets, the SAM, the calls that changed between the runs
      and ``filter_stats.csv``; ``dtw_segmentation`` with the native
-     library; 2 steps of ``train --stitch --stitch-relax --ubs XY`` on
+     library; that the checkpoint ensemble ``[model, model]`` calls the
+     256 chunk-reads as the model does; 2 steps of ``train --stitch
+     --stitch-relax --ubs XY`` on
      B's ctc-data and its breakpoints (donors from phase 8b), then an
      epoch more with ``--restore-optim`` from the optimizer file in the
      JAX package's layout; print the chunk-reads/s of both runs, the
      alignment's time, DTW ms a chunk, both also against each template
-     library of the repo's assets at real read lengths, and the phase's
-     wall time;
+     library (the port's ``XnaRefs``) at real read lengths, and the
+     phase's wall time;
+  8d. the paper's north-star chain A -> E through the port's script
+     (``python -m xna_basecaller_tpu_torch.tools.spliced_northstar``'s
+     ``main``) at the flagship's width, its depth cut (``NS_ARGV``), with
+     the launch counts set to 0 just before and read just after: every
+     kernel of the chain launched, phase B's ctc-data and breakpoints for
+     both kinds, phase D's summary for each epoch of both seeds and its
+     choice of epoch, phase E's summaries and ``northstar_summary.json``'s
+     keys (JAX's); each phase's wall time is printed by the script;
   9. time each kernel, its plain version and its library yardstick with
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
@@ -134,17 +145,32 @@ AUG_CHUNKS, AUG_STEPS = 272, 4
 SPLICED_CHUNKS = 136
 # phase 8c: the --ub-bias values tried for the calls the reference is made of
 UB_BIASES = (0.0, -1.0, -2.0, -3.0, -4.0, -6.0, -10.0)
-# phase 8c: K1 in bf16 at 65-256 rows adds its h chunks in arrival order,
-# so a second basecall of the same 256 chunk-reads changed 15 and 16 calls
-# in two runs (~6 %); more than twice that fails the phase (ROADMAP Queue 3)
-K1_DIFFER_MAX = 32
-# phase 8c: the template libraries phase B aligns to, read as data files
-# from the JAX package's assets (nothing of that package is imported), and
-# the call of a chunk-read of 3600 samples at ~9 samples a base
-XNA_LIBS = os.path.join("xna_basecaller_tpu", "assets", "xna_libs")
+# phase 8c: K1 adds the chunks of h in index order, whatever order they
+# arrive in, so a second basecall of the same 256 chunk-reads calls every
+# read as the first did (the arrival-order sum changed 8-17 calls)
+K1_DIFFER_MAX = 0
+# phase 8c: the template libraries phase B aligns to (the port's copy,
+# read through its XnaRefs), and the call of a chunk-read of 3600 samples
+# at ~9 samples a base
 LIBRARIES = ("XNA_4Ds", "POC", "XNA16", "CPLX")
 CHUNK_CALL_BASES = 400
 SCAN_BURST = 10   # calls a timed sample of the CRF kernels
+# phase 8d: the north-star script's depth (its widths are the flagship's;
+# PERF.md section 4 lists each cut): phase A's simulated DNA chunks and
+# epochs, phase B's reads, phase C's epochs, two seeds (so that the
+# ensemble and soup candidates run), the validation and test reads
+NS_EPOCHS = 2
+NS_ARGV = ["--boot-chunks", "8320", "--boot-epochs", "5",
+           "--xna-reads", "200", "--dna-reads", "240",
+           "--epochs", str(NS_EPOCHS), "--seeds", "25,26",
+           "--val-reads", "64", "--test-reads", "64", "--n-proc", "8"]
+# the keys of scripts/spliced_northstar.py's northstar_summary.json
+NS_SUMMARY_KEYS = ["exp", "best_epoch", "best_seed", "winner_dir",
+                   "val_err_only_ub", "seed_candidates",
+                   "ensemble_val_err_only_ub", "soup_val_err_only_ub",
+                   "wall_seconds", "test_heldout", "test_oracle",
+                   "test_in_distribution", "test-ind_oracle", "POC-test",
+                   "POC-test_oracle"]
 
 
 def fail(msg: str):
@@ -1067,8 +1093,8 @@ def drive_augmented_training(workroot: str):
 
 def time_library_alignment(align, chunksize: int, card: str):
     """Phase 8c at the traffic of real reads, which random weights do not
-    call: for each template library of ``LIBRARIES`` (``refdb_short.fasta``
-    under ``XNA_LIBS``), the CLI's ``align`` (every template, both strands)
+    call: for each template library of ``LIBRARIES`` (the templates of the
+    port's ``XnaRefs``), the CLI's ``align`` (every template, both strands)
     of 8 probes of the templates' own length (a library read: a template
     with its N called X and 5 % of its bases substituted, every other one
     reverse-complemented) and of 8 of ``CHUNK_CALL_BASES`` (such a template
@@ -1082,12 +1108,11 @@ def time_library_alignment(align, chunksize: int, card: str):
     )
     from xna_basecaller_tpu_torch.data.pore_model import load_pore_model
     from xna_basecaller_tpu_torch.data.simulate import simulate_squiggle
-    from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
+    from xna_basecaller_tpu_torch.eval.xna_refs import XnaRefs
     from xna_basecaller_tpu_torch.tools.dtw_segmentation import segment_read
 
     rng = np.random.default_rng(SEED)
     pore = load_pore_model()
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), XNA_LIBS)
 
     def random_bases(n):
         return "".join(rng.choice(list("ACGT"), size=n))
@@ -1107,7 +1132,7 @@ def time_library_alignment(align, chunksize: int, card: str):
         return ms, sum(m["target_id"] == w for m, w in zip(got, want))
 
     for name in LIBRARIES:
-        targets = read_fasta(os.path.join(root, name, "refdb_short.fasta"))
+        targets = XnaRefs(name).targets
         ids = list(targets)
         picks = [ids[i] for i in rng.choice(len(ids), size=8,
                                             replace=len(ids) < 8)]
@@ -1160,7 +1185,9 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
     lowered to accuracy 0.2 and coverage 0.5.  Checks the counts (K1 5,
     K2a/b/c 1), the kept chunks, their UB targets, the chunks against the
     inputs' f16 slices, ``filter_stats.csv``, the SAM, and that at most
-    ``K1_DIFFER_MAX`` calls of the second run differ from the first's; then
+    ``K1_DIFFER_MAX`` (0) calls of the second run differ from the
+    first's, and that the ensemble ``[model, model]`` calls what the model
+    calls; then
     ``dtw_segmentation`` with the native library (``breakpoints.npy``
     monotone, ending at or below 3600).  Then phase C on B's output: 2
     steps of ``train --stitch --stitch-relax --ubs XY`` whose training
@@ -1275,6 +1302,26 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
         f"{c} x{k}" for c, k in counts.most_common(6)) + f"; on the "
         f"templates (first reverse-complemented: {reverse_first}) they "
         f"align {dict(strands)}")
+    # a checkpoint ensemble of the model with itself: (s + s) / 2 = s in
+    # f32 and K1 is repeatable, so it calls what the model calls
+    from xna_basecaller_tpu_torch.infer.basecall import basecall
+
+    def calls_of(members):
+        return {r.read_id: a["sequence"] for r, a in basecall(
+            members, iter(chunk_reads), chunksize=chunksize,
+            overlap=cfg.basecaller.overlap, batchsize=batchsize,
+            ub_bias=bias)}
+    lstm_cuda.lstm_recurrence.launches = 0
+    alone, ensemble = calls_of(model), calls_of([model, model])
+    n_ens = sum(alone[k] != ensemble[k] for k in alone)
+    print(f"ensemble [m, m] against m alone on the {len(alone)} "
+          f"chunk-reads: calls differing {n_ens} (tolerance 0); K1 "
+          f"launches {lstm_cuda.lstm_recurrence.launches} (expected "
+          f"{3 * cfg.encoder.num_rnn_layers})")
+    if n_ens or len(alone) != batchsize or \
+            lstm_cuda.lstm_recurrence.launches != \
+            3 * cfg.encoder.num_rnn_layers:
+        fail("the ensemble [m, m] does not call what m calls")
     if n_templates == 0:
         fail("no call of 8 bases or more: nothing to build a reference of")
     if min(strands["+"], strands["-"]) < 8:
@@ -1337,8 +1384,8 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
              != first[r[0]]]
     print(f"SAM: {len(records)} records for {n_called} called chunk-reads "
           f"(flags {by_flag}); calls that differ from step 1's: "
-          f"{len(other)} (at most {K1_DIFFER_MAX}: K1 in bf16 is not "
-          f"bit-repeatable)" + (f", e.g. {other[0]}" if other else ""))
+          f"{len(other)} (at most {K1_DIFFER_MAX})"
+          + (f", e.g. {other[0]}" if other else ""))
     if len(records) != n_called:
         fail(f"the SAM holds {len(records)} records for {n_called} called "
              "chunk-reads")
@@ -1430,6 +1477,94 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
                  "not resume the count")
     wall = time.perf_counter() - t_phase
     print(f"phase 8c wall time: {wall:.1f} s on {card}")
+
+
+def drive_northstar(workroot: str, card: str):
+    """Phase 8d: the paper's north-star chain A -> E through the port's
+    north-star script (``tools/spliced_northstar.py::main``, the entry
+    point a user runs) on the card at the flagship's width (``--features 768 --layers
+    5``, ``--exp CPLX``), its depth cut by ``NS_ARGV``, with the launch
+    counts set to 0 just before and read just after.  Fails unless every
+    kernel of the chain launched, phase B wrote ctc-data with breakpoints
+    for both kinds, phase D wrote a validation summary for each epoch of
+    each seed and chose the epoch of the least ``err_only_ub`` (ties to the
+    least ``err_far_ub``, as JAX does), phase E wrote the held-out test's
+    summaries and ``northstar_summary.json`` holds JAX's keys."""
+    import csv
+
+    from xna_basecaller_tpu_torch.tools import spliced_northstar
+    from xna_basecaller_tpu_torch.utils import native
+
+    if not native.available():
+        fail("the native library (native/xna_native.cpp) did not build: "
+             "the chain would align and segment through the numpy "
+             "fallbacks")
+    out = os.path.join(workroot, "northstar")
+    argv = ["--out", out, "--device", "cuda", "--exp", "CPLX",
+            "--features", "768", "--layers", "5", *NS_ARGV]
+    print(f"phase 8d, the north-star chain: python -m "
+          f"xna_basecaller_tpu_torch.tools.spliced_northstar "
+          f"{' '.join(argv)}", flush=True)
+    wrappers = training_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    summary = spliced_northstar.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"phase 8d launches {launches}")
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"{k} was not launched by the north-star chain")
+    for kind in ("xna", "dna"):
+        d = os.path.join(out, f"ctc_{kind}")
+        if not os.path.exists(os.path.join(d, "breakpoints.npy")):
+            fail(f"phase B wrote no {kind} ctc-data with breakpoints")
+        n = len(np.load(os.path.join(d, "chunks.npy"), mmap_mode="r"))
+        print(f"phase B {kind} ctc-data: {n} chunks")
+    seeds = [25, 26]
+    for seed in seeds:
+        wd = os.path.join(out, f"spliced_model_s{seed}")
+        errs = {}
+        for e in range(1, NS_EPOCHS + 1):
+            f = os.path.join(wd, f"basecalls-weights_{e}",
+                             "results_summ-CPLX-val.csv")
+            if not os.path.exists(f):
+                fail(f"phase D wrote no validation summary for epoch {e} "
+                     f"of seed {seed}")
+            with open(f, newline="") as fh:
+                row = next(csv.DictReader(fh))
+            errs[e] = (float(row["err_only_ub"]), float(row["err_far_ub"]))
+        chosen = int(os.readlink(os.path.join(wd, "weights_99.npz"))[8:-4])
+        best = min(errs, key=lambda e: (errs[e][0], errs[e][1]))
+        print(f"phase D seed {seed}: (err_only_ub, err_far_ub) by epoch "
+              f"{errs}; chosen epoch {chosen}")
+        if errs[chosen][0] != errs[best][0]:
+            fail(f"phase D chose epoch {chosen} of seed {seed}, not the "
+                 "least err_only_ub")
+    with open(os.path.join(out, "northstar_summary.json")) as fh:
+        written = json.load(fh)
+    if list(written) != NS_SUMMARY_KEYS:
+        fail(f"northstar_summary.json keys {list(written)} are not JAX's "
+             f"{NS_SUMMARY_KEYS}")
+    win = os.path.join(out, written["winner_dir"])
+    for tag in ("test", "test-ind", "POC-test"):
+        exp = "POC" if tag.startswith("POC") else "CPLX"
+        split = tag.split("-", 1)[1] if exp == "POC" else tag
+        f = os.path.join(win, f"basecalls-{tag}",
+                         f"results_summ-{exp}-{split}.csv")
+        if not os.path.exists(f):
+            fail(f"phase E wrote no summary {f}")
+    held = summary["test_heldout"]
+    print(f"north-star result (held-out test, {held['num_aligned_reads']} "
+          f"aligned reads): ub_acc {held.get('ub_acc')}, err_only_ub "
+          f"{held.get('err_only_ub')}, read_acc {held.get('read_acc')}; "
+          f"winner {written['best_seed']} epoch {written['best_epoch']}; "
+          f"val err_only_ub by candidate {written['seed_candidates']}, "
+          f"ensemble {written['ensemble_val_err_only_ub']}, soup "
+          f"{written['soup_val_err_only_ub']}")
+    print(f"phase 8d wall time: {wall:.1f} s on {card}")
 
 
 def host_turns(fns: dict, reps: int = 21, burst: int = 1) -> dict:
@@ -1989,12 +2124,14 @@ def main() -> int:
             if not bool(torch.isfinite(got.float()).all()) \
                     or err.max().item() > tol:
                 fail(f"K1 {name} disagrees with its plain version")
-            # repeatability: at N > 64 in bf16 the kernel adds the h
-            # chunks in the order they become ready (ROADMAP Queue 3)
+            # repeatability: the kernel adds the chunks of h in index
+            # order, whichever finishes first
             again = lstm_cuda.lstm_recurrence(xp, p["w_hh"], rev0)
             print(f"K1 {name} called twice on the same xp: elements "
-                  f"differing {(again != got).float().mean().item():.4f}, "
-                  f"max abs {(again.float() - got.float()).abs().max().item():.3e}")
+                  f"differing {(again != got).float().mean().item():.4f} "
+                  f"(tolerance 0)")
+            if not torch.equal(again, got):
+                fail(f"K1 {name} is not bit-repeatable")
             results[f"K1_{name}_err"] = err.max().item()
             if name == "bf16":
                 k1_inputs = (xp, p["w_hh"])
@@ -2124,6 +2261,8 @@ def main() -> int:
         donor_tables = drive_augmented_training(workroot)
         # -- 8c. phase B (bootstrap data) on the card, feeding phase C ---
         drive_bootstrap_data(workroot, model, cfg, reads, card)
+        # -- 8d. the north-star chain A -> E (tools/spliced_northstar) --
+        drive_northstar(workroot, card)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     print(f"training path step times (host clock, losses_1.csv): "

@@ -87,6 +87,34 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("cells", [False, True])
+# 65-256: one launch of the wgmma kernel (one or two row tiles); 257: two
+# launches, the second on the cluster path.  H=768: 3 chunks of 256
+# columns on 2 ring stages; H=1024: 8 chunks of 128 on 3 stages, fetched
+# as they finish within a window of 2
+@pytest.mark.parametrize("N", [65, 128, 200, 256, 257])
+@pytest.mark.parametrize("H", [768, 1024])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bf16_lstm_kernels_are_bit_repeatable(cuda, cells, N, H, reverse):
+    """K1 and K3a in bf16 give the same bits over 6 calls: the chunks of h
+    finish in another order each call, and the kernel adds their products
+    in index order all the same; and the plain version's values (the
+    tolerances of the tests above)."""
+    xp, w = _lstm_inputs(300, N, H, seed=N + 7, device=cuda,
+                         dtype=torch.bfloat16)
+    fn = (lstm_cuda.lstm_forward_with_cells if cells
+          else lambda x, w, r: (lstm_cuda.lstm_recurrence(x, w, r),))
+    first = fn(xp, w, reverse)
+    for _ in range(5):
+        for got, want in zip(fn(xp, w, reverse), first):
+            assert torch.equal(got, want)
+    plain = (lstm.lstm_recurrence_with_cells(xp, w, reverse) if cells
+             else (lstm.lstm_recurrence(xp, w, reverse),))
+    for got, want, atol in zip(first, plain, (2e-2, 5e-2)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
 # the rows of the launch geometry as for K1 (the cluster path excepted:
@@ -608,3 +636,27 @@ def test_ctc_loss_through_kernels_matches_plain_path(cuda, alphabet,
     assert moved == {"forward_scan": 1, "backward_scan": 0,
                      "edge_posteriors": 0, "lattice_forward": 1,
                      "lattice_backward": 0}
+
+
+def test_ensemble_of_one_model_twice_calls_as_the_model(cuda):
+    """A checkpoint ensemble [m, m] on the card calls what m calls: the
+    mean of two equal f32 score tensors is the tensor, and K1 (here at 130
+    rows, the wgmma kernel) gives the same bits at every call."""
+    from xna_basecaller_tpu_torch.core.config import (
+        EncoderConfig, ModelConfig,
+    )
+    from xna_basecaller_tpu_torch.data.simulate import simulate_reads
+    from xna_basecaller_tpu_torch.infer.basecall import basecall
+    from xna_basecaller_tpu_torch.models.crf_model import Model
+
+    cfg = ModelConfig(encoder=EncoderConfig(features=768, num_rnn_layers=2))
+    model = Model(cfg, device=cuda, seed=3).eval()
+    reads = list(simulate_reads(12, mean_len=36000, seed=2))
+
+    def calls(members):
+        return [a["sequence"] for _, a in basecall(
+            members, iter(reads), chunksize=3600, overlap=500,
+            batchsize=130)]
+    alone = calls(model)
+    assert len(alone) == len(reads)
+    assert calls([model, model]) == alone

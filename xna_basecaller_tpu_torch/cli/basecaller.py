@@ -11,7 +11,8 @@ this package does not port yet are still recognised, and each is refused
 with an error instead of being ignored, but only where it would change the
 result: the JAX defaults (``--beam 0``, ``--superbatch 1``) and
 ``--beamsize`` (JAX reads it only for the CTC family, which this package
-does not load) are accepted, as JAX does nothing with them.
+does not load) are accepted, as JAX does nothing with them.  Comma-separated
+model directories basecall as a checkpoint ensemble, as in JAX.
 """
 
 from __future__ import annotations
@@ -37,20 +38,30 @@ def main(args):
         if getattr(args, dest) not in (None, False, INERT.get(dest)):
             sys.exit(f"xnacall basecaller: {flag} is not ported to "
                      "xna_basecaller_tpu_torch yet")
-    if "," in args.model_directory:
-        sys.exit("xnacall basecaller: checkpoint ensembles (comma-separated "
-                 "model directories) are not ported to "
-                 "xna_basecaller_tpu_torch yet")
 
     from xna_basecaller_tpu_torch.data.fast5 import get_reads
     from xna_basecaller_tpu_torch.utils.model_io import load_model
     from xna_basecaller_tpu_torch.utils.pipeline import cancel_on_sigint
 
     sys.stderr.write(f"> loading model {args.model_directory}\n")
-    model, cfg = load_model(
-        args.model_directory, device=args.device,
-        weights=args.weights or None, chunksize=args.chunksize,
-        batchsize=args.batchsize, overlap=args.overlap)
+    # comma-separated dirs decode as a score-averaging checkpoint
+    # ensemble (infer.basecall._forward)
+    model_dirs = args.model_directory.split(",")
+    models = []
+    for d in model_dirs:
+        model, cfg_d = load_model(
+            d, device=args.device, weights=args.weights or None,
+            chunksize=args.chunksize, batchsize=args.batchsize,
+            overlap=args.overlap)
+        if not models:
+            cfg = cfg_d
+        elif (cfg_d.alphabet != cfg.alphabet
+              or cfg_d.state_len != cfg.state_len
+              or cfg_d.encoder != cfg.encoder):
+            sys.exit(f"xnacall basecaller: ensemble member {d} is "
+                     f"architecturally incompatible with {model_dirs[0]} "
+                     "(alphabet/state_len/encoder must match)")
+        models.append(model)
 
     read_ids = None
     if args.read_ids:
@@ -63,7 +74,8 @@ def main(args):
                       cancel=cancel)
     if args.max_reads:
         reads = itertools.islice(reads, args.max_reads)
-    call_reads(args, model, cfg, reads, cancel=cancel)
+    call_reads(args, models if len(models) > 1 else models[0], cfg, reads,
+               cancel=cancel)
 
 
 def align(seq: str, targets: dict[str, str]):
@@ -79,7 +91,8 @@ def align(seq: str, targets: dict[str, str]):
 
 
 def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
-    """What ``main`` does once the model is loaded and the reads are open:
+    """What ``main`` does once the model (or the list of an ensemble's
+    members) is loaded and the reads are open:
     basecall ``reads`` (objects with ``read_id`` and ``signal``; with
     ``--save-ctc`` cut into chunk-reads of the model's chunk size first),
     align each call to ``--reference``'s templates, and write FASTQ or

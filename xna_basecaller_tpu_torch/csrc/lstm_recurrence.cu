@@ -57,15 +57,19 @@
 // lstm_bf16_wg_kernel, one launch of up to 256 rows.  CTA b owns 16 units
 // (their 64 gate columns of W_hh, 96 KB) for one tile of 128 batch rows:
 // 96 CTAs at N=256, the two tiles independent of each other.
-//   - h is exchanged in global memory in 128-column chunks, each made of
-//     two 64-column sub-chunks whose rows are contiguous (128 B a row), the
-//     16-byte pieces swizzled by the row (piece p of row n at p ^ (n % 8)):
-//     the 128-byte swizzle of wgmma's operands.  A producer warp polls the
-//     flags of its row tile (all of them at once, relaxed loads and one
-//     acquire fence) and brings each chunk whose 8 writers are done, in the
-//     order they finish, by one 32 KB bulk copy (TMA, no tensor map) into
-//     a ring of shared-memory stages (4 at H=768), completing on an
-//     mbarrier.
+//   - h is exchanged in global memory in chunks of 256 columns (3 at
+//     H=768; 128 or 64 where two stages of 256 do not fit beside W), each
+//     made of 64-column sub-chunks whose rows are contiguous (128 B a
+//     row), the 16-byte pieces swizzled by the row (piece p of row n at
+//     p ^ (n % 8)): the 128-byte swizzle of wgmma's operands.  A producer
+//     warp polls the flags of its row tile (all of them at once, relaxed
+//     loads and one acquire fence) and brings each chunk whose writers are
+//     done by one bulk copy (TMA, no tensor map; 64 KB) into the ring
+//     stage of its index (2 stages at H=768), completing on an mbarrier.
+//     The consumers take the chunks in index order, so the f32 sums of the
+//     gates take one order at every call and the kernel is
+//     bit-repeatable; with more stages the producer brings the chunks of
+//     its window in the order they finish.
 //   - Two consumer warpgroups each multiply their 64 rows of a stage by
 //     W's slice (stored [k-tile][64 n][64 k], the same swizzle) with
 //     wgmma m64n64k16, both operands read from shared memory, and release
@@ -77,18 +81,24 @@
 //     goes through shared memory; an exchange with the neighbouring lane
 //     turns h into 8-byte stores.  xp is loaded a step ahead with 16-byte
 //     loads; the CTA publishes one flag count a step after a named barrier.
-// 10.3-10.4 ms a layer at N=256 against 11.2-11.3 for the tiled kernel with
-// a grid barrier that it replaces, timed in turns (H100 80GB HBM3, 700 W):
-// ~14.3 us a step, at 128 rows as at 256.  A clock64 profile of the same
-// design with 64-column chunks (16.8 us a step, instrumented) put 2.2 us in
-// the wait for the first chunk, 6.0 in the other 11 with their products,
-// 5.6 in the epilogue (2.2 of it the cell math) and 0.6 in the release;
-// the 12 ring hand-offs alone cost ~2.4 us, hence the larger chunks (192
-// or 256 columns: 10.2-10.3, within the spread, on fewer stages).  Tried
-// and dropped, each timed in turns with the tiled kernel on one card: the
-// product on mma.sync 32 x 32 warp tiles, 12.0-14.8 ms; chunks taken in
-// index order, 11.96 (wgmma) and 12.25-14.8 (mma.sync); clusters of 2 or 4
-// CTAs receiving each chunk by multicast, 18.1-18.7.
+// 10.61-10.62 ms a layer at N=256 (xp [720, 256, 3072], both directions)
+// against 10.17-10.25 for the previous design of this kernel, which took
+// 128-column chunks in the order they finished and so added the gates'
+// partial products in another order at each call (4 % of ys differed
+// between two calls); medians of 21 in turns, H100 80GB HBM3, 700 W,
+// tools/k1_turns.py.  In the same turns, each bit-repeatable: 128-column
+// chunks on 4 stages, fetched as they finish within a window of 3,
+// 10.97-11.09; 64-column chunks on 8 stages (window 7), 12.61-12.77;
+// 128-column chunks fetched in index order, 12.57; the previous design
+// with each chunk's product in a fresh tile summed in 64-bit fixed point
+// (exact, so order-free; 168 registers and spills), 13.46.
+// Earlier, timed in turns with the tiled kernel with a grid
+// barrier (11.2-11.3 ms) that this kernel replaced: a clock64 profile of
+// the design with 64-column chunks (16.8 us a step, instrumented) put 2.2
+// us in the wait for the first chunk, 6.0 in the other 11 with their
+// products, 5.6 in the epilogue (2.2 of it the cell math) and 0.6 in the
+// release; the product on mma.sync 32 x 32 warp tiles, 12.0-14.8 ms;
+// clusters of 2 or 4 CTAs receiving each chunk by multicast, 18.1-18.7.
 //
 // f32 (the parity mode): a block owns 8 units for all rows (up to 256), FMA
 // on the CUDA cores, a grid barrier.
@@ -111,7 +121,7 @@ constexpr int kUnits = 16;          // hidden units of one CTA
 constexpr int kCols = 4 * kUnits;   // their gate columns, unit-major
 constexpr int kRRows = 128;         // batch rows of one CTA (a row tile)
 constexpr int kHChunk = 64;         // h columns per sub-chunk (128 B)
-constexpr int kSubs = 2;            // sub-chunks per exchanged chunk
+constexpr int kMaxSubs = 4;         // sub-chunks per exchanged chunk, most
 constexpr int kCWarps = 8;          // consumer warps: two warpgroups
 constexpr int kRThreads = 32 * (kCWarps + 1);   // and a producer warp
 constexpr int kMaxStages = 8;       // ring stages of h chunks
@@ -177,8 +187,8 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
 
 // Position of h[n, k] in one buffer of the bf16 h exchange at N > 64:
 // [row tile n / 128][sub-chunk k / 64 of n_sub][row n % 128][64 columns],
-// 16-byte piece p of row n stored at p ^ (n % 8), so that the kSubs
-// sub-chunks of one exchanged chunk are contiguous for a row tile.
+// 16-byte piece p of row n stored at p ^ (n % 8), so that the sub-chunks
+// of one exchanged chunk are contiguous for a row tile.
 __device__ __forceinline__ size_t hpos(int n, int k, int n_sub) {
   const int kk = k % kHChunk;
   return ((size_t)((n / kRRows) * n_sub + k / kHChunk) * kRRows + n % kRRows) *
@@ -191,15 +201,19 @@ __device__ __forceinline__ size_t hpos(int n, int k, int n_sub) {
 // (S = H / 16 slices).  Warpgroup g (warps 4 g .. 4 g + 3) computes rows
 // [64 g, 64 g + 64) of the CTA's [128, 64] gate tile; warp 8 produces.
 // Step s:
-//   producer (s > 0): poll the tile's flags for step s; each 128-column
-//     chunk of h_s whose 8 writers are done, as soon as a ring stage is
-//     free: one bulk copy of the tile's 128 rows of it, its index in
-//     chunk_of;
+//   producer (s > 0): poll the tile's flags for step s; each chunk c of
+//     h_s whose writers are done, among the first stages - 1 chunks not
+//     brought yet: one bulk copy of the tile's 128 rows of it into stage
+//     (s - 1) n_chunks + c of the ring (mod stages);
 //   consumers: take the cells' xp[t] (loaded a step ahead), load xp[t + 1];
-//     (s > 0) for each stage in ring order, wait for it, add its product
-//     (wgmma), release the stage of the one before once its product is
-//     done; add xp, rotate the gates within each quad, update 8 cells; h to
-//     hbuf[(s + 1) & 1]; publish (one count a CTA); ys (and cs).
+//     (s > 0) for each chunk in index order (the stages in ring order),
+//     wait for it, add its product (wgmma), release the stage of the one
+//     before once its product is done; add xp, rotate the gates within
+//     each quad, update 8 cells; h to hbuf[(s + 1) & 1]; publish (one count
+//     a CTA); ys (and cs).
+// The gate sums are f32 sums of the chunks' products in index order, the
+// same order at every call: the result does not depend on which chunk's
+// writers finish first, and two calls give the same bits.
 // The double buffer of h is safe without a barrier: a CTA writes h_{s+1}
 // only after it has read all of h_s, that is after every CTA of its tile
 // has published step s - 1, hence finished reading h_{s-1}.
@@ -208,18 +222,18 @@ __global__ void __launch_bounds__(kRThreads, 1)
 lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
                     const bf16* __restrict__ w_hh, bf16* __restrict__ ys,
                     bf16* __restrict__ cs, bf16* hbuf, unsigned int* flags,
-                    int T, int N, int ld_n, int H, int reverse, int stages) {
+                    int T, int N, int ld_n, int H, int reverse, int subs,
+                    int stages) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int n_sub = (H + kHChunk - 1) / kHChunk;
-  const int n_chunks = (n_sub + kSubs - 1) / kSubs;
-  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stages][kSubs][kRRows][kHChunk]
-  bf16* w_s = ring + (size_t)stages * kSubs * kRRows * kHChunk;
+  const int n_chunks = (n_sub + subs - 1) / subs;
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stages][subs][kRRows][kHChunk]
+  bf16* w_s = ring + (size_t)stages * subs * kRRows * kHChunk;
   uint64_t* full = reinterpret_cast<uint64_t*>(
       w_s + (size_t)n_sub * kCols * kHChunk);
   uint64_t* empty = full + stages;
-  int* chunk_of = reinterpret_cast<int*>(empty + stages);   // [stages]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_slices = H / kUnits;
@@ -252,31 +266,41 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
 
   if (warp == kCWarps) {   // the producer
     const unsigned sub_bytes = kRRows * kHChunk * 2;
-    unsigned it = 0;
     for (int s = 1; s < T; ++s) {
       const bf16* h_cur = hbuf + (size_t)(s & 1) * hb;
-      unsigned long long left = (1ull << n_chunks) - 1;   // to bring
+      const unsigned base = (unsigned)(s - 1) * n_chunks;   // chunk 0's use
+      unsigned long long left = (1ull << n_chunks) - 1;     // to bring
       while (left) {
+        // of the chunks not brought yet, the first stages - 1: the stage
+        // of chunk c was last held by chunk c - stages, which the
+        // consumers release once they take chunk c - stages + 1 (brought:
+        // it comes before the first chunk not brought yet); chunk
+        // lo + stages - 1 would wait for the release that only chunk lo
+        // brings
+        const int lo = __ffsll(left) - 1;
+        const unsigned long long window =
+            left & (((1ull << (stages - 1)) - 1) << lo);
         unsigned long long ready =
-            ready_chunks(tile_flags, n_slices, kSubs * kHChunk / kUnits, s) &
-            left;
+            ready_chunks(tile_flags, n_slices, subs * kHChunk / kUnits, s) &
+            window;
         left &= ~ready;
         while (ready) {
-          const int c = __ffsll(ready) - 1, st = it % stages;
+          const int c = __ffsll(ready) - 1;
+          const unsigned it = base + c, st = it % stages;
           ready &= ready - 1;
+          // every use of the stage before the last is confirmed released:
+          // its chunk came before the window
           if (it >= (unsigned)stages)
             mbar_wait(empty + st, (it / stages - 1) & 1);
           if (lane == 0) {
-            const unsigned bytes = min(kSubs, n_sub - kSubs * c) * sub_bytes;
-            chunk_of[st] = c;
+            const unsigned bytes = min(subs, n_sub - subs * c) * sub_bytes;
             mbar_expect_tx(full + st, bytes);
-            bulk_copy(ring + (size_t)st * kSubs * kRRows * kHChunk,
-                      h_cur + (size_t)(tile * n_sub + kSubs * c) * kRRows *
+            bulk_copy(ring + (size_t)st * subs * kRRows * kHChunk,
+                      h_cur + (size_t)(tile * n_sub + subs * c) * kRRows *
                                   kHChunk,
                       bytes, full + st);
           }
           __syncwarp();
-          ++it;
         }
       }
     }
@@ -329,12 +353,11 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
       for (int c = 0; c < n_chunks; ++c, ++it) {
         const int st = it % stages;
         mbar_wait(full + st, (it / stages) & 1);
-        const int cc = *(volatile int*)(chunk_of + st);
         if (has_tile) {
-          for (int j = 0; j < kSubs && kSubs * cc + j < n_sub; ++j) {
-            const int sub = kSubs * cc + j;
+          for (int j = 0; j < subs && subs * c + j < n_sub; ++j) {
+            const int sub = subs * c + j;
             const bf16* a_st =
-                a_base + ((size_t)st * kSubs + j) * kRRows * kHChunk;
+                a_base + ((size_t)st * subs + j) * kRRows * kHChunk;
             const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;
             const int kc = min(kHChunk, H - sub * kHChunk);
             for (int kk = 0; kk < kc; kk += 16)
@@ -691,13 +714,19 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
       return rc;
     if (H / kUnits > 64) return -2;   // the producer polls <= 64 flags
     // 1 KB to align the swizzled tiles, W's slice and the barriers; the
-    // rest for as many ring stages as fit
+    // rest for as many ring stages as fit, of the widest chunks of which
+    // two stages fit (256 columns at H=768: 3 chunks on 2 stages)
     const size_t fixed = 1024 +
                          (size_t)(H + kHChunk - 1) / kHChunk * kCols *
                              kHChunk * 2 +
-                         24 * kMaxStages;
-    const size_t stage = (size_t)kSubs * kRRows * kHChunk * 2;
-    int stages = (max_smem - (int)fixed) / (int)stage;
+                         16 * kMaxStages;
+    int subs = kMaxSubs, stages = 0;
+    size_t stage = 0;
+    for (; subs >= 1; subs /= 2) {
+      stage = (size_t)subs * kRRows * kHChunk * 2;
+      stages = (max_smem - (int)fixed) / (int)stage;
+      if (stages >= 2) break;
+    }
     if (stages > kMaxStages) stages = kMaxStages;
     if (stages < 2) return -3;
     const size_t smem = fixed + stages * stage;
@@ -711,7 +740,7 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
     bf16* a3 = static_cast<bf16*>(cs);
     bf16* a4 = static_cast<bf16*>(hbuf);
     void* args[] = {&a0, &a1, &a2, &a3, &a4, &ctr, &T, &N, &ld_n, &H,
-                    &reverse, &stages};
+                    &reverse, &subs, &stages};
     // cooperative: the whole grid is resident (the CTAs wait on each
     // other's flags)
     rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kRThreads), args,

@@ -22,8 +22,12 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
 * ``quantize`` is the int8 path of ``--quantize``: the int8 upload, int8
   input projections and CRF head, and the int8 recurrence K7
   (``Model.forward(lstm_int8=True)``).
+* ``model`` may be a list of models of one architecture, a checkpoint
+  ensemble (``_forward``, JAX's ``_apply_maybe_ensemble``): each batch goes
+  through every member on the device and the decode runs on the mean of
+  their f32 scores.
 
-Not ported yet: q-scores, the beam decoder, superbatches and ensembles.
+Not ported yet: q-scores, the beam decoder and superbatches.
 """
 
 from __future__ import annotations
@@ -65,6 +69,20 @@ def _score_and_decode(scores: torch.Tensor, n_base: int, state_len: int,
     return decode(scores, n_base, state_len)
 
 
+def _forward(models, batch: torch.Tensor, compute_dtype, lstm_int8: bool):
+    """The f32 CRF scores of one batch: of the model, or for a list of
+    models the MEAN of the members' scores, summed in member order and
+    divided by their count, as ``infer/basecall.py::_apply_maybe_ensemble``
+    of the JAX package does (a product of the members' CRF distributions;
+    their logZ offsets are per-sample constants, so the Viterbi path is
+    that of the normalised mean)."""
+    members = models if isinstance(models, (list, tuple)) else (models,)
+    sc = members[0](batch, compute_dtype=compute_dtype, lstm_int8=lstm_int8)
+    for m in members[1:]:
+        sc = sc + m(batch, compute_dtype=compute_dtype, lstm_int8=lstm_int8)
+    return sc / len(members) if len(members) > 1 else sc
+
+
 def _pad_batch(batch: np.ndarray, batchsize: int) -> tuple[np.ndarray, int]:
     n = len(batch)
     if n == batchsize:
@@ -81,10 +99,14 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
              quantize: bool = False) -> Iterator:
     """Basecall reads lazily on the model's device; yields (read, attrs).
 
+    ``model`` is a model or a list of models of one architecture on one
+    device (an ensemble: the decode runs on the mean of their scores).
     ``reads`` yield objects with ``.signal`` (1-D float32) and ``.read_id``.
     ``cancel`` (a threading.Event) stops the read producer early.
     ``quantize`` uploads ``clip(rint(sig * QUANT_SCALE), -127, 127)`` as
     int8 and runs the model's int8 path (``lstm_int8=True``)."""
+    members = model if isinstance(model, (list, tuple)) else [model]
+    model = members[0]
     device = next(model.parameters()).device
     stride = model.stride
     up_dtype = np.int8 if quantize else (
@@ -119,8 +141,7 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         # stage's .cpu() waits for each batch's labels
         with torch.inference_mode():
             for keys, n, dev in uploads:
-                scores = model(dev, compute_dtype=compute_dtype,
-                               lstm_int8=quantize)
+                scores = _forward(members, dev, compute_dtype, quantize)
                 yield keys, n, _score_and_decode(
                     scores, n_base, state_len, reverse, float(ub_bias))
 

@@ -24,9 +24,10 @@ of batch rows), W_hh split across the blocks' shared memory, and the 720
 dependent steps ordered by per-CTA ready flags in bf16 (each CTA waits
 only for the producers of the h it reads): at up to 64 rows (K3a, K3b, K1
 on the validation batch) clusters of CTAs split W_hh's depth; at more
-than 64 (K1 at the basecall batch) each CTA brings the chunks of h as
-their writers finish by bulk copies (TMA) into an mbarrier ring and
-multiplies them on wgmma.  K7 and the f32 parity paths keep a grid
+than 64 (K1 at the basecall batch) each CTA brings the chunks of h by bulk
+copies (TMA) into an mbarrier ring and multiplies them on wgmma in index
+order, so that every call adds the gates' partial products in one order
+and gives the same bits.  K7 and the f32 parity paths keep a grid
 barrier.  The reverse direction is read in reverse time inside the
 kernels instead of flipping the tensors.
 

@@ -1,0 +1,334 @@
+"""Time K1 (``csrc/lstm_recurrence.cu``, bf16 at the basecall batch) on one
+NVIDIA GPU against another tree's K1 and against variants of either
+tree's design, in turns, and hold each to bit-repeatability.
+
+At the flagship basecall shape (xp [720, 256, 3072], H=768, both
+directions, random inputs from a seed):
+
+  1. print the card's name and power limit; build this tree's K1, the
+     variants of this tree's source in ``VARIANTS`` and, with
+     ``--baseline DIR`` (another tree of this repository, e.g. the parent
+     commit unpacked by ``git archive``), DIR's K1 and the variants of
+     DIR's source in ``BASELINE_VARIANTS``, each with nvcc (a variant is
+     a list of text edits of the source);
+  2. call each kernel 6 times on the same inputs and print the share of ys
+     elements that differ from the first call (0 means bit-repeatable);
+     fail if this tree's kernel is not bit-repeatable;
+  3. time them in turns (a, b, c, c, b, a, ...): the median of 21 calls
+     each, by CUDA events, in each direction.
+
+Run from the repository root:
+    python -m xna_basecaller_tpu_torch.tools.k1_turns [--baseline DIR]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from xna_basecaller_tpu_torch.ops import _build
+
+T, N, H, SEED, REPEATS, REPS = 720, 256, 768, 0, 6, 21
+
+# Design (b) of the sum-order repair, as edits of the kernel it repaired
+# (the arrival-order fetch of the parent tree): each chunk's product in a
+# fresh tile (wgmma with scale-d 0), two tiles in turns, added into 64-bit
+# fixed-point gate sums at 2^-40, converted to f32 once a step.
+_FP_CONSUMER_OLD = (
+    '  const bf16* a_base = ring + (size_t)64 * wg * kHChunk;\n'
+    '\n'
+    '  for (int s = 0; s < T; ++s) {\n'
+    '    const int t = reverse ? T - 1 - s : s;\n'
+    '#pragma unroll\n'
+    '    for (int e = 0; e < 2; ++e)\n'
+    '#pragma unroll\n'
+    '      for (int hf = 0; hf < 2; ++hf) x_raw[e][hf] = x_next[e][hf];\n'
+    '    load_x(min(s + 1, T - 1));\n'
+    '\n'
+    '    float acc[32];\n'
+    '#pragma unroll\n'
+    '    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;\n'
+    '    if (s > 0) {\n'
+    '      if (has_tile) wgmma_fence();\n'
+    '      int prev = -1;\n'
+    '      for (int c = 0; c < n_chunks; ++c, ++it) {\n'
+    '        const int st = it % stages;\n'
+    '        mbar_wait(full + st, (it / stages) & 1);\n'
+    '        const int cc = *(volatile int*)(chunk_of + st);\n'
+    '        if (has_tile) {\n'
+    '          for (int j = 0; j < kSubs && kSubs * cc + j < n_sub; ++j) {\n'
+    '            const int sub = kSubs * cc + j;\n'
+    '            const bf16* a_st =\n'
+    '                a_base + ((size_t)st * kSubs + j) * kRRows * kHChunk;\n'
+    '            const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;\n'
+    '            const int kc = min(kHChunk, H - sub * kHChunk);\n'
+    '            for (int kk = 0; kk < kc; kk += 16)\n'
+    '              wgmma_64x64(acc, sw128_desc(a_st + kk), sw128_desc(b_t + kk));\n'
+    '          }\n'
+    '          wgmma_commit();\n'
+    "          wgmma_wait<1>();   // the previous chunk's products are done\n"
+    '        }\n'
+    '        if (prev >= 0) {\n'
+    '          __syncwarp();\n'
+    '          if (lane == 0) mbar_arrive(empty + prev);\n'
+    '        }\n'
+    '        prev = st;\n'
+    '      }\n'
+    '      if (has_tile) wgmma_wait<0>();\n'
+    '      fence_acc(acc);\n'
+    '      __syncwarp();\n'
+    '      if (lane == 0) mbar_arrive(empty + prev);\n'
+    '    }\n')
+_FP_CONSUMER_NEW = (
+    '  const bf16* a_base = ring + (size_t)64 * wg * kHChunk;\n'
+    '  float part[2][32];\n'
+    '  long long fixed[32];\n'
+    '  auto product = [&](float (&d)[32], int st, int cc) {\n'
+    "    int scale_d = 0;   // the chunk's first k-step starts a fresh tile\n"
+    '    for (int j = 0; j < kSubs && kSubs * cc + j < n_sub; ++j) {\n'
+    '      const int sub = kSubs * cc + j;\n'
+    '      const bf16* a_st = a_base + ((size_t)st * kSubs + j) * kRRows * kHChunk;\n'
+    '      const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;\n'
+    '      const int kc = min(kHChunk, H - sub * kHChunk);\n'
+    '      for (int kk = 0; kk < kc; kk += 16, scale_d = 1)\n'
+    '        wgmma_64x64(d, sw128_desc(a_st + kk), sw128_desc(b_t + kk), scale_d);\n'
+    '    }\n'
+    '  };\n'
+    '  auto absorb = [&](float (&d)[32]) {\n'
+    '    fence_acc(d);\n'
+    '#pragma unroll\n'
+    '    for (int i = 0; i < 32; ++i)\n'
+    '      fixed[i] += __float2ll_rn(d[i] * kFixedScale);\n'
+    '  };\n'
+    '\n'
+    '  for (int s = 0; s < T; ++s) {\n'
+    '    const int t = reverse ? T - 1 - s : s;\n'
+    '#pragma unroll\n'
+    '    for (int e = 0; e < 2; ++e)\n'
+    '#pragma unroll\n'
+    '      for (int hf = 0; hf < 2; ++hf) x_raw[e][hf] = x_next[e][hf];\n'
+    '    load_x(min(s + 1, T - 1));\n'
+    '\n'
+    '#pragma unroll\n'
+    '    for (int i = 0; i < 32; ++i) fixed[i] = 0;\n'
+    '    if (s > 0) {\n'
+    '      int prev = -1;\n'
+    '      for (int c = 0; c < n_chunks; ++c, ++it) {\n'
+    '        const int st = it % stages;\n'
+    '        mbar_wait(full + st, (it / stages) & 1);\n'
+    '        const int cc = *(volatile int*)(chunk_of + st);\n'
+    '        if (has_tile) {\n'
+    '          wgmma_fence();\n'
+    '          if (c & 1)\n'
+    '            product(part[1], st, cc);\n'
+    '          else\n'
+    '            product(part[0], st, cc);\n'
+    '          wgmma_commit();\n'
+    "          wgmma_wait<1>();   // the previous chunk's products are done\n"
+    '          if (c > 0) {\n'
+    '            if (c & 1)\n'
+    '              absorb(part[0]);\n'
+    '            else\n'
+    '              absorb(part[1]);\n'
+    '          }\n'
+    '        }\n'
+    '        if (prev >= 0) {\n'
+    '          __syncwarp();\n'
+    '          if (lane == 0) mbar_arrive(empty + prev);\n'
+    '        }\n'
+    '        prev = st;\n'
+    '      }\n'
+    '      if (has_tile) {\n'
+    '        wgmma_wait<0>();\n'
+    '        if ((n_chunks - 1) & 1)\n'
+    '          absorb(part[1]);\n'
+    '        else\n'
+    '          absorb(part[0]);\n'
+    '      }\n'
+    '      __syncwarp();\n'
+    '      if (lane == 0) mbar_arrive(empty + prev);\n'
+    '    }\n'
+    '    float acc[32];\n'
+    '#pragma unroll\n'
+    '    for (int i = 0; i < 32; ++i)\n'
+    '      acc[i] = __ll2float_rn(fixed[i]) * (1.0f / kFixedScale);\n')
+
+FIXED_POINT = [
+    ("uint64_t db) {", "uint64_t db, int scale_d = 1) {"),
+    (': "l"(da), "l"(db), "r"(1));', ': "l"(da), "l"(db), "r"(scale_d));'),
+    ("constexpr int kMaxStages = 8;       // ring stages of h chunks\n",
+     "constexpr int kMaxStages = 8;       // ring stages of h chunks\n"
+     "constexpr float kFixedScale = 0x1p40f;\n"),
+    (_FP_CONSUMER_OLD, _FP_CONSUMER_NEW),
+]
+# name -> edits of this tree's source
+_SUBS = "constexpr int kMaxSubs = 4;"
+VARIANTS = {
+    # 128-column chunks (6 at H=768) on 4 ring stages, fetched as their
+    # writers finish within a window of 3
+    "128-column chunks": [(_SUBS, _SUBS.replace("4", "2"))],
+    # 64-column chunks (12) on 8 stages, a window of 7
+    "64-column chunks": [(_SUBS, _SUBS.replace("4", "1"))],
+    # 128-column chunks fetched in index order (a window of 1)
+    "128-column chunks in index order": [
+        (_SUBS, _SUBS.replace("4", "2")),
+        ("left & (((1ull << (stages - 1)) - 1) << lo);",
+         "left & (1ull << lo);")],
+}
+# name -> edits of the --baseline tree's source
+BASELINE_VARIANTS = {"fixed-point sums": FIXED_POINT}
+
+
+def build_all(builds: dict) -> dict:
+    """{name: (src, edits)} -> {name: CDLL}: each ``src`` (a
+    lstm_recurrence.cu), with the text ``edits`` made in a copy in this
+    tree's build directory, built with nvcc (the source's own directory on
+    the include path), all started together."""
+    os.makedirs(_build.BUILD, exist_ok=True)
+    procs = {}
+    for i, (name, (src, edits)) in enumerate(builds.items()):
+        include = f"-I{os.path.dirname(os.path.abspath(src))}"
+        if edits:
+            text = open(src).read()
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise SystemExit(f"k1_turns: {name}: the edited text is "
+                                     f"not once in {src}: {old[:60]!r}")
+                text = text.replace(old, new)
+            src = os.path.join(_build.BUILD, f"k1_turns_k{i}.cu")
+            with open(src, "w") as f:
+                f.write(text)
+        out = os.path.join(_build.BUILD, f"k1_turns_k{i}.so")
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, include, "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        print(f"== nvcc {name} (rc={proc.returncode})\n{text}")
+        if proc.returncode:
+            raise SystemExit(f"k1_turns: {name} does not build")
+        libs[name] = ctypes.CDLL(out)
+    return libs
+
+
+def kernel(lib: ctypes.CDLL, tag: str):
+    """fn(xp, w_hh, reverse) -> ys through ``lib``'s ``xna_lstm_recurrence``
+    (the C interface both trees share)."""
+    fn = lib.xna_lstm_recurrence
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    elems = lib.xna_lstm_hbuf_elems
+    elems.argtypes, elems.restype = [ctypes.c_int] * 2, ctypes.c_int
+
+    def run(xp, w_hh, reverse):
+        ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
+        hbuf = torch.zeros(elems(N, H), dtype=xp.dtype, device=xp.device)
+        flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
+        rc = fn(xp.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), None,
+                hbuf.data_ptr(), flags.data_ptr(), T, N, N, H, int(reverse),
+                1, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"k1_turns: {tag}'s kernel returned {rc}")
+        return ys
+    return run
+
+
+def wait(what: str, seconds: float = 60.0):
+    """Wait for the work enqueued on the current stream, polling; exit the
+    process (which ends its kernels) if it takes longer than ``seconds``:
+    a kernel that deadlocks fails the run instead of holding the card."""
+    ev = torch.cuda.Event()
+    ev.record()
+    deadline = time.monotonic() + seconds
+    while not ev.query():
+        if time.monotonic() > deadline:
+            print(f"k1_turns: {what} did not finish in {seconds:.0f} s",
+                  flush=True)
+            os._exit(3)
+        time.sleep(0.001)
+
+
+def in_turns(fns: dict, reps: int = REPS) -> dict:
+    """Median device time (ms) of each function over ``reps`` calls, taken
+    in turns whose order reverses every round, after one warm-up each."""
+    names = list(fns)
+    for n in names:
+        fns[n]()
+        wait(n)
+    times = {n: [] for n in names}
+    for r in range(reps):
+        for n in names if r % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[n]()
+            end.record()
+            wait(n)
+            times[n].append(start.elapsed_time(end))
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", default=None, metavar="DIR")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_turns: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card)
+
+    this_src = os.path.join(_build.CSRC, "lstm_recurrence.cu")
+    builds = {"this tree": (this_src, ()),
+              **{f"this tree, {n}": (this_src, e)
+                 for n, e in VARIANTS.items()}}
+    if args.baseline:
+        base_src = os.path.join(args.baseline, "xna_basecaller_tpu_torch",
+                                "csrc", "lstm_recurrence.cu")
+        builds["baseline"] = (base_src, ())
+        builds.update({f"baseline, {n}": (base_src, e)
+                       for n, e in BASELINE_VARIANTS.items()})
+    kernels = {name: kernel(lib, name)
+               for name, lib in build_all(builds).items()}
+
+    gen = torch.Generator().manual_seed(SEED)
+    xp = (torch.randn(T, N, 4 * H, generator=gen) * 0.5).to(
+        "cuda", torch.bfloat16)
+    w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / H ** 0.5).to(
+        "cuda", torch.bfloat16)
+    for reverse in (False, True):
+        for name, fn in kernels.items():
+            first = fn(xp, w_hh, reverse)
+            wait(name)
+            worst = 0.0
+            for _ in range(REPEATS - 1):
+                again = fn(xp, w_hh, reverse)
+                wait(name)
+                worst = max(worst, (again != first).float().mean().item())
+            print(f"{name}, reverse={reverse}: {REPEATS} calls, at most "
+                  f"{100 * worst:.3f} % of ys differ from the first call")
+            if name == "this tree" and worst:
+                raise SystemExit("k1_turns: this tree's K1 is not "
+                                 "bit-repeatable")
+        times = in_turns({n: (lambda fn=fn: fn(xp, w_hh, reverse))
+                          for n, fn in kernels.items()})
+        for name, ms in times.items():
+            print(f"K1 [{T}, {N}, {4 * H}] reverse={reverse}, {name}: "
+                  f"median {ms:.3f} ms of {REPS} in turns ({card})")
+    torch.cuda.synchronize()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Copied from ``xna_basecaller_tpu/utils/native.py``: the ctypes loader
 and the bindings this package uses (``levenshtein``, ``sw_align``,
-``sw_score_batch``, ``dtw_band``).  The library is built into this
+``sw_align_banded``, ``sw_score_batch``, ``lev_demux``, ``dtw_band``).  The library is built into this
 package's ``build/`` directory, beside the CUDA kernels (a ``.so`` file
 beside the modules would be listed as a Python extension module by
 ``pkgutil``), through a temporary file renamed into place.
@@ -89,6 +89,17 @@ def _load():
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
             ctypes.c_int,
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        lib.lev_demux.restype = ctypes.c_int
+        lib.lev_demux.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.sw_align_banded.restype = ctypes.c_int
+        lib.sw_align_banded.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int)]
         lib.dtw_band.restype = ctypes.c_int
         lib.dtw_band.argtypes = [
             np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
@@ -112,13 +123,30 @@ def levenshtein(a: str, b: str) -> int:
 
 def sw_align(query: str, ref: str):
     """Native SW; returns (score, cigar [(op, n)], (q0, q1, r0, r1))."""
+    return _sw(_load().sw_align, query, ref)
+
+
+def sw_align_banded(query: str, ref: str, dlo: int, dhi: int):
+    """Banded native SW restricted to diagonals j - i in [dlo, dhi].
+
+    Same outputs as sw_align.  Returns None when the native library is
+    unavailable (callers fall back to the full-matrix path).  A weak
+    score can also mean the true alignment left the band — callers must
+    apply their own rescue threshold and re-run sw_align.
+    """
     lib = _load()
+    if lib is None:
+        return None
+    return _sw(lib.sw_align_banded, query, ref, int(dlo), int(dhi))
+
+
+def _sw(fn, query: str, ref: str, *band: int):
     qb, rb = query.encode(), ref.encode()
     bounds = (ctypes.c_int * 4)()
     ops_buf = ctypes.create_string_buffer(len(qb) + len(rb) + 1)
     ops_len = ctypes.c_int(0)
-    score = lib.sw_align(qb, len(qb), rb, len(rb), bounds, ops_buf,
-                         ctypes.byref(ops_len))
+    score = fn(qb, len(qb), rb, len(rb), *band, bounds, ops_buf,
+               ctypes.byref(ops_len))
     if score == 0:
         return 0, [], (0, 0, 0, 0)
     ops = ops_buf.raw[: ops_len.value].decode()
@@ -144,6 +172,22 @@ def sw_score_batch(query: str, refs: list[str]):
     out = np.zeros(len(refs), np.int32)
     lib.sw_score_batch(qb, len(qb), flat, offsets, len(refs), out)
     return out
+
+
+def lev_demux(query: str, candidates: list[str]):
+    """(best index, best distance) over candidate strings, or None when
+    the native library is unavailable (callers loop levenshtein())."""
+    lib = _load()
+    if lib is None:
+        return None
+    qb = query.encode()
+    flat = "".join(candidates).encode()
+    offsets = np.zeros(len(candidates) + 1, np.int32)
+    np.cumsum([len(c) for c in candidates], out=offsets[1:])
+    best_d = ctypes.c_int(0)
+    idx = lib.lev_demux(qb, len(qb), flat, offsets, len(candidates),
+                        ctypes.byref(best_d))
+    return idx, best_d.value
 
 
 def dtw_band(query: np.ndarray, ref: np.ndarray,
