@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (``xna_basecaller_tpu_torch``) on one NVIDIA
 GPU, at the full width of the flagship model (conv 768, 5 x LSTM(768),
 1512-column CRF, chunks of 3600; random weights from a seed): its three
-paths, basecalling (batch 256), the int8 ``--quantize`` basecall (batch
-256) and training (batch 64), plain and with the spike and stitch
+paths, basecalling (batch 256; with the Viterbi, the q-score and the beam
+decodes), the int8 ``--quantize`` basecall (batch 256) and training
+(batch 64), plain and with the spike and stitch
 augmentations, and the bootstrap-data phase that makes stitch's donors
 (basecall, alignment, ctc-data, DTW breakpoints), and the paper's whole
 north-star chain A -> E through the port's north-star script.
@@ -16,7 +17,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      tensors the main path gives it for one batch of simulated reads:
      K1 (LSTM recurrence) in bf16 and f32 (called twice: bit-equal or
      the phase fails), K7 (the int8 recurrence, layer
-     0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode);
+     0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode),
+     the q-score variants of K2b and K2c (bp, v_final and labels
+     bit-equal to the Viterbi kernels', edge_sel and probs against their
+     plain versions) and the beam kernel at the widths BEAM_WIDTHS on the
+     partials of K4 and K2a;
   3. check the model's scores and labels against the plain CPU path on a
      small input, in f32 and quantized; the quantized model's scores
      against the bf16 model's on one batch; ``int8_matmul`` (cuBLASLt)
@@ -24,7 +29,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   4. set every launch count to 0, basecall simulated reads through
      ``infer.basecall.run_basecaller``, read the counts, check every read;
      then the same with ``quantize=True`` (K7 five times a batch, K1 not
-     at all);
+     at all); 4c. with ``qscores=True`` (K2a, the q-score K2b and K2c once
+     a batch, no Viterbi K2b or K2c) and ``beam_width=PIPELINE_BEAM`` (K4,
+     K2a and the beam kernel once a batch), each read's qstring as long
+     as its sequence and valid phred characters, the mean q printed;
   5. hold K3a (trainable LSTM forward) and K3b (its backward recursion)
      against their plain versions on the tensors of one training batch
      (T=720, N=64, H=768; layers 0 and 1, so both directions), in bf16
@@ -99,6 +107,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      ``torch.profiler``), the augment closures with their numpy round trip
      (host clock), medians of 21 in turns, and the training step as the
      ``Trainer`` runs it with and without both augmentations (host clock);
+     the decoders (``time_decoders``): the Viterbi, q-score and beam
+     chains (BEAM_TIMED widths) and K4 at 256 rows in turns, the q-score
+     K2b and K2c in turns with the Viterbi ones, the beam kernel alone
+     (with ``--baseline DIR``, in turns with that tree's and bit-equal to
+     it), each plain version once, one batch through the model and each
+     decode, the pipeline's samples/s with ``qscores`` and with the beam,
+     and the host's q-string, per-base loop against vectorised;
   10. print the whole run's wall time, the ``kernels`` JSON line, then
      the result line.
 
@@ -383,19 +398,23 @@ def scan_kernels(libs: dict, tag: str) -> dict:
 
 
 def baseline_kernels(root: str) -> dict:
-    """K1, K7, K2a, K2b, K2c, K4, K6a and K6b of another tree of this
-    repository (``--baseline DIR``, e.g. a ``git archive`` of the parent
-    commit), to be timed in turns with this tree's.  Their C interface is
-    this tree's, but the lattice's, which is that tree's
-    (``lattice_kernels``); the scratch given K1 and K7 is large enough for
-    either tree's layout of h.
+    """K1, K7, K2a, K2b, K2c, K4, K6a, K6b and, where that tree has it, the
+    beam kernel of another tree of this repository (``--baseline DIR``,
+    e.g. a ``git archive`` of the parent commit), to be timed in turns with
+    this tree's.  Their C interface is this tree's, but the lattice's,
+    which is that tree's (``lattice_kernels``); the scratch given K1 and K7
+    is large enough for either tree's layout of h.
     Returns {"K1": fn(xp, w_hh, reverse), "K7": fn(xp, w_q, scale,
     reverse)} for bf16 xp of at most 256 rows, K2a, K2b, K2c and K4 as
-    ``scan_kernels`` and "lattice" as ``lattice_kernels``."""
+    ``scan_kernels``, "lattice" as ``lattice_kernels`` and "beam" as
+    ``beam_kernel``."""
     import ctypes
 
+    has_beam = os.path.exists(os.path.join(
+        root, "xna_basecaller_tpu_torch", "csrc", "crf_beam.cu"))
     libs = build_tree(root, ("lstm_recurrence", "lstm_int8", "crf_decode",
-                             "crf_loss"), "baseline")
+                             "crf_loss") + ("crf_beam",) * has_beam,
+                      "baseline")
     fns = {}
     for name, entry in (("lstm_recurrence", "xna_lstm_recurrence"),
                         ("lstm_int8", "xna_lstm_int8")):
@@ -429,7 +448,35 @@ def baseline_kernels(root: str) -> dict:
             "K7": lambda xp, w_q, scale, rev=False: launch(
                 "lstm_int8", xp, w_q, scale, rev, torch.int8),
             **scan_kernels(libs, "the baseline tree"),
-            "lattice": lattice_kernels(libs["crf_loss"], "the baseline tree")}
+            "lattice": lattice_kernels(libs["crf_loss"], "the baseline tree"),
+            **({"beam": beam_kernel(libs["crf_beam"], "the baseline tree")}
+               if has_beam else {})}
+
+
+def beam_kernel(lib, tag: str):
+    """The beam kernel through the C entry point of a ``crf_beam`` library
+    built by ``build_tree``: fn(scores, alphas, betas, logz, n_base,
+    state_len, B) -> (labels [N, T] int8, best_score [N])."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.xna_crf_beam
+    fn.argtypes = [P] * 7 + [I] * 5 + [P]
+    fn.restype = I
+
+    def run(scores, alphas, betas, logz, nb, sl, B):
+        T, N, _ = scores.shape
+        hist = torch.empty(N, T, B, dtype=torch.int16, device=scores.device)
+        labels = torch.empty(N, T, dtype=torch.int8, device=scores.device)
+        best = torch.empty(N, device=scores.device)
+        rc = fn(scores.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+                logz.data_ptr(), hist.data_ptr(), labels.data_ptr(),
+                best.data_ptr(), T, N, nb, nb ** sl, B,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{tag}'s beam kernel returned {rc}")
+        return labels, best
+    return run
 
 
 def lattice_kernels(lib, tag: str) -> dict:
@@ -650,6 +697,91 @@ def check_quantized_model(model, cpu_model, codes, scores):
             or mean >= 0.05 or q99 >= 0.5:
         fail("the quantized model's scores are not within the JAX bounds "
              "of the bf16 model's")
+
+
+BEAM_WIDTHS = (1, 8, 32)      # phase 2: the beam kernel against its plain
+BEAM_TIMED = (1, 4, 8, 16)    # phase 9: the beam decode chain's widths
+PIPELINE_BEAM = 8             # phase 4: run_basecaller(beam_width=...)
+NEAR_TIE_SHARE = 16           # phase 2: near ties in at most 1 row in 16
+QUAL_BASES = 400              # phase 9: bases a chunk for the q-string
+
+
+def check_decoders(scores, betas, logz, bp, v_final, labels, nb, sl):
+    """Phase 2 (the q-score and beam decoders) on the flagship batch's
+    scores [720, 256, 1512] and the Viterbi decode's betas, logZ, bp,
+    v_final and labels: the q-score K2b's bp and v_final bit-equal to the
+    Viterbi K2b's, its edge_sel within 4 ulps of |logZ| of the plain
+    version's where their backpointers agree (the edge sums alpha, score,
+    beta and -logZ, terms as large as |logZ|, whose last bits the two
+    versions' alphas round differently); the q-score K2c's labels
+    bit-equal to ``decode_paths_cuda``'s, its probs within 1e-5 of the
+    plain version's on the same bp, v_final and edge_sel (f32, before the
+    f16 cast); the beam kernel at each width of BEAM_WIDTHS against the
+    plain beam on the card on the same scores and the partials of K4 and
+    K2a: best_score within 1e-4 in every row, labels equal in every row
+    whose winner leads the best other sequence by more than 1e-4 (the
+    near ties are counted, and fail the phase in more than one row in
+    NEAR_TIE_SHARE).  Returns the errors and the inputs of the
+    timings."""
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda
+
+    bp_q, v_q, edge_sel = crf_cuda.forward_viterbi_qual(scores, betas, logz,
+                                                        nb, sl)
+    labels_q, probs = crf_cuda.viterbi_traceback_qual(bp_q, v_q, edge_sel,
+                                                      nb, sl)
+    chain = crf_cuda.decode_paths_cuda(scores, nb, sl)
+    same = (torch.equal(bp_q, bp) and torch.equal(v_q, v_final)
+            and torch.equal(labels_q, labels) and torch.equal(labels_q, chain))
+    print(f"K2b/K2c q-score variants: bp, v_final and labels bit-equal to "
+          f"the Viterbi kernels' and decode_paths_cuda's: {same}")
+    if not same:
+        fail("the q-score variants of K2b/K2c change the Viterbi decode")
+    bp_p, _, edge_p = crf.forward_viterbi(scores, betas, logz, nb, sl,
+                                          qual=True)
+    agree = bp_q == bp_p
+    edge_err = (edge_sel[agree] - edge_p[agree]).abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(logz.abs().max().item())) - 23)
+    edge_tol = max(1e-5, 4 * ulp)
+    _, probs_p = crf.viterbi_traceback(bp_q, v_q, nb, sl, edge_sel)
+    probs_err = (probs - probs_p).abs().max().item()
+    print(f"K2b q-score edge_sel vs plain where bp agree "
+          f"({agree.float().mean().item():.6f} of them): max_abs "
+          f"{edge_err:.3e} (tolerance {edge_tol:.3e}); K2c q-score probs vs "
+          f"plain: max_abs {probs_err:.3e} (tolerance 1e-5); probs in "
+          f"[{probs.min().item():.4f}, {probs.max().item():.4f}]")
+    if not edge_err <= edge_tol or not probs_err <= 1e-5 \
+            or agree.float().mean().item() < 1 - 1e-3 \
+            or not bool(torch.isfinite(probs).all()):
+        fail("the q-score variants of K2b/K2c disagree with their plain "
+             "versions")
+    del edge_p, bp_p
+
+    alphas, logz_a = crf_cuda.forward_scan(scores, nb, sl)
+    parts = (alphas, betas, logz_a)
+    beam_err = 0.0
+    for B in BEAM_WIDTHS:
+        got, best = crf_cuda.beam_search(scores, *parts, nb, sl, B)
+        want, best_p, merged, winner = crf._beam_search(scores, *parts, nb,
+                                                        sl, B)
+        err = (best - best_p).abs().max().item()
+        # the winner's lead over the best other sequence of the final beams
+        gap = best_p - torch.where(winner, -1e38, merged).amax(-1)
+        clear = gap > 1e-4
+        ties = int((~clear).sum().item())
+        rows_differ = (got != want).any(1)
+        bad = int((rows_differ & clear).sum().item())
+        print(f"beam kernel B={B} vs plain on the card: best_score max_abs "
+              f"{err:.3e} (tolerance 1e-4), rows differing "
+              f"{int(rows_differ.sum().item())}, of them near ties "
+              f"{int((rows_differ & ~clear).sum().item())} (rows with a "
+              f"near tie: {ties} of {len(gap)}, at most "
+              f"{len(gap) // NEAR_TIE_SHARE}), others {bad} (tolerance 0)")
+        if not err <= 1e-4 or bad or ties > len(gap) // NEAR_TIE_SHARE:
+            fail(f"the beam kernel disagrees with its plain version at "
+                 f"B={B}")
+        beam_err = max(beam_err, err)
+    return ({"K2b-qual": edge_err, "K2c-qual": probs_err, "beam": beam_err},
+            (bp_q, v_q, edge_sel, parts))
 
 
 def scan_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1962,6 +2094,116 @@ def crf_scan_turns(scores, train_scores, lattice, nb, sl, card, baseline):
     return out
 
 
+def time_decoders(model, batch, scores, betas, logz, dec_inputs, nb, sl,
+                  card, baseline):
+    """Phase 9 (the q-score and beam decoders) at the basecall batch, as
+    medians of 21 samples of SCAN_BURST calls taken in turns: the decode
+    chains (Viterbi, q-score, beam at each width of BEAM_TIMED) and K4 at
+    256 rows; the q-score K2b and K2c in turns with the Viterbi ones; the
+    beam kernel alone at each width (with ``--baseline``, in turns with
+    that tree's, held bit-equal to it); each plain version once; one batch
+    through the model and each decode (CUDA events, 3 calls); the host's
+    q-string of 256 chunks of QUAL_BASES bases, per base as JAX's loop
+    and vectorised (host clock, medians of 3).  Returns {kernel: (ms,
+    plain ms)} for the q-score K2b and K2c and the beam kernel (at
+    PIPELINE_BEAM)."""
+    from xna_basecaller_tpu_torch.data.writers import phred, qstring
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda
+
+    bp_q, v_q, edge_sel, parts = dec_inputs
+    T, N = scores.shape[:2]
+    chains = {"Viterbi (K2a, logZ, K2b, K2c)":
+              lambda: crf_cuda.decode_paths_cuda(scores, nb, sl),
+              "q-score (K2a, logZ, K2b-qual, K2c-qual)":
+              lambda: crf_cuda.decode_paths_with_qual_cuda(scores, nb, sl)}
+    for B in BEAM_TIMED:
+        chains[f"beam {B} (K4, K2a, beam)"] = \
+            lambda B=B: crf_cuda.decode_beam_cuda(scores, nb, sl, B)
+    chains["K4 alone"] = lambda: crf_cuda.forward_scan(scores, nb, sl)
+    t = in_turns(chains, burst=SCAN_BURST)
+    print(f"time the decode chains at T={T}, N={N}, medians of 21 samples "
+          f"of {SCAN_BURST} calls in turns: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in t.items()) + f" on {card}")
+    out = {}
+    for k, fns in (
+            ("K2b-qual", {"K2b-qual": lambda: crf_cuda.forward_viterbi_qual(
+                scores, betas, logz, nb, sl),
+                "K2b": lambda: crf_cuda.forward_viterbi(
+                    scores, betas, logz, nb, sl)}),
+            ("K2c-qual", {"K2c-qual": lambda: crf_cuda.viterbi_traceback_qual(
+                bp_q, v_q, edge_sel, nb, sl),
+                "K2c": lambda: crf_cuda.viterbi_traceback(bp_q, v_q, nb,
+                                                          sl)})):
+        tt = in_turns(fns, burst=SCAN_BURST)
+        print(f"time {k} in turns with the Viterbi kernel (T={T}, N={N}), "
+              f"medians of 21 samples of {SCAN_BURST} calls: " + ", ".join(
+                  f"{n} {v:.3f} ms ({v / T * 1e3:.3f} us a step)"
+                  for n, v in tt.items()) + f" on {card}")
+        out[k] = tt[k]
+    fns = {}
+    for B in BEAM_TIMED:
+        fns[B] = lambda B=B: crf_cuda.beam_search(scores, *parts, nb, sl, B)
+        if baseline and "beam" in baseline:
+            theirs = lambda B=B: baseline["beam"](scores, *parts, nb, sl, B)
+            same = all(torch.equal(a, b) for a, b in zip(fns[B](), theirs()))
+            print(f"beam kernel B={B} against the baseline tree's: labels "
+                  f"and best_score bit-equal: {same}")
+            if not same:
+                fail("the beam kernel is not bit-equal to the baseline "
+                     "tree's")
+            fns[f"{B} of the baseline tree"] = theirs
+    beams = in_turns(fns, burst=SCAN_BURST)
+    print(f"time the beam kernel alone (T={T}, N={N}), medians of 21 "
+          f"samples of {SCAN_BURST} calls in turns: " + ", ".join(
+              f"B={B} {v:.3f} ms ({v / T * 1e3:.3f} us a step)"
+              for B, v in beams.items()) + f" on {card}")
+    plain = {
+        "K2b-qual": elapsed_ms(lambda: crf.forward_viterbi(
+            scores, betas, logz, nb, sl, qual=True), 1),
+        "K2c-qual": elapsed_ms(lambda: crf.viterbi_traceback(
+            bp_q, v_q, nb, sl, edge_sel), 1),
+        "beam": elapsed_ms(lambda: crf.beam_search(
+            scores, *parts, nb, sl, PIPELINE_BEAM), 1)}
+    print(f"time the plain versions once: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in plain.items())
+        + f" (beam at B={PIPELINE_BEAM}) on {card}")
+
+    batches = {
+        "model + Viterbi": lambda: crf_cuda.decode_paths_cuda(
+            model(batch), nb, sl),
+        "model + q-score decode": lambda: crf_cuda.decode_paths_with_qual_cuda(
+            model(batch), nb, sl),
+        f"model + beam {PIPELINE_BEAM}": lambda: crf_cuda.decode_beam_cuda(
+            model(batch), nb, sl, PIPELINE_BEAM)}
+    print("time one batch through the model and each decode (mean of 3): "
+          + ", ".join(f"{k} {elapsed_ms(fn, 3):.3f} ms"
+                      for k, fn in batches.items()) + f" on {card}")
+
+    # the host's q-string: the stitched probabilities of 256 chunk-reads
+    probs = crf_cuda.decode_paths_with_qual_cuda(scores, nb, sl)[1].half()
+    probs = probs.float().cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    per_chunk = [probs[i % N][rng.integers(0, T, QUAL_BASES)]
+                 for i in range(256)]
+    loop, vec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        a = ["".join(phred(p) for p in c) for c in per_chunk]
+        t1 = time.perf_counter()
+        b = [qstring(c) for c in per_chunk]
+        t2 = time.perf_counter()
+        loop.append(t1 - t0)
+        vec.append(t2 - t1)
+        if a != b:
+            fail("the vectorised q-string differs from the phred loop")
+    print(f"host q-string of 256 chunks x {QUAL_BASES} bases (host clock, "
+          f"medians of 3): per-base phred loop "
+          f"{statistics.median(loop) * 1e3:.2f} ms, vectorised "
+          f"{statistics.median(vec) * 1e3:.3f} ms, equal strings")
+    return {k: (out.get(k, beams[PIPELINE_BEAM]), plain[k])
+            for k in ("K2b-qual", "K2c-qual", "beam")}
+
+
 def time_training(model, batch, loss_keep, card):
     """Phase 9 (training side): the loss kernel K5b (as ``crf_ms``) with
     its plain version (no PyTorch call computes this function), and one
@@ -2038,9 +2280,9 @@ def main() -> int:
     parser.add_argument(
         "--baseline", default=None, metavar="DIR",
         help="another tree of this repository (e.g. the parent commit, "
-             "unpacked by git archive) whose K1, K7, K2a, K2b, K2c, K4, K6a "
-             "and K6b are timed in turns with this tree's (the CRF kernels "
-             "also held bit-equal), and its decode chain")
+             "unpacked by git archive) whose K1, K7, K2a, K2b, K2c, K4, K6a, "
+             "K6b and beam kernel are timed in turns with this tree's (the "
+             "CRF kernels also held bit-equal), and its decode chain")
     args = parser.parse_args()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2175,6 +2417,8 @@ def main() -> int:
         if n_diff:
             fail("K2c disagrees with its plain version")
         results["K2c_err"] = float(n_diff)
+        dec_errs, dec_inputs = check_decoders(scores, betas, logz, bp,
+                                              v_final, labels, nb, sl)
 
         # -- 3. the model against the plain CPU path, small input --------
         small = batch[:2].float()
@@ -2244,6 +2488,60 @@ def main() -> int:
     print(f"quantized pipeline: {stats_q['samples_per_s']:.4e} samples/s on "
           f"{card}")
 
+    # -- 4c. the q-score and beam decodes, through run_basecaller -------
+    dec_wrappers = {"K1": lstm_cuda.lstm_recurrence,
+                    "K2a": crf_cuda.backward_scan,
+                    "K2b": crf_cuda.forward_viterbi,
+                    "K2c": crf_cuda.viterbi_traceback,
+                    "K2b-qual": crf_cuda.forward_viterbi_qual,
+                    "K2c-qual": crf_cuda.viterbi_traceback_qual,
+                    "K4": crf_cuda.forward_scan,
+                    "beam": crf_cuda.beam_search}
+    dec_launches = {}
+    for path, opts, need in (
+            ("qscores", {"qscores": True},
+             {"K2a": 1, "K2b-qual": 1, "K2c-qual": 1, "K2b": 0, "K2c": 0,
+              "K4": 0, "beam": 0}),
+            (f"beam {PIPELINE_BEAM}", {"beam_width": PIPELINE_BEAM},
+             {"K4": 1, "K2a": 1, "beam": 1, "K2b": 0, "K2c": 0,
+              "K2b-qual": 0, "K2c-qual": 0})):
+        for w in dec_wrappers.values():
+            w.launches = 0
+        fq = io.StringIO()
+        st = run_basecaller(model, iter(reads), fq, chunksize=chunksize,
+                            overlap=overlap, batchsize=batchsize, **opts)
+        got = {k: w.launches for k, w in dec_wrappers.items()}
+        print(f"{path} path: {st} launches {got} (batches {n_batches})")
+        need = {"K1": enc.num_rnn_layers, **need}
+        for k, per_batch in need.items():
+            if got[k] != per_batch * n_batches:
+                fail(f"{k} launched {got[k]} times on the {path} path, "
+                     f"expected {per_batch * n_batches}")
+        dec_launches[path] = got
+        lines = fq.getvalue().split("\n")
+        seqs, quals = lines[1::4], lines[3::4]
+        if st["reads"] != N_READS or len(seqs) != N_READS or not all(seqs) \
+                or not all(set(q) <= set("ACGTXY") for q in seqs) \
+                or any(len(q) != len(q_s) for q, q_s in zip(seqs, quals)) \
+                or not all(33 <= ord(c) <= 126 for q in quals for c in q):
+            fail(f"the {path} path did not return one sequence per read "
+                 "with a valid qstring of its length")
+        if path == "qscores":
+            from xna_basecaller_tpu_torch.data.writers import (
+                mean_qscore_from_qstring,
+            )
+            mean_q = statistics.mean(mean_qscore_from_qstring(q)
+                                     for q in quals)
+            qs = sorted({ord(c) - 33 for q in quals for c in q})
+            print(f"qscores path: mean q of the reads {mean_q:.3f}, q values "
+                  f"{qs}; {st['samples_per_s']:.4e} samples/s on {card}")
+        else:
+            same = sum(a == b for a, b in zip(
+                seqs, fastq.getvalue().split("\n")[1::4]))
+            print(f"{path} path: {same} of {N_READS} reads called as the "
+                  f"Viterbi path calls them; {st['samples_per_s']:.4e} "
+                  f"samples/s on {card}")
+
     # -- 5.-8. the training path -----------------------------------------
     sim = simulate_ctc_dataset(TRAIN_BATCH, chunk_len=chunksize,
                                target_len=400, seed=SEED + 1)
@@ -2304,6 +2602,10 @@ def main() -> int:
                                 nb, sl, card, baseline)
         for k, v in scan_t.items():
             timings[k] = (*v, None)
+        dec_t = time_decoders(model, batch, scores, betas, logz, dec_inputs,
+                              nb, sl, card, baseline)
+        for k, v in dec_t.items():
+            timings[k] = (*v, None)
 
         # the batch's other stages, for the breakdown of its time
         timings["conv stack (f32)"] = elapsed_ms(
@@ -2350,6 +2652,12 @@ def main() -> int:
     steady_q = run_basecaller(model, iter(reads * 4), io.StringIO(),
                               chunksize=chunksize, overlap=overlap,
                               batchsize=batchsize, quantize=True)
+    steady_dec = {path: run_basecaller(
+        model, iter(reads * 4), io.StringIO(), chunksize=chunksize,
+        overlap=overlap, batchsize=batchsize, **opts)
+        for path, opts in (("--qscores", {"qscores": True}),
+                           (f"--beam {PIPELINE_BEAM}",
+                            {"beam_width": PIPELINE_BEAM}))}
     for k, v in timings.items():
         print(f"time {k}: {v} ms on {card}")
     t_train = time_training(model, tbatch, loss_inputs, card)
@@ -2367,6 +2675,9 @@ def main() -> int:
           f"{card}")
     print(f"quantized pipeline, same reads x4: "
           f"{steady_q['samples_per_s']:.4e} samples/s on {card}")
+    for path, st in steady_dec.items():
+        print(f"pipeline {path}, same reads x4: {st['samples_per_s']:.4e} "
+              f"samples/s on {card}")
 
     # bounds from this run's shapes; ops counted per state and step
     C = scores.shape[2]
@@ -2391,6 +2702,21 @@ def main() -> int:
                   T * N * ns * (7 * 7 + 7 + 4 * 7 + 2), PEAK_F32)
     # one backpointer byte per frame along each path, v_final, the labels
     b_k2c = bound(T * N + 4 * N * ns + T * N, N * (ns + 3 * T), PEAK_F32)
+    # the q-score K2b: K2b's bytes and the f32 edge_sel [T, N, ns] written
+    b_k2bq = bound(4 * (T * N * C + T * N * ns + N + N * ns) + T * N * ns
+                   + 4 * T * N * ns, T * N * ns * (7 * 7 + 7 + 4 * 7 + 2),
+                   PEAK_F32)
+    # the q-score K2c: K2c's bytes, an edge_sel element per frame read and
+    # the f32 probs written; an exp per frame more
+    b_k2cq = bound(T * N + 4 * N * ns + T * N + 8 * T * N,
+                   N * (ns + 4 * T), PEAK_F32)
+    # the beam at B = PIPELINE_BEAM: per step and row, the candidates'
+    # scores and betas and one alpha a beam, logZ; labels and best_score
+    # written; per candidate its edge (4 adds), its score, an exp in the
+    # merge, and the pairwise merge and rank compares of the candidates
+    M = PIPELINE_BEAM * (nb + 1)
+    b_beam = bound(4 * T * N * (2 * M + PIPELINE_BEAM) + 4 * N + T * N
+                   + 4 * N, T * N * (6 * M + 2 * M * M), PEAK_F32)
     # the loss kernels at the training shapes
     n_lat = loss_inputs[5].shape[2]
     # K4: alpha lse over 7 (add, max, sub, exp, sum each + log, add)
@@ -2444,11 +2770,26 @@ def main() -> int:
                 loss_errs["K6b"]),
         "K7": ("lstm_recurrence_int8", "lstm_int8.cu",
                "xna_basecaller_tpu/ops/lstm_pallas.py:221", b_k7, k7_err),
+        # the q-score variants of K2b and K2c: JAX's q-score decode is XLA
+        # (ops/crf.py::decode_paths_with_qual)
+        "K2b-qual": ("crf_fwd_viterbi<QUAL> (K2b's q-score variant)",
+                     "crf_decode.cu", "xna_basecaller_tpu/ops/crf.py:806",
+                     b_k2bq, dec_errs["K2b-qual"]),
+        "K2c-qual": ("crf_traceback<QUAL> (K2c's q-score variant)",
+                     "crf_decode.cu", "xna_basecaller_tpu/ops/crf.py:806",
+                     b_k2cq, dec_errs["K2c-qual"]),
+        # no Pallas counterpart: JAX runs the beam search as XLA
+        "beam": (f"crf_beam (B={PIPELINE_BEAM})", "crf_beam.cu",
+                 "xna_basecaller_tpu/ops/crf.py:629", b_beam,
+                 dec_errs["beam"]),
     }
     launches.update({k: train_launches[k] for k in (
         "K3a", "K3b", "K4", "K5b", "K6a", "K6b")})
     launches["K5a"] = train_launches["K2a"]
     launches["K7"] = q_launches["K7"]
+    launches["K2b-qual"] = dec_launches["qscores"]["K2b-qual"]
+    launches["K2c-qual"] = dec_launches["qscores"]["K2c-qual"]
+    launches["beam"] = dec_launches[f"beam {PIPELINE_BEAM}"]["beam"]
     kernels = []
     for k, (name, src, replaces, (b_ms, b_by), err) in meta.items():
         ms, plain_ms, lib_ms = timings[k]

@@ -3,10 +3,16 @@ FASTQ must be identical on the F strand, the R strand and with
 ``legacy_char_stitch``, from simulated reads through ``run_basecaller``,
 and from a fast5 directory through each package's ``basecaller`` CLI;
 with ``--reference --save-ctc --ub-only --sam`` (the bootstrap-data phase)
-the SAM text, the ctc-data files and the summary must be identical."""
+the SAM text, the ctc-data files and the summary must be identical.  So
+must the FASTQ of the q-score and the beam decodes (``qscores=True``,
+``beam_width=4``, both strands; ``--qscores``, ``--beam 4``), and the SAM
+and summary of ``--reference --sam --qscores``; ``--qscores --superbatch
+2`` warns as JAX does and writes what ``--qscores`` writes; ``--profile``
+writes a trace."""
 
 import functools
 import io
+import json
 import os
 
 import jax
@@ -68,6 +74,44 @@ def test_run_basecaller_fastq_matches_jax(model_dir, opts):
     assert fq_port.getvalue() == fq_jax.getvalue()
     seqs = fq_port.getvalue().split("\n")[1::4]
     assert all(len(s) > 0 and set(s) <= set("ACGTXY") for s in seqs)
+
+
+@pytest.mark.parametrize("opts", [
+    {"qscores": True}, {"qscores": True, "reverse": True},
+    {"beam_width": 4}, {"beam_width": 4, "reverse": True},
+    {"qscores": True, "beam_width": 4}])
+def test_run_basecaller_qscores_and_beam_match_jax(model_dir, opts):
+    """The q-score decode (real qualities) and the beam decode through
+    ``run_basecaller``: FASTQ identical to JAX's (with both, the q-score
+    decode runs, as in JAX)."""
+    d, jmodel, jparams = model_dir
+    reads = list(simulate_reads(3, mean_len=3000, seed=6))
+    fq_jax, fq_port = io.StringIO(), io.StringIO()
+    jbasecall.run_basecaller(jmodel, jparams, iter(reads), fq_jax,
+                             compute_dtype=jnp.float32, **OPTS, **opts)
+    model, _ = load_model(d, device="cpu")
+    tbasecall.run_basecaller(model, iter(reads), fq_port,
+                             compute_dtype=torch.float32, **OPTS, **opts)
+    assert fq_port.getvalue() == fq_jax.getvalue()
+    lines = fq_port.getvalue().split("\n")
+    seqs, quals = lines[1::4], lines[3::4]
+    assert all(len(s) == len(q) > 0 for s, q in zip(seqs, quals))
+    if opts.get("qscores"):
+        assert any(set(q) - {"O"} for q in quals)
+
+
+def test_basecall_refuses_superbatches_without_qscores_or_beam(model_dir,
+                                                               capsys):
+    d, _, _ = model_dir
+    model, _ = load_model(d, device="cpu")
+    reads = list(simulate_reads(1, mean_len=1500, seed=5))
+    with pytest.raises(NotImplementedError, match="superbatch"):
+        list(tbasecall.basecall(model, iter(reads), superbatch=2, **OPTS))
+    out = list(tbasecall.basecall(model, iter(reads), superbatch=3,
+                                  beam_width=2, **OPTS))
+    assert len(out) == 1
+    assert "--superbatch 3 ignored (runs as 1): qscores/beam decoding is " \
+        "not superbatched" in capsys.readouterr().err
 
 
 def test_basecall_bf16_runs_on_cpu(model_dir):
@@ -203,3 +247,86 @@ def test_cli_save_ctc_needs_a_reference(model_dir, fast5_dir, tmp_path,
         assert exc.value.code == 1
         assert "a reference is needed" in capsys.readouterr().err
     assert not (tmp_path / "ctc").exists()
+
+
+@pytest.mark.parametrize("flags", [["--qscores"], ["--beam", "4"],
+                                   ["--qscores", "--revcomp"]])
+def test_cli_qscores_and_beam_match_jax_cli(model_dir, fast5_dir, flags,
+                                            capsys, f32_clis):
+    d, _, _ = model_dir
+    args = [d, fast5_dir, "--chunksize", "1200", "--overlap", "200",
+            "--batchsize", "4", *flags]
+    jax_cli(["basecaller", *args])
+    want = capsys.readouterr().out
+    port_cli(["basecaller", *args, "--device", "cpu"])
+    assert capsys.readouterr().out == want
+    assert want.count("\n") == 8
+
+
+def test_cli_qscores_superbatch_warns_and_calls_as_without(
+        model_dir, fast5_dir, capsys, f32_clis):
+    """``--qscores --superbatch 2``: JAX's warning on stderr, and the
+    output of ``--qscores`` alone (in both packages)."""
+    d, _, _ = model_dir
+    args = [d, fast5_dir, "--chunksize", "1200", "--overlap", "200",
+            "--batchsize", "4", "--qscores"]
+    port_cli(["basecaller", *args, "--device", "cpu"])
+    alone = capsys.readouterr().out
+    outs = []
+    for cli, extra in ((jax_cli, []), (port_cli, ["--device", "cpu"])):
+        cli(["basecaller", *args, "--superbatch", "2", *extra])
+        out, err = capsys.readouterr()
+        outs.append(out)
+        assert "[basecall] --superbatch 2 ignored (runs as 1): " \
+            "qscores/beam decoding is not superbatched" in err
+    assert outs == [alone, alone]
+
+
+def test_cli_sam_with_qscores_matches_jax_cli(model_dir, fast5_dir,
+                                              tmp_path, capsys, f32_clis):
+    """``--reference --sam --qscores --summary``: the SAM (its QUAL column
+    the real qualities) and the summary (its mean_qscore from them)
+    identical to JAX's."""
+    from xna_basecaller_tpu.data.fast5 import get_reads
+    from xna_basecaller_tpu_torch.data.writers import (
+        mean_qscore_from_qstring,
+    )
+
+    d, jmodel, jparams = model_dir
+    calls = [a["sequence"] for _, a in jbasecall.basecall(
+        jmodel, jparams, get_reads(fast5_dir, n_proc=1),
+        compute_dtype=jnp.float32, **OPTS)]
+    fasta = tmp_path / "ref.fasta"
+    self_reference(calls, fasta)
+
+    def run(cli, name, *extra):
+        summary = tmp_path / f"{name}.tsv"
+        cli(["basecaller", d, fast5_dir, "--chunksize", "1200",
+             "--overlap", "200", "--batchsize", "4", "--reference",
+             str(fasta), "--sam", "--qscores", "--summary", str(summary),
+             *extra])
+        return capsys.readouterr().out, summary.read_text()
+
+    want = run(jax_cli, "jax")
+    got = run(port_cli, "port", "--device", "cpu")
+    assert got == want
+    records = [ln.split("\t") for ln in got[0].splitlines()
+               if not ln.startswith("@")]
+    assert len(records) == 2 and all(set(r[10]) - {"O"} for r in records)
+    header, *rows = [ln.split("\t") for ln in got[1].splitlines()]
+    q = header.index("mean_qscore_template")
+    assert len(rows) == 2 and [float(r[q]) for r in rows] == [
+        mean_qscore_from_qstring(r[10]) for r in records]
+
+
+def test_cli_profile_writes_a_trace(model_dir, fast5_dir, tmp_path, capsys):
+    d, _, _ = model_dir
+    trace_dir = tmp_path / "prof"
+    port_cli(["basecaller", d, fast5_dir, "--chunksize", "1200",
+              "--overlap", "200", "--batchsize", "4", "--device", "cpu",
+              "--profile", str(trace_dir)])
+    out, err = capsys.readouterr()
+    assert out.count("\n") == 8
+    trace = trace_dir / "trace.json"
+    assert f"> profile trace: {trace}" in err
+    assert json.loads(trace.read_text())["traceEvents"]

@@ -5,7 +5,8 @@ and every CSV byte-equal, the summary equal), ``basecall_and_eval`` with a
 small model (2 layers, 64 features) carried across in JAX's checkpoint
 layout, in f32 (the FASTQ byte-equal, the summary equal), checkpoint
 ensembles (two members: the FASTQ byte-equal to JAX's decode of the
-``params`` list; ``[m, m]`` equal to ``m``), and ``train_and_eval``'s
+``params`` list; ``[m, m]`` equal to ``m``), both also with the beam
+decode (``beam_width=4``), and ``train_and_eval``'s
 orchestration as ``tests/test_train_and_eval.py`` drives JAX's."""
 
 import filecmp
@@ -146,14 +147,6 @@ def test_eval_model_on_a_fastq_equals_jax(tmp_path, split):
     _same_tree(str(tmp_path / "jax"), str(tmp_path / "port"))
 
 
-def test_beam_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        eval_model.eval_model("POC", str(tmp_path), beam_width=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        eval_model.basecall_and_eval(str(tmp_path), [], "POC", "val",
-                                     beam_width=4)
-
-
 @pytest.fixture(scope="module")
 def members(tmp_path_factory):
     """Two model dirs of one small architecture (2 layers, 64 features),
@@ -205,6 +198,41 @@ def test_basecall_and_eval_equals_jax(tmp_path, members, lib_reads, f32,
         text = a.read()
         assert text == b.read()
     assert text.count("\n") == 4 * len(lib_reads)
+    assert got == want
+    _same_tree(jdir, pdir)
+
+
+@pytest.mark.parametrize("n_members", [1, 2])
+def test_basecall_and_eval_with_a_beam_equals_jax(tmp_path, members,
+                                                  lib_reads, f32, n_members):
+    """``beam_width=4`` reaches the basecall in both packages (the beam
+    decode, of one model or of the ensemble's mean scores): the FASTQ
+    byte-equal, the summary equal, and the calls not all the Viterbi
+    decode's FASTQ."""
+    dirs = members[:n_members]
+    arg = dirs if n_members > 1 else dirs[0]
+    outs = {}
+    for name, fn in (("jax", jeval.basecall_and_eval),
+                     ("port", functools.partial(
+                         eval_model.basecall_and_eval, device="cpu")),
+                     ("viterbi", None)):
+        out = str(tmp_path / name)
+        if fn is None:
+            outs[name] = (out, eval_model.basecall_and_eval(
+                arg, lib_reads, "POC", "val", batchsize=4, out_dir=out,
+                device="cpu", **QUIET))
+            continue
+        outs[name] = (out, fn(arg, lib_reads, "POC", "val", batchsize=4,
+                              out_dir=out, beam_width=4, **QUIET))
+    (jdir, want), (pdir, got) = outs["jax"], outs["port"]
+    fq = "reads-POC-val.fastq"
+    texts = {}
+    for name, (d, _) in outs.items():
+        with open(os.path.join(d, fq)) as fh:
+            texts[name] = fh.read()
+    assert texts["port"] == texts["jax"]
+    assert texts["port"].count("\n") == 4 * len(lib_reads)
+    assert texts["port"] != texts["viterbi"]
     assert got == want
     _same_tree(jdir, pdir)
 

@@ -26,8 +26,15 @@ K6b) whether stay and move come as the loss's packed views, as contiguous
 tensors or as the slices of the loss's gather.  The int8 recurrence (K7): as
 K1, f32 1e-4 and bf16 2e-2 absolute, and in bf16 at most 1e-3 of ys
 differing at all (the bf16 h at even steps; without that rule about 30 %
-differ).
+differ).  The q-score K2b: bp and v_final bit-equal to the Viterbi K2b's,
+edge_sel within 4 ulps of |logZ| of the plain version's; the q-score K2c:
+labels bit-equal, probs within 1e-6.  The beam kernel: best_score within
+1e-4 (rtol 1e-6) of the plain beam's on the same partials, labels equal
+wherever the winner leads the best other sequence by more than 1e-4, and
+such near ties in at most one row in 16.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -660,3 +667,153 @@ def test_ensemble_of_one_model_twice_calls_as_the_model(cuda):
     alone = calls(model)
     assert len(alone) == len(reads)
     assert calls([model, model]) == alone
+
+
+# The q-score variants of K2b and K2c (forward_viterbi_qual,
+# viterbi_traceback_qual), and the beam kernel (beam_search).
+
+def _qual_launches():
+    return (crf_cuda.forward_viterbi_qual.launches,
+            crf_cuda.viterbi_traceback_qual.launches)
+
+
+@pytest.mark.parametrize("n_base,state_len", _RING_ALPHABETS)
+@pytest.mark.parametrize("N", [1, 75, 256])
+@pytest.mark.parametrize("T", _RING_T + [720])
+def test_qual_decode_kernels_match_plain(cuda, T, N, n_base, state_len):
+    """The q-score K2b on the same scores, betas and logZ as the Viterbi
+    K2b: backpointers and v_final bit-equal to its (the flag adds a store
+    and changes no operation).  Its edge_sel within 4 ulps of |logZ| (at
+    least 1e-5) of the plain version's where their backpointers agree: the
+    edge sums alpha, the score, beta and -logZ, terms as large as |logZ|,
+    whose last bits the two versions' alphas round differently (one ulp,
+    9.8e-4 at |logZ| ~ 8000, seen at T=720).  The q-score K2c: labels
+    bit-equal to the Viterbi K2c's on the same bp and v_final, probs
+    within 1e-6 of the plain version's on the same bp, v_final and
+    edge_sel (one expf each); one launch each."""
+    s = _card_scores(n_base, state_len, T, N, seed=T * 1000 + N + 11)
+    betas, logz = _viterbi_inputs(s, n_base, state_len)
+    before = _qual_launches()
+    bp, v, edge_sel = crf_cuda.forward_viterbi_qual(s, betas, logz, n_base,
+                                                    state_len)
+    labels, probs = crf_cuda.viterbi_traceback_qual(bp, v, edge_sel, n_base,
+                                                    state_len)
+    torch.cuda.synchronize()
+    assert _qual_launches() == (before[0] + 1, before[1] + 1)
+    bp_v, v_v = crf_cuda.forward_viterbi(s, betas, logz, n_base, state_len)
+    assert torch.equal(bp, bp_v) and torch.equal(v, v_v)
+    assert torch.equal(labels, crf_cuda.viterbi_traceback(
+        bp, v, n_base, state_len))
+    bp_p, _, edge_p = crf.forward_viterbi(s, betas, logz, n_base,
+                                          state_len, qual=True)
+    agree = bp == bp_p
+    assert agree.float().mean().item() >= 1 - 1e-3
+    ulp = 2.0 ** (math.floor(math.log2(logz.abs().max().item())) - 23)
+    torch.testing.assert_close(edge_sel[agree], edge_p[agree], rtol=0,
+                               atol=max(1e-5, 4 * ulp))
+    labels_p, probs_p = crf.viterbi_traceback(bp, v, n_base, state_len,
+                                              edge_sel)
+    assert torch.equal(labels, labels_p)
+    assert probs.dtype == torch.float32 and probs.shape == (N, T)
+    torch.testing.assert_close(probs, probs_p, rtol=0, atol=1e-6)
+
+
+def test_qual_decode_chain_labels_are_the_viterbi_decodes(cuda):
+    """decode_paths_with_qual_cuda: K2a, K2b-qual and K2c-qual once each,
+    labels bit-equal to decode_paths_cuda's, probs in (0, 1]."""
+    s = _card_scores(6, 3, 300, 64, seed=5)
+    before = (crf_cuda.backward_scan.launches, *_qual_launches())
+    labels, probs = crf_cuda.decode_paths_with_qual_cuda(s, 6, 3)
+    torch.cuda.synchronize()
+    assert (crf_cuda.backward_scan.launches, *_qual_launches()) == tuple(
+        b + 1 for b in before)
+    assert torch.equal(labels, crf_cuda.decode_paths_cuda(s, 6, 3))
+    assert bool(((probs > 0) & (probs <= 1 + 1e-5)).all())
+
+
+# Beam widths: 1; 2 and 8; 32 (past a warp of candidates at 6 bases); 128
+# (JAX's tests) and 256, the widest the kernel takes.  Alphabets: (2, 1)
+# has 6 edges, fewer than most widths (JAX's padding, dead beams); (5, 3)
+# and (7, 2) read device memory directly (rows not multiples of 16 bytes),
+# the others take the ring.
+_BEAM_B = [1, 2, 8, 32, 128, 256]
+_BEAM_ALPHABETS = [(2, 1), (4, 2), (4, 3), (5, 3), (6, 3), (7, 2)]
+
+
+def _beam_inputs(s, n_base, state_len):
+    alphas, logz = crf_cuda.forward_scan(s, n_base, state_len)
+    betas = crf_cuda.backward_scan(s, n_base, state_len)
+    return alphas, betas, logz
+
+
+def _hold_beam_to_plain(got, s, parts, n_base, state_len, B):
+    """The beam kernel's (labels, best_score) against the plain version's
+    on the same scores and partials: best_score within 1e-4 (rtol 1e-6) in
+    every row (the merge's log-sum-exp of 3 or more candidates adds in
+    another order); labels equal in every row whose winner leads the best
+    other sequence by more than 1e-4 (a nearer tie may go either way), and
+    such near ties in at most one row in 16 (one at least), so that the
+    exemption cannot cover a kernel wrong in many rows."""
+    labels, best = got
+    want, want_best, merged, winner = crf._beam_search(
+        s, *parts, n_base, state_len, B)
+    assert labels.dtype == torch.int8 and labels.shape == want.shape
+    torch.testing.assert_close(best, want_best, rtol=1e-6, atol=1e-4)
+    gap = want_best - torch.where(winner, -1e38, merged).amax(-1)
+    clear = gap > 1e-4
+    assert int((~clear).sum()) <= max(1, len(gap) // 16)
+    assert torch.equal(labels[clear], want[clear])
+
+
+@pytest.mark.parametrize("B", _BEAM_B)
+@pytest.mark.parametrize("n_base,state_len", _BEAM_ALPHABETS)
+@pytest.mark.parametrize("T,N", [(1, 3), (2, 5), (9, 4), (40, 3)])
+def test_beam_kernel_matches_plain(cuda, T, N, n_base, state_len, B):
+    s = _card_scores(n_base, state_len, T, N, seed=T * 100 + N + B)
+    parts = _beam_inputs(s, n_base, state_len)
+    before = crf_cuda.beam_search.launches
+    got = crf_cuda.beam_search(s, *parts, n_base, state_len, B)
+    torch.cuda.synchronize()
+    assert crf_cuda.beam_search.launches == before + 1
+    _hold_beam_to_plain(got, s, parts, n_base, state_len, B)
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_beam_kernel_at_the_basecall_batch(cuda, B):
+    """The flagship's alphabet at T=720 and 256 rows, through the ring."""
+    s = _card_scores(6, 3, 720, 256, seed=B)
+    parts = _beam_inputs(s, 6, 3)
+    got = crf_cuda.beam_search(s, *parts, 6, 3, B)
+    _hold_beam_to_plain(got, s, parts, 6, 3, B)
+
+
+@pytest.mark.parametrize("n_base,state_len", [(4, 2), (6, 3)])
+def test_beam_kernel_takes_rows_at_any_alignment(cuda, n_base, state_len):
+    """Scores that start 4 bytes into their allocation read device memory
+    directly: labels and best_score bit-equal to the ring's on the same
+    values 16-byte aligned."""
+    s = _card_scores(n_base, state_len, 40, 9, seed=3, offset=1)
+    aligned = s.clone()
+    parts = _beam_inputs(aligned, n_base, state_len)
+    for B in (1, 8, 64):
+        got = crf_cuda.beam_search(s, *parts, n_base, state_len, B)
+        want = crf_cuda.beam_search(aligned, *parts, n_base, state_len, B)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_beam_decode_chain_runs_its_kernels(cuda):
+    """decode_beam_cuda: K4, K2a and the beam kernel once each, no K2b or
+    K2c; a width past the kernel's limit raises, naming it."""
+    s = _card_scores(6, 3, 100, 16, seed=9)
+    names = ("forward_scan", "backward_scan", "beam_search",
+             "forward_viterbi", "viterbi_traceback")
+    before = {k: getattr(crf_cuda, k).launches for k in names}
+    labels, best = crf_cuda.decode_beam_cuda(s, 6, 3, 8)
+    torch.cuda.synchronize()
+    moved = {k: getattr(crf_cuda, k).launches - before[k] for k in names}
+    assert moved == {"forward_scan": 1, "backward_scan": 1,
+                     "beam_search": 1, "forward_viterbi": 0,
+                     "viterbi_traceback": 0}
+    _hold_beam_to_plain((labels, best), s, _beam_inputs(s, 6, 3), 6, 3, 8)
+    with pytest.raises(ValueError, match=str(crf_cuda.MAX_BEAM_WIDTH)):
+        crf_cuda.decode_beam_cuda(s, 6, 3, crf_cuda.MAX_BEAM_WIDTH + 1)

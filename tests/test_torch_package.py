@@ -64,7 +64,7 @@ def test_no_jax_import_lines():
 def test_nothing_built_at_import():
     # importing every module builds no kernel (nvcc runs at first use)
     assert _build.build_log() == ""
-    assert set(_build.sources()) == {"crf_decode", "crf_loss",
+    assert set(_build.sources()) == {"crf_beam", "crf_decode", "crf_loss",
                                      "lstm_backward", "lstm_int8",
                                      "lstm_recurrence"}
 
@@ -121,8 +121,7 @@ def test_wrappers_refuse_tensors_they_cannot_take():
 @pytest.mark.parametrize("flag", sorted(NOT_PORTED))
 def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
     # a value that changes JAX's result: not its default
-    value = {"--qscores": [], "--beam": ["4"],
-             "--superbatch": ["2"]}.get(flag, ["1"])
+    value = {"--superbatch": ["2"]}.get(flag, ["1"])
     with pytest.raises(SystemExit) as exc:
         port_cli(["basecaller", str(tmp_path), str(tmp_path), flag, *value,
                   "--device", "cpu"])
@@ -137,6 +136,9 @@ def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
     # with --save-ctc
     ["--beamsize", "1", "--ctc-min-coverage", "0.5", "--ctc-min-accuracy",
      "0.1"],
+    # with --qscores or --beam JAX runs --superbatch G as 1 (a warning)
+    ["--qscores", "--superbatch", "2"],
+    ["--beam", "3", "--superbatch", "4"],
 ])
 def test_cli_accepts_what_changes_no_result(args, tmp_path):
     """Values with which JAX computes what the port does pass the flag

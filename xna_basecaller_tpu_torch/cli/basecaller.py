@@ -6,12 +6,18 @@ FASTQ, or with ``--reference`` SAM (``--sam``, ``--read-group``), the
 summary's alignment columns and, with ``--save-ctc``, ctc-data made of the
 reads' chunks that align (``--ctc-min-coverage``, ``--ctc-min-accuracy``,
 ``--ub-only``): phase B of the paper's chain, whose DTW breakpoints
-``tools/dtw_segmentation.py`` writes.  The flags of the JAX command that
-this package does not port yet are still recognised, and each is refused
-with an error instead of being ignored, but only where it would change the
-result: the JAX defaults (``--beam 0``, ``--superbatch 1``) and
-``--beamsize`` (JAX reads it only for the CTC family, which this package
-does not load) are accepted, as JAX does nothing with them.  Comma-separated
+``tools/dtw_segmentation.py`` writes.  ``--qscores`` writes real per-base
+qualities (the FASTQ's and SAM's, and the summary's ``mean_qscore``),
+``--beam W`` decodes with the path-collapsing beam search, ``--profile
+DIR`` writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``.
+The flags of the JAX command that this package does not port yet
+(``--cram``, ``--bam``, ``--mods-model``, and ``--superbatch`` above 1
+without ``--qscores`` or ``--beam``) are still recognised, and each is
+refused with an error instead of being ignored, but only where it would
+change the result: ``--superbatch 1`` and ``--beamsize`` (JAX reads it only
+for the CTC family, which this package does not load) are accepted, as JAX
+does nothing with them, and ``--superbatch G`` together with ``--qscores``
+or ``--beam``, where JAX runs it as 1 with a warning.  Comma-separated
 model directories basecall as a checkpoint ensemble, as in JAX.
 """
 
@@ -25,16 +31,17 @@ from time import perf_counter
 
 # flag -> argparse dest of the options that are not ported yet
 NOT_PORTED = {
-    "--cram": "cram", "--bam": "bam", "--beam": "beam",
-    "--qscores": "qscores", "--superbatch": "superbatch",
-    "--mods-model": "mods_model", "--profile": "profile",
+    "--cram": "cram", "--bam": "bam", "--superbatch": "superbatch",
+    "--mods-model": "mods_model",
 }
 # the values with which JAX does what this package does
-INERT = {"beam": 0, "superbatch": 1}
+INERT = {"superbatch": 1}
 
 
 def main(args):
     for flag, dest in NOT_PORTED.items():
+        if dest == "superbatch" and (args.qscores or args.beam > 0):
+            continue   # runs as 1, with JAX's warning (infer.basecall)
         if getattr(args, dest) not in (None, False, INERT.get(dest)):
             sys.exit(f"xnacall basecaller: {flag} is not ported to "
                      "xna_basecaller_tpu_torch yet")
@@ -108,6 +115,7 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
     )
     from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
     from xna_basecaller_tpu_torch.infer.basecall import basecall
+    from xna_basecaller_tpu_torch.utils.device import profiled
 
     out = sys.stdout if out is None else out
     targets = None
@@ -139,39 +147,45 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
 
     summary_fh = open(args.summary, "w") if args.summary else None
     header_written = False
+    first = model[0] if isinstance(model, (list, tuple)) else model
     t0 = perf_counter()
     n_reads = n_samples = 0
     try:
-        for read, attrs in basecall(
-                model, reads, chunksize=chunksize,
-                overlap=cfg.basecaller.overlap,
-                batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
-                cancel=cancel, ub_bias=args.ub_bias,
-                quantize=args.quantize or cfg.basecaller.quantize):
-            n_reads += 1
-            n_samples += len(read.signal)
-            seq, qstring = attrs["sequence"], attrs["qstring"]
-            mapping, refseq = (None, None)
-            if targets is not None and len(seq):
-                mapping, refseq = align(seq, targets)
-            if ctc_writer is not None:
-                ctc_writer.add(read.signal[:chunksize], seq, mapping,
-                               refseq=refseq)
-            if len(seq):
-                if sam is not None:
-                    sam.write(read.read_id, seq, qstring, mapping)
-                else:
-                    write_fastq(out, read.read_id, seq, qstring)
-            if summary_fh is not None:
-                row = summary_row(read, len(seq),
-                                  mean_qscore_from_qstring(qstring),
-                                  alignment=mapping)
-                if not header_written:
-                    summary_fh.write("\t".join(row) + "\n")
-                    header_written = True
-                summary_fh.write(
-                    "\t".join(str(v) for v in row.values()) + "\n")
-        duration = perf_counter() - t0
+        with profiled(args.profile, next(first.parameters()).device,
+                      lambda trace: sys.stderr.write(
+                          f"> profile trace: {trace}\n")):
+            for read, attrs in basecall(
+                    model, reads, chunksize=chunksize,
+                    overlap=cfg.basecaller.overlap,
+                    batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
+                    qscores=args.qscores, cancel=cancel,
+                    quantize=args.quantize or cfg.basecaller.quantize,
+                    beam_width=args.beam, superbatch=args.superbatch,
+                    ub_bias=args.ub_bias):
+                n_reads += 1
+                n_samples += len(read.signal)
+                seq, qstring = attrs["sequence"], attrs["qstring"]
+                mapping, refseq = (None, None)
+                if targets is not None and len(seq):
+                    mapping, refseq = align(seq, targets)
+                if ctc_writer is not None:
+                    ctc_writer.add(read.signal[:chunksize], seq, mapping,
+                                   refseq=refseq)
+                if len(seq):
+                    if sam is not None:
+                        sam.write(read.read_id, seq, qstring, mapping)
+                    else:
+                        write_fastq(out, read.read_id, seq, qstring)
+                if summary_fh is not None:
+                    row = summary_row(read, len(seq),
+                                      mean_qscore_from_qstring(qstring),
+                                      alignment=mapping)
+                    if not header_written:
+                        summary_fh.write("\t".join(row) + "\n")
+                        header_written = True
+                    summary_fh.write(
+                        "\t".join(str(v) for v in row.values()) + "\n")
+            duration = perf_counter() - t0
         if ctc_writer is not None:
             ctc_writer.save()
         sys.stderr.write(f"> completed reads: {n_reads}\n")
@@ -207,6 +221,12 @@ def argparser():
     parser.add_argument("--beamsize", default=5, type=int,
                         help="CTC-family beam width: accepted for the JAX "
                              "command's sake, CRF models do not read it")
+    parser.add_argument("--beam", default=0, type=int, metavar="W",
+                        help="CRF path-collapsing beam width (0 = Viterbi; "
+                             "1 to 256 on the card)")
+    parser.add_argument("--qscores", action="store_true",
+                        help="emit real per-base qualities from posterior "
+                             "confidences (reference UB path uses dummies)")
     parser.add_argument("--weights", default=0, type=int,
                         help="checkpoint epoch (0 = latest)")
     parser.add_argument("--chunksize", default=None, type=int)
@@ -235,13 +255,15 @@ def argparser():
     parser.add_argument("--ctc-min-accuracy", default=0.95, type=float)
     parser.add_argument("--ub-only", action="store_true",
                         help="keep only chunks whose reference contains a UB")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace (CPU and CUDA "
+                             "activity) of the run to DIR/trace.json")
     not_ported = parser.add_argument_group(
         "not ported yet (each is refused with an error)")
-    for flag in ("--cram", "--bam", "--mods-model", "--profile"):
+    for flag in ("--cram", "--bam", "--mods-model"):
         not_ported.add_argument(flag, default=None)
-    not_ported.add_argument("--beam", default=0, type=int,
-                            help="only 0 (Viterbi)")
     not_ported.add_argument("--superbatch", default=1, type=int,
-                            help="only 1")
-    not_ported.add_argument("--qscores", action="store_true")
+                            metavar="G",
+                            help="only 1, or any G with --qscores or --beam "
+                                 "(runs as 1, with a warning, as in JAX)")
     return parser

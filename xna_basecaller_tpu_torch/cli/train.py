@@ -116,24 +116,11 @@ def main(args):
         grad_accum_split=args.grad_accum_split,
         frozen_predicate=frozen_predicate,
     )
-    if not args.profile:
-        trainer.fit(workdir, epochs=args.epochs)
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from xna_basecaller_tpu_torch.utils.device import profiled
 
-    on_card = trainer.device.type == "cuda"
-    activities = [ProfilerActivity.CPU]
-    if on_card:
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profiled(args.profile, trainer.device, lambda trace:
+                  sys.stderr.write(f"[profile trace: {trace}]\n")):
         trainer.fit(workdir, epochs=args.epochs)
-        if on_card:
-            torch.cuda.synchronize()
-    os.makedirs(args.profile, exist_ok=True)
-    trace = os.path.join(args.profile, "trace.json")
-    prof.export_chrome_trace(trace)
-    sys.stderr.write(f"[profile trace: {trace}]\n")
 
 
 def argparser():

@@ -1,5 +1,5 @@
 // K2a, K2b, K2c: the CRF decode chain (Viterbi over log edge posteriors),
-// for Hopper.
+// for Hopper, with the q-score variants of K2b and K2c.
 //
 // Replace the three kernels of
 // xna_basecaller_tpu/ops/crf_pallas.py::_decode_paths_impl:
@@ -43,6 +43,17 @@
 // or plain loads for rows of other sizes), while thread 0 walks
 // the chunk before, reading shared memory only, and the labels go out as
 // coalesced rows a chunk behind the walk.
+//
+// The q-score variants (template flag QUAL; JAX's decode_paths_with_qual,
+// ops/crf.py:806-857, which XLA runs on the TPU): K2b also writes the raw
+// edge of the column it chose, edge_sel[t, n, j] = (a[best_k] + beta) -
+// logZ in f32 ([T, N, n_state], as large as the betas: 159 MB at the
+// flagship batch, one coalesced row a step); K2c's walker also records the
+// state it visits at each step of a chunk in shared memory, and the copy
+// warps, when they write that chunk's labels, gather edge_sel at those
+// states (96 independent loads at a time, off the walk's chain) and write
+// probs[n, t] = expf(edge) in f32.  Without QUAL both kernels compile as
+// before, their outputs bit for bit the same.
 
 #include <cuda_runtime.h>
 
@@ -131,14 +142,16 @@ crf_backward_kernel(const float* __restrict__ scores,
 // Step t reads its span from the ring (crf_ring.cuh) of D stages, by route
 // R: the score row of t and, where BS, the row beta_{t+1} after it;
 // without BS each thread loads its beta_{t+2} during step t.  n_base is
-// NB, or nb_arg when NB is 0.
-template <int R, int NB, bool BS>
+// NB, or nb_arg when NB is 0.  With QUAL, edge_sel[t, n, j] is the edge
+// (a_k + beta_{t+1}[j]) - logZ of the chosen k.
+template <int R, int NB, bool BS, bool QUAL = false>
 __global__ void __launch_bounds__(kThreads)
 crf_fwd_viterbi_kernel(const float* __restrict__ scores,
                        const float* __restrict__ betas,
                        const float* __restrict__ logz,
                        uint8_t* __restrict__ bp, float* __restrict__ v_final,
-                       int T, int N, int nb_arg, int ns) {
+                       float* __restrict__ edge_sel, int T, int N,
+                       int nb_arg, int ns) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = NB ? NB : nb_arg;
   const int nb1 = nb + 1, C = ns * nb1, nsd = ns / nb;
@@ -199,19 +212,25 @@ crf_fwd_viterbi_kernel(const float* __restrict__ scores,
           a[1 + i] = p.x + msj[1 + i];
           v[1 + i] = p.y;
         }
-      float best = v[0] + logf(expf((a[0] + bn) - lz) + 1e-8f);
+      const float e0 = (a[0] + bn) - lz;
+      float best = v[0] + logf(expf(e0) + 1e-8f);
+      float best_e = e0;   // QUAL only
       int best_k = 0;
 #pragma unroll
       for (int k = 1; k < kMaxCols; ++k)
         if (k <= nb) {
-          const float cand = v[k] + logf(expf((a[k] + bn) - lz) + 1e-8f);
+          const float e = (a[k] + bn) - lz;
+          const float cand = v[k] + logf(expf(e) + 1e-8f);
           if (cand > best) {
             best = cand;
             best_k = k;
+            if constexpr (QUAL) best_e = e;
           }
         }
       av_s[(cur ^ 1) * ns + j] = make_float2(lse_n(a, nb1), best);
       bpj[t * beta_stride] = (uint8_t)best_k;
+      if constexpr (QUAL)
+        edge_sel[(t * (size_t)N + n) * ns + j] = best_e;
     }
     beta_next = beta_after;
     ring.land_next();
@@ -222,15 +241,21 @@ crf_fwd_viterbi_kernel(const float* __restrict__ scores,
 
 // K2c's layout in shared memory: rows of a chunk at a stride of ns rounded
 // up to 16 bytes, Tc steps a chunk (all T where they fit in
-// kTbChunkBytes), two chunks, then two chunks' labels.
+// kTbChunkBytes), two chunks, then two chunks' labels, and with QUAL, from
+// the next 16 bytes, two chunks' states of the walk (int).
 __host__ __device__ inline int tb_stride(int ns) { return (ns + 15) & ~15; }
+
+__host__ __device__ inline int tb_states_at(int Tc, int ns) {
+  return (2 * Tc * tb_stride(ns) + 2 * Tc + 15) & ~15;
+}
 
 int tb_chunk(int T, int ns) {
   return std::min(T, kTbChunkBytes / tb_stride(ns));
 }
 
-size_t tb_smem(int Tc, int ns) {
-  return 2 * (size_t)Tc * tb_stride(ns) + 2 * (size_t)Tc;
+size_t tb_smem(int Tc, int ns, bool qual) {
+  return qual ? tb_states_at(Tc, ns) + 2 * (size_t)Tc * 4
+              : 2 * (size_t)Tc * tb_stride(ns) + 2 * (size_t)Tc;
 }
 
 // The bytes a copy of K2c moves: 8 where bp's rows are 8-byte aligned
@@ -244,19 +269,22 @@ int tb_width(const void* bp, int ns) {
 // the backpointers from T-1 down to 0: labels [N, T] int8 in 0..nb.  Chunk
 // c holds steps [lo, hi), hi = T - c Tc, lo = max(hi - Tc, 0); warps 1..
 // copy it by cp.async of W bytes (W = 1: plain loads) during the walk of
-// chunk c - 1, and write chunk c - 2's labels.  n_base is NB, or nb_arg
-// when NB is 0.
-template <int NB, int W>
+// chunk c - 1, and write chunk c - 2's labels (with QUAL, and its probs
+// from edge_sel at the walk's states).  n_base is NB, or nb_arg when NB is
+// 0.
+template <int NB, int W, bool QUAL = false>
 __global__ void __launch_bounds__(kTbThreads)
 crf_traceback_kernel(const uint8_t* __restrict__ bp,
                      const float* __restrict__ v_final,
-                     int8_t* __restrict__ labels, int T, int N, int nb_arg,
-                     int ns, int Tc) {
+                     const float* __restrict__ edge_sel,
+                     int8_t* __restrict__ labels, float* __restrict__ probs,
+                     int T, int N, int nb_arg, int ns, int Tc) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float warp_v[kTbThreads / 32];
   __shared__ int warp_j[kTbThreads / 32];
   const int nb = NB ? NB : nb_arg, nsd = ns / nb, rs = tb_stride(ns);
   int8_t* lab_s = reinterpret_cast<int8_t*>(smem + 2 * Tc * rs);  // [2][Tc]
+  int* j_s = reinterpret_cast<int*>(smem + tb_states_at(Tc, ns));  // QUAL
   const int n = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const int n_chunks = (T + Tc - 1) / Tc;
   const size_t stride = (size_t)N * ns;
@@ -286,6 +314,12 @@ crf_traceback_kernel(const uint8_t* __restrict__ bp,
     const int rows = span(c, lo);
     const int8_t* src = lab_s + (c & 1) * Tc;
     for (int r = tid - 32; r < rows; r += kTbThreads - 32) out[lo + r] = src[r];
+    if constexpr (QUAL) {
+      const int* js = j_s + (c & 1) * Tc;
+      for (int r = tid - 32; r < rows; r += kTbThreads - 32)
+        probs[(size_t)n * T + lo + r] =
+            expf(edge_sel[((size_t)(lo + r) * N + n) * ns + js[r]]);
+    }
   };
 
   if (tid >= 32) copy(0);
@@ -334,15 +368,78 @@ crf_traceback_kernel(const uint8_t* __restrict__ bp,
       int lo;
       const unsigned char* rows = smem + (c & 1) * Tc * rs;
       int8_t* lab = lab_s + (c & 1) * Tc;
+      int* js = j_s + (c & 1) * Tc;
       for (int r = span(c, lo) - 1; r >= 0; --r) {
         const int k = rows[r * rs + j];
         lab[r] = (int8_t)k;
+        if constexpr (QUAL) js[r] = j;
         j = k ? (k - 1) * nsd + j / nb : j;
       }
     }
     __syncthreads();
   }
   if (tid >= 32) write(n_chunks - 1);
+}
+
+// K2b, and with edge_sel (non-null) its q-score variant.
+int fwd_viterbi(const void* scores, const void* betas, const void* logz,
+                void* bp, void* v_final, void* edge_sel, int T, int N, int nb,
+                int ns, void* stream) {
+  if (!supported(T, N, nb, ns)) return -2;
+  const int C = ns * (nb + 1);
+  const int route = ring_route(scores, C);
+  if (route < 0) return -3;
+  // beta_{t+1} joins the span where its rows take the bulk copy too
+  const bool span = route == kBulk && ns % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(betas) % 16 == 0;
+  const size_t smem =
+      ring_bytes(span ? C + ns : C) + 2 * (size_t)ns * sizeof(float2);
+  return ring_dispatch(route, nb, [&](auto r, auto b) {
+    constexpr int R = decltype(r)::value, NB = decltype(b)::value;
+    const auto launch = [&](auto kernel) {
+      return ring_launch(kernel, N, kThreads, smem, stream,
+                         static_cast<const float*>(scores),
+                         static_cast<const float*>(betas),
+                         static_cast<const float*>(logz),
+                         static_cast<uint8_t*>(bp),
+                         static_cast<float*>(v_final),
+                         static_cast<float*>(edge_sel), T, N, nb, ns);
+    };
+    if (edge_sel) {
+      if constexpr (R == kBulk)
+        if (span) return launch(crf_fwd_viterbi_kernel<R, NB, true, true>);
+      return launch(crf_fwd_viterbi_kernel<R, NB, false, true>);
+    }
+    if constexpr (R == kBulk)
+      if (span) return launch(crf_fwd_viterbi_kernel<R, NB, true>);
+    return launch(crf_fwd_viterbi_kernel<R, NB, false>);
+  });
+}
+
+// K2c, and with edge_sel and probs (non-null) its q-score variant.
+int traceback(const void* bp, const void* v_final, const void* edge_sel,
+              void* labels, void* probs, int T, int N, int nb, int ns,
+              void* stream) {
+  if (!supported(T, N, nb, ns)) return -2;
+  const int Tc = tb_chunk(T, ns), width = tb_width(bp, ns);
+  const bool qual = edge_sel != nullptr;
+  return nb_dispatch(nb, [&](auto b) {
+    constexpr int NB = decltype(b)::value;
+    const auto launch = [&](auto kernel) {
+      return ring_launch(kernel, N, kTbThreads, tb_smem(Tc, ns, qual), stream,
+                         static_cast<const uint8_t*>(bp),
+                         static_cast<const float*>(v_final),
+                         static_cast<const float*>(edge_sel),
+                         static_cast<int8_t*>(labels),
+                         static_cast<float*>(probs), T, N, nb, ns, Tc);
+    };
+    if (qual) {
+      if (width == 8) return launch(crf_traceback_kernel<NB, 8, true>);
+      return launch(crf_traceback_kernel<NB, 1, true>);
+    }
+    if (width == 8) return launch(crf_traceback_kernel<NB, 8>);
+    return launch(crf_traceback_kernel<NB, 1>);
+  });
 }
 
 }  // namespace
@@ -371,46 +468,31 @@ int xna_crf_backward(const void* scores, void* betas, int T, int N, int nb,
 int xna_crf_fwd_viterbi(const void* scores, const void* betas,
                         const void* logz, void* bp, void* v_final, int T,
                         int N, int nb, int ns, void* stream) {
-  if (!supported(T, N, nb, ns)) return -2;
-  const int C = ns * (nb + 1);
-  const int route = ring_route(scores, C);
-  if (route < 0) return -3;
-  // beta_{t+1} joins the span where its rows take the bulk copy too
-  const bool span = route == kBulk && ns % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(betas) % 16 == 0;
-  const size_t smem =
-      ring_bytes(span ? C + ns : C) + 2 * (size_t)ns * sizeof(float2);
-  return ring_dispatch(route, nb, [&](auto r, auto b) {
-    constexpr int R = decltype(r)::value, NB = decltype(b)::value;
-    const auto launch = [&](auto kernel) {
-      return ring_launch(kernel, N, kThreads, smem, stream,
-                         static_cast<const float*>(scores),
-                         static_cast<const float*>(betas),
-                         static_cast<const float*>(logz),
-                         static_cast<uint8_t*>(bp),
-                         static_cast<float*>(v_final), T, N, nb, ns);
-    };
-    if constexpr (R == kBulk)
-      if (span) return launch(crf_fwd_viterbi_kernel<R, NB, true>);
-    return launch(crf_fwd_viterbi_kernel<R, NB, false>);
-  });
+  return fwd_viterbi(scores, betas, logz, bp, v_final, nullptr, T, N, nb, ns,
+                     stream);
+}
+
+// edge_sel f32 [T, N, ns]
+int xna_crf_fwd_viterbi_qual(const void* scores, const void* betas,
+                             const void* logz, void* bp, void* v_final,
+                             void* edge_sel, int T, int N, int nb, int ns,
+                             void* stream) {
+  return fwd_viterbi(scores, betas, logz, bp, v_final, edge_sel, T, N, nb, ns,
+                     stream);
 }
 
 int xna_crf_traceback(const void* bp, const void* v_final, void* labels,
                       int T, int N, int nb, int ns, void* stream) {
-  if (!supported(T, N, nb, ns)) return -2;
-  const int Tc = tb_chunk(T, ns), width = tb_width(bp, ns);
-  return nb_dispatch(nb, [&](auto b) {
-    constexpr int NB = decltype(b)::value;
-    const auto launch = [&](auto kernel) {
-      return ring_launch(kernel, N, kTbThreads, tb_smem(Tc, ns), stream,
-                         static_cast<const uint8_t*>(bp),
-                         static_cast<const float*>(v_final),
-                         static_cast<int8_t*>(labels), T, N, nb, ns, Tc);
-    };
-    if (width == 8) return launch(crf_traceback_kernel<NB, 8>);
-    return launch(crf_traceback_kernel<NB, 1>);
-  });
+  return traceback(bp, v_final, nullptr, labels, nullptr, T, N, nb, ns,
+                   stream);
+}
+
+// edge_sel f32 [T, N, ns] of the qual K2b; probs f32 [N, T]
+int xna_crf_traceback_qual(const void* bp, const void* v_final,
+                           const void* edge_sel, void* labels, void* probs,
+                           int T, int N, int nb, int ns, void* stream) {
+  return traceback(bp, v_final, edge_sel, labels, probs, T, N, nb, ns,
+                   stream);
 }
 
 const char* xna_error_string(int code) {

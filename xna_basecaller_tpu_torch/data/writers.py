@@ -1,5 +1,6 @@
 """Copied from ``xna_basecaller_tpu/data/writers.py``; only the package
-imports differ.
+imports differ, and ``qstring`` (the q-string of a read's bases as one
+numpy pass, equal to JAX's loop over ``phred``) is the port's own.
 
 Output writers: FASTQ/SAM, per-read summary, and CTC training data.
 
@@ -27,6 +28,24 @@ def phred(prob: float, scale: float = 1.0, bias: float = 0.0) -> str:
     p = max(1 - prob, 1e-4)
     q = -10 * np.log10(p) * scale + bias
     return chr(int(np.round(q) + 33))
+
+
+def qstring(probs: np.ndarray, scale: float = 1.0, bias: float = 0.0):
+    """The quality string of per-base probabilities, equal to joining
+    ``phred`` of each (as ``infer/basecall.py:339-347`` of the JAX package
+    builds it), in one pass of numpy: 1 - p in f32, the f32 chain
+    -10 log10(1 - p) * scale + bias where 1 - p > 1e-4 (numpy's scalar
+    promotion keeps f32 there), the f64 chain at 1e-4 where it clamps,
+    rounded half to even, + 33, each a character."""
+    p = np.float32(1) - np.asarray(probs, np.float32)
+    clamp = np.float32(1e-4) > p   # max(1 - p, 1e-4) takes 1e-4
+    q = -10 * np.log10(np.where(clamp, np.float32(1), p)) * scale + bias
+    q_clamped = -10 * np.log10(1e-4) * scale + bias
+    codes = np.where(clamp, np.round(q_clamped) + 33,
+                     np.round(q) + 33).astype(np.int64)
+    if codes.size and (codes.min() < 0 or codes.max() > 0x10FFFF):
+        raise ValueError("chr() arg not in range(0x110000)")
+    return codes.astype("<u4").tobytes().decode("utf-32-le")
 
 
 def mean_qscore_from_qstring(qstring: str) -> float:

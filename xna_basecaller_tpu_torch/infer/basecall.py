@@ -10,10 +10,16 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
   with ``quantize``, the int8 codes ``round(sig * QUANT_SCALE)``) from
   pinned memory; the compute stage runs the model and the decode on the
   device; the fetch stage brings back only the int8 label paths [N, T']
-  with ``.cpu()``.  All device work goes to one CUDA stream, the
-  device's default stream, so the stages need no other synchronisation.
+  (and with ``qscores`` the f16 posteriors of their transitions) with
+  ``.cpu()``.  All device work goes to one CUDA stream, the device's
+  default stream, so the stages need no other synchronisation.
 * The decode on a CUDA tensor runs the kernels of ``ops/crf_cuda.py``; on
-  a CPU tensor the plain ``ops/crf.py::decode_paths``.
+  a CPU tensor their plain versions in ``ops/crf.py``: the Viterbi decode,
+  or with ``qscores`` the decode that also gives the posterior of each
+  chosen transition (``decode_paths_with_qual``: real per-base qualities,
+  ``phred`` with the model's ``[qscore]`` scale and bias, vectorised in
+  ``data/writers.py::qstring``), or with ``beam_width > 0`` the path-collapsing beam decode
+  (``decode_beam``).
 * Stitching is frame-accurate by default; ``legacy_char_stitch=True``
   stitches left-packed label arrays, as the reference UB path does.
 * R-strand decoding reverse-complements the scores on the device and
@@ -27,11 +33,13 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
   through every member on the device and the decode runs on the mean of
   their f32 scores.
 
-Not ported yet: q-scores, the beam decoder and superbatches.
+Not ported yet: superbatches (``superbatch`` above 1 is refused, except
+with ``qscores`` or a beam, where JAX too runs it as 1, with its warning).
 """
 
 from __future__ import annotations
 
+import sys
 from time import perf_counter
 from typing import Iterable, Iterator
 
@@ -39,9 +47,12 @@ import numpy as np
 import torch
 
 from xna_basecaller_tpu_torch.data import chunkops
+from xna_basecaller_tpu_torch.data.writers import qstring
 from xna_basecaller_tpu_torch.models.crf_model import QUANT_SCALE
 from xna_basecaller_tpu_torch.ops import crf as crf_ops
-from xna_basecaller_tpu_torch.ops.crf_cuda import decode_paths_cuda
+from xna_basecaller_tpu_torch.ops.crf_cuda import (
+    decode_beam_cuda, decode_paths_cuda, decode_paths_with_qual_cuda,
+)
 from xna_basecaller_tpu_torch.utils.pipeline import (
     ordered_thread_map, thread_iter,
 )
@@ -69,6 +80,29 @@ def _score_and_decode(scores: torch.Tensor, n_base: int, state_len: int,
     return decode(scores, n_base, state_len)
 
 
+def _score_and_decode_qual(scores: torch.Tensor, n_base: int,
+                           state_len: int, reverse: bool = False,
+                           ub_bias: float = 0.0):
+    """The decode with the posterior of each chosen transition: (paths
+    [N, T'] int8, probs [N, T'] f16), as JAX's ``_score_and_decode_qual``."""
+    if reverse:
+        scores = crf_ops.reverse_complement(scores, n_base, state_len)
+    scores = _apply_ub_bias(scores, n_base, ub_bias)
+    paths, probs = decode_paths_with_qual_cuda(scores, n_base, state_len)
+    return paths, probs.half()
+
+
+def _score_and_decode_beam(scores: torch.Tensor, n_base: int,
+                           state_len: int, beam_width: int,
+                           reverse: bool = False, ub_bias: float = 0.0):
+    """The path-collapsing beam decode: paths [N, T'] int8, as JAX's
+    ``_score_and_decode_beam``."""
+    if reverse:
+        scores = crf_ops.reverse_complement(scores, n_base, state_len)
+    scores = _apply_ub_bias(scores, n_base, ub_bias)
+    return decode_beam_cuda(scores, n_base, state_len, beam_width)[0]
+
+
 def _forward(models, batch: torch.Tensor, compute_dtype, lstm_int8: bool):
     """The f32 CRF scores of one batch: of the model, or for a list of
     models the MEAN of the members' scores, summed in member order and
@@ -94,14 +128,20 @@ def _pad_batch(batch: np.ndarray, batchsize: int) -> tuple[np.ndarray, int]:
 def basecall(model, reads: Iterable, chunksize: int = 3600,
              overlap: int = 500, batchsize: int = 256,
              reverse: bool = False, compute_dtype=torch.bfloat16,
-             legacy_char_stitch: bool = False, cancel=None,
-             stitch_workers: int = 4, ub_bias: float = 0.0,
-             quantize: bool = False) -> Iterator:
+             legacy_char_stitch: bool = False, qscores: bool = False,
+             cancel=None, stitch_workers: int = 4, quantize: bool = False,
+             beam_width: int = 0, superbatch: int = 1,
+             ub_bias: float = 0.0) -> Iterator:
     """Basecall reads lazily on the model's device; yields (read, attrs).
 
     ``model`` is a model or a list of models of one architecture on one
     device (an ensemble: the decode runs on the mean of their scores).
     ``reads`` yield objects with ``.signal`` (1-D float32) and ``.read_id``.
+    ``qscores`` emits real per-base qualities from the Viterbi edge
+    posteriors; ``beam_width > 0`` decodes with the path-collapsing beam
+    search instead of Viterbi (``qscores`` wins where both are set, as in
+    JAX).  ``superbatch`` above 1 runs as 1, with JAX's warning, together
+    with either; alone it is not ported and raises.
     ``cancel`` (a threading.Event) stops the read producer early.
     ``quantize`` uploads ``clip(rint(sig * QUANT_SCALE), -127, 127)`` as
     int8 and runs the model's int8 path (``lstm_int8=True``)."""
@@ -112,6 +152,14 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
     up_dtype = np.int8 if quantize else (
         np.float32 if compute_dtype == torch.float32 else np.float16)
     n_base, state_len = model.seqdist.n_base, model.seqdist.state_len
+    G = max(1, int(superbatch))
+    if G > 1:
+        if not (qscores or beam_width > 0):
+            raise NotImplementedError(
+                "superbatch above 1 is not ported to xna_basecaller_tpu_torch "
+                "yet (ROADMAP Queue 1, loading and output)")
+        print(f"[basecall] --superbatch {superbatch} ignored (runs as 1): "
+              "qscores/beam decoding is not superbatched", file=sys.stderr)
 
     def gen_chunks():
         for read in reads:
@@ -142,14 +190,27 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         with torch.inference_mode():
             for keys, n, dev in uploads:
                 scores = _forward(members, dev, compute_dtype, quantize)
-                yield keys, n, _score_and_decode(
-                    scores, n_base, state_len, reverse, float(ub_bias))
+                probs = None
+                if qscores:
+                    paths, probs = _score_and_decode_qual(
+                        scores, n_base, state_len, reverse, float(ub_bias))
+                elif beam_width > 0:
+                    paths = _score_and_decode_beam(
+                        scores, n_base, state_len, beam_width, reverse,
+                        float(ub_bias))
+                else:
+                    paths = _score_and_decode(
+                        scores, n_base, state_len, reverse, float(ub_bias))
+                yield keys, n, paths, probs
 
     computed = thread_iter(gen_compute(), maxsize=3)
 
     def gen_fetch():
-        for keys, n, paths in computed:
-            yield keys, {"path": paths[:n].cpu().numpy()}
+        for keys, n, paths, probs in computed:
+            out = {"path": paths[:n].cpu().numpy()}
+            if probs is not None:
+                out["prob"] = probs[:n].cpu().numpy().astype(np.float32)
+            yield keys, out
 
     fetched = thread_iter(gen_fetch())
 
@@ -161,12 +222,21 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         stitched = chunkops.stitch(path, chunksize, overlap, end - start,
                                    stride, reverse=reverse)
         seq = model.seqdist.path_to_str(stitched)
-        return read, {
-            "sequence": seq,
+        moves = np.asarray(stitched) != 0
+        if "prob" in attrs:
+            probs = chunkops.stitch(attrs["prob"], chunksize, overlap,
+                                    end - start, stride, reverse=reverse)
+            quals = qstring(np.asarray(probs)[moves],
+                            scale=model.cfg.qscore.scale,
+                            bias=model.cfg.qscore.bias)
+        else:
             # the reference UB path's dummy mid-scale qstring
             # (crf/basecall.py:67)
-            "qstring": "O" * len(seq),
-            "moves": np.asarray(stitched) != 0,
+            quals = "O" * len(seq)
+        return read, {
+            "sequence": seq,
+            "qstring": quals,
+            "moves": moves,
             "stride": stride,
         }
 
@@ -185,18 +255,20 @@ def _left_pack(paths: np.ndarray) -> np.ndarray:
 def run_basecaller(model, reads, fastq_out, summary_out=None,
                    chunksize: int = 3600, overlap: int = 500,
                    batchsize: int = 256, reverse: bool = False,
-                   quantize: bool = False, **basecall_opts) -> dict:
+                   quantize: bool = False, beam_width: int = 0,
+                   **basecall_opts) -> dict:
     """Drive the full pipeline, writing FASTQ (+ summary); returns timing
-    stats with the headline samples/s.  ``quantize`` runs the int8 path;
-    extra keyword options (e.g. ``legacy_char_stitch``, ``compute_dtype``,
-    ``ub_bias``) go to :func:`basecall`."""
+    stats with the headline samples/s.  ``quantize`` runs the int8 path,
+    ``beam_width > 0`` the beam decode; extra keyword options (e.g.
+    ``legacy_char_stitch``, ``compute_dtype``, ``ub_bias``, ``qscores``) go
+    to :func:`basecall`."""
     t0 = perf_counter()
     n_reads = 0
     n_samples = 0
     for read, attrs in basecall(
             model, reads, chunksize=chunksize, overlap=overlap,
             batchsize=batchsize, reverse=reverse, quantize=quantize,
-            **basecall_opts):
+            beam_width=beam_width, **basecall_opts):
         n_reads += 1
         n_samples += len(read.signal)
         fastq_out.write(

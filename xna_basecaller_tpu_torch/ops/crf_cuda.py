@@ -3,7 +3,14 @@
 K2a, K2b, K2c (``csrc/crf_decode.cu``): the Viterbi decode, replacing the
 three Pallas kernels of
 ``xna_basecaller_tpu/ops/crf_pallas.py::decode_paths_pallas``
-(``_bwd_kernel_unrolled``, ``_fwd_viterbi_kernel``, ``_traceback_kernel``).
+(``_bwd_kernel_unrolled``, ``_fwd_viterbi_kernel``, ``_traceback_kernel``);
+their q-score variants (``forward_viterbi_qual``,
+``viterbi_traceback_qual``) give each chosen transition's posterior, for
+``decode_paths_with_qual_cuda``.
+
+The beam kernel (``beam_search``, ``csrc/crf_beam.cu``): the step loop of
+the path-collapsing beam decode, which the JAX package runs as XLA
+(``ops/crf.py::decode_beam``); ``decode_beam_cuda`` runs K4, K2a and it.
 
 K4, K5a, K5b, K6a, K6b: the training loss, replacing the Pallas kernels
 that the JAX package's default loss runs: the forward scan K4
@@ -44,7 +51,12 @@ _SIGNATURES = {
     "xna_crf_backward": ("crf_decode", [_P, _P, _I, _I, _I, _I, _P]),
     "xna_crf_fwd_viterbi": ("crf_decode",
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "xna_crf_fwd_viterbi_qual": ("crf_decode",
+                                 [_P] * 6 + [_I, _I, _I, _I, _P]),
     "xna_crf_traceback": ("crf_decode", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "xna_crf_traceback_qual": ("crf_decode",
+                               [_P] * 5 + [_I, _I, _I, _I, _P]),
+    "xna_crf_beam": ("crf_beam", [_P] * 7 + [_I] * 5 + [_P]),
     "xna_crf_forward": ("crf_loss", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "xna_crf_posteriors": ("crf_loss",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -56,6 +68,8 @@ _SIGNATURES = {
 _MESSAGES = {-2: "shape not supported by the kernel (n_state <= 256, "
                  "n_base + 1 <= 8, n_state * (n_base + 1) <= 2048)"}
 _SCAN_MESSAGES = {**_MESSAGES, -3: "scores not 8-byte aligned"}
+# the widest beam the beam kernel takes (``kMaxBeam``, csrc/crf_beam.cu)
+MAX_BEAM_WIDTH = 256
 _LATTICE_MESSAGES = {-2: "lattice not supported by the kernel (1 <= n <= "
                          "6144 positions)",
                      -3: "packed lattice or alphas not 16-byte aligned"}
@@ -115,8 +129,23 @@ def forward_viterbi(scores: torch.Tensor, betas: torch.Tensor,
                     logz: torch.Tensor, n_base: int, state_len: int):
     """K2b: -> (backpointers [T, N, n_state] uint8, v_final [N, n_state])."""
     if scores.device.type == "cpu":
-        return crf.forward_viterbi(scores, betas, logz, n_base,
-                                   state_len)
+        return crf.forward_viterbi(scores, betas, logz, n_base, state_len)
+    return _forward_viterbi(scores, betas, logz, n_base, state_len, False)
+
+
+def forward_viterbi_qual(scores: torch.Tensor, betas: torch.Tensor,
+                         logz: torch.Tensor, n_base: int, state_len: int):
+    """K2b's q-score variant: -> (bp, v_final, edge_sel [T, N, n_state]
+    f32), edge_sel the raw edge of each chosen column; bp and v_final are
+    ``forward_viterbi``'s."""
+    if scores.device.type == "cpu":
+        return crf.forward_viterbi(scores, betas, logz, n_base, state_len,
+                                   qual=True)
+    return _forward_viterbi(scores, betas, logz, n_base, state_len, True)
+
+
+def _forward_viterbi(scores, betas, logz, n_base, state_len, qual):
+    """Launch K2b, or its q-score variant with ``qual``, on the card."""
     _check(scores, "forward_viterbi", torch.float32, 3)
     _check(betas, "forward_viterbi", torch.float32, 3)
     _check(logz, "forward_viterbi", torch.float32, 1)
@@ -127,10 +156,19 @@ def forward_viterbi(scores: torch.Tensor, betas: torch.Tensor,
         raise ValueError("forward_viterbi: betas/logz do not match scores")
     bp = torch.empty(T, N, ns, dtype=torch.uint8, device=scores.device)
     v_final = torch.empty(N, ns, device=scores.device)
-    lib, fn = _fn("xna_crf_fwd_viterbi")
-    rc = fn(scores.data_ptr(), betas.data_ptr(), logz.data_ptr(),
-            bp.data_ptr(), v_final.data_ptr(), T, N, n_base, ns, _stream())
+    ptrs = [scores.data_ptr(), betas.data_ptr(), logz.data_ptr(),
+            bp.data_ptr(), v_final.data_ptr()]
+    if qual:
+        edge_sel = torch.empty(T, N, ns, device=scores.device)
+        lib, fn = _fn("xna_crf_fwd_viterbi_qual")
+        rc = fn(*ptrs, edge_sel.data_ptr(), T, N, n_base, ns, _stream())
+    else:
+        lib, fn = _fn("xna_crf_fwd_viterbi")
+        rc = fn(*ptrs, T, N, n_base, ns, _stream())
     _build.check(lib, rc, "crf forward-Viterbi kernel", _SCAN_MESSAGES)
+    if qual:
+        forward_viterbi_qual.launches += 1
+        return bp, v_final, edge_sel
     forward_viterbi.launches += 1
     return bp, v_final
 
@@ -140,18 +178,46 @@ def viterbi_traceback(bp: torch.Tensor, v_final: torch.Tensor,
     """K2c: -> labels [N, T] int8 in 0..n_base."""
     if bp.device.type == "cpu":
         return crf.viterbi_traceback(bp, v_final, n_base, state_len)
+    labels = _traceback_outputs(bp, v_final, n_base, state_len)
+    lib, fn = _fn("xna_crf_traceback")
+    rc = fn(bp.data_ptr(), v_final.data_ptr(), labels.data_ptr(),
+            *bp.shape[:2], n_base, bp.shape[2], _stream())
+    _build.check(lib, rc, "crf traceback kernel", _MESSAGES)
+    viterbi_traceback.launches += 1
+    return labels
+
+
+def viterbi_traceback_qual(bp: torch.Tensor, v_final: torch.Tensor,
+                           edge_sel: torch.Tensor, n_base: int,
+                           state_len: int):
+    """K2c's q-score variant, on the edge_sel of ``forward_viterbi_qual``:
+    -> (labels [N, T] int8, probs [N, T] f32), the exp() of the chosen edge
+    at each step of the path; labels are ``viterbi_traceback``'s."""
+    if bp.device.type == "cpu":
+        return crf.viterbi_traceback(bp, v_final, n_base, state_len,
+                                     edge_sel)
+    labels = _traceback_outputs(bp, v_final, n_base, state_len)
+    _check(edge_sel, "viterbi_traceback", torch.float32, 3)
+    if edge_sel.shape != bp.shape:
+        raise ValueError("viterbi_traceback: edge_sel does not match bp")
+    probs = torch.empty(labels.shape, device=bp.device)
+    lib, fn = _fn("xna_crf_traceback_qual")
+    rc = fn(bp.data_ptr(), v_final.data_ptr(), edge_sel.data_ptr(),
+            labels.data_ptr(), probs.data_ptr(), *bp.shape[:2], n_base,
+            bp.shape[2], _stream())
+    _build.check(lib, rc, "crf traceback kernel (q-scores)", _MESSAGES)
+    viterbi_traceback_qual.launches += 1
+    return labels, probs
+
+
+def _traceback_outputs(bp, v_final, n_base, state_len) -> torch.Tensor:
+    """K2c's input checks; -> its labels [N, T] int8, unwritten."""
     _check(bp, "viterbi_traceback", torch.uint8, 3)
     _check(v_final, "viterbi_traceback", torch.float32, 2)
     T, N, ns = bp.shape
     if ns != n_base ** state_len or v_final.shape != (N, ns):
         raise ValueError("viterbi_traceback: shapes do not match")
-    labels = torch.empty(N, T, dtype=torch.int8, device=bp.device)
-    lib, fn = _fn("xna_crf_traceback")
-    rc = fn(bp.data_ptr(), v_final.data_ptr(), labels.data_ptr(), T, N,
-            n_base, ns, _stream())
-    _build.check(lib, rc, "crf traceback kernel", _MESSAGES)
-    viterbi_traceback.launches += 1
-    return labels
+    return torch.empty(N, T, dtype=torch.int8, device=bp.device)
 
 
 def forward_scan(scores: torch.Tensor, n_base: int, state_len: int):
@@ -337,9 +403,50 @@ def lattice_depth(n: int, backward: bool) -> int:
     return fn(n, int(backward))
 
 
+def beam_search(scores: torch.Tensor, alphas: torch.Tensor,
+                betas: torch.Tensor, logz: torch.Tensor, n_base: int,
+                state_len: int, beam_width: int = 8):
+    """The beam kernel: the path-collapsing beam search over the edges of
+    scores [T, N, C] f32 with alphas and betas [T+1, N, n_state] and logZ
+    [N] -> (labels [N, T] int8, best_score [N] f32).  Widths 1 to
+    ``MAX_BEAM_WIDTH``; a wider beam raises ``ValueError``."""
+    if scores.device.type == "cpu":
+        return crf.beam_search(scores, alphas, betas, logz, n_base,
+                               state_len, beam_width)
+    if not 1 <= beam_width <= MAX_BEAM_WIDTH:
+        raise ValueError(
+            f"beam_search: beam width {beam_width} outside 1..."
+            f"{MAX_BEAM_WIDTH}, the widths the beam kernel takes")
+    scores, alphas, betas, logz = (t.contiguous() for t in (
+        scores, alphas, betas, logz))
+    for t, nd in ((scores, 3), (alphas, 3), (betas, 3), (logz, 1)):
+        _check(t, "beam_search", torch.float32, nd)
+    T, N, C = scores.shape
+    ns = n_base ** state_len
+    if C != ns * (n_base + 1) or alphas.shape != (T + 1, N, ns) \
+            or betas.shape != alphas.shape or logz.shape != (N,):
+        raise ValueError("beam_search: alphas/betas/logz do not match the "
+                         "scores")
+    hist = torch.empty(N, T, beam_width, dtype=torch.int16,
+                       device=scores.device)
+    labels = torch.empty(N, T, dtype=torch.int8, device=scores.device)
+    best = torch.empty(N, device=scores.device)
+    lib, fn = _fn("xna_crf_beam")
+    rc = fn(scores.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+            logz.data_ptr(), hist.data_ptr(), labels.data_ptr(),
+            best.data_ptr(), T, N, n_base, ns, beam_width, _stream())
+    _build.check(lib, rc, "crf beam kernel", {
+        **_MESSAGES, -4: f"beam width outside 1..{MAX_BEAM_WIDTH}"})
+    beam_search.launches += 1
+    return labels, best
+
+
 backward_scan.launches = 0
 forward_viterbi.launches = 0
+forward_viterbi_qual.launches = 0
 viterbi_traceback.launches = 0
+viterbi_traceback_qual.launches = 0
+beam_search.launches = 0
 forward_scan.launches = 0
 edge_posteriors.launches = 0
 lattice_forward.launches = 0
@@ -355,3 +462,41 @@ def decode_paths_cuda(scores: torch.Tensor, n_base: int, state_len: int):
     bp, v_final = forward_viterbi(scores, betas, crf.logz_from_betas(betas),
                                   n_base, state_len)
     return viterbi_traceback(bp, v_final, n_base, state_len)
+
+
+def decode_paths_with_qual_cuda(scores: torch.Tensor, n_base: int,
+                                state_len: int):
+    """The q-score decode through its kernels: scores [T, N, C] -> (labels
+    [N, T] int8, probs [N, T] f32, the posterior of each chosen
+    transition), in f32: K2a, logZ (one torch reduction of the betas, as
+    the Viterbi decode takes it, so that the labels are
+    ``decode_paths_cuda``'s), the q-score K2b, then the q-score K2c.  On the
+    CPU the plain ``crf.decode_paths_with_qual``, whose logZ comes from the
+    alphas, as JAX's does."""
+    if scores.device.type == "cpu":
+        return crf.decode_paths_with_qual(scores, n_base, state_len)
+    scores = _ring_aligned(scores.float().contiguous())
+    betas = backward_scan(scores, n_base, state_len)
+    bp, v_final, edge_sel = forward_viterbi_qual(
+        scores, betas, crf.logz_from_betas(betas), n_base, state_len)
+    del betas
+    return viterbi_traceback_qual(bp, v_final, edge_sel, n_base, state_len)
+
+
+def decode_beam_cuda(scores: torch.Tensor, n_base: int, state_len: int,
+                     beam_width: int = 8):
+    """The beam decode through its kernels: scores [T, N, C] -> (labels [N,
+    T] int8, best_score [N] f32), in f32: K4 (alphas and logZ), K2a
+    (betas), then the beam kernel.  On the CPU the plain
+    ``crf.decode_beam``."""
+    if scores.device.type == "cpu":
+        return crf.decode_beam(scores, n_base, state_len, beam_width)
+    if not 1 <= beam_width <= MAX_BEAM_WIDTH:
+        raise ValueError(
+            f"decode_beam_cuda: beam width {beam_width} outside 1..."
+            f"{MAX_BEAM_WIDTH}, the widths the beam kernel takes")
+    scores = _ring_aligned(scores.float().contiguous())
+    alphas, logz = forward_scan(scores, n_base, state_len)
+    betas = backward_scan(scores, n_base, state_len)
+    return beam_search(scores, alphas, betas, logz, n_base, state_len,
+                       beam_width)

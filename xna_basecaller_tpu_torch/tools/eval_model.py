@@ -1,7 +1,6 @@
 """Copied from ``xna_basecaller_tpu/tools/eval_model.py``: the models
 basecall on the card (``device``; ``"cpu"`` runs the plain versions of the
-kernels), and ``beam_width > 0`` is refused, as the port has no beam
-decoder yet (ROADMAP Queue 1, the decoders).
+kernels), with the beam decoder where ``beam_width > 0``.
 
 End-to-end model evaluation: basecall -> align -> UB analysis.
 
@@ -29,14 +28,6 @@ from xna_basecaller_tpu_torch.utils.fileio import atomic_output
 MAX_BC_DIST = {"POC": 5, "CPLX": 8}
 
 
-def _refuse_beam(beam_width: int):
-    if beam_width > 0:
-        raise NotImplementedError(
-            "beam decoding (beam_width > 0) is not ported to "
-            "xna_basecaller_tpu_torch yet (ROADMAP Queue 1, the q-score and "
-            "beam decoders)")
-
-
 def eval_model(exp: str, basecalls_dir: str, split: str = "test",
                reads_fastq: str | None = None, model_dir: str | None = None,
                reads_dir: str | None = None, read_ids: str | None = None,
@@ -50,7 +41,6 @@ def eval_model(exp: str, basecalls_dir: str, split: str = "test",
                log=print) -> dict:
     """Run the evaluation chain for one experiment/split; returns the
     summary dict and writes CSVs into ``basecalls_dir``."""
-    _refuse_beam(beam_width)
     os.makedirs(basecalls_dir, exist_ok=True)
     ref_name = EXP_REF_MAP.get(exp, exp)
     refs = XnaRefs(ref_name)
@@ -77,7 +67,8 @@ def eval_model(exp: str, basecalls_dir: str, split: str = "test",
                 model, reads, fq,
                 chunksize=cfg.basecaller.chunksize,
                 overlap=cfg.basecaller.overlap,
-                batchsize=cfg.basecaller.batchsize)
+                batchsize=cfg.basecaller.batchsize,
+                beam_width=beam_width)
     reads = read_fastq(fastq_path)
     if not reads:
         raise RuntimeError(f"no reads in {fastq_path}")
@@ -155,7 +146,6 @@ def basecall_and_eval(workdir, reads, exp: str, split: str,
     """
     from xna_basecaller_tpu_torch.infer.basecall import run_basecaller
 
-    _refuse_beam(beam_width)
     workdirs = workdir if isinstance(workdir, (list, tuple)) else [workdir]
     models, _ = load_members(workdirs, weights, device)
     out_dir = out_dir or os.path.join(workdirs[0], f"basecalls-{split}")
@@ -166,6 +156,7 @@ def basecall_and_eval(workdir, reads, exp: str, split: str,
             run_basecaller(models if len(models) > 1 else models[0],
                            iter(reads), fh, chunksize=chunksize,
                            overlap=overlap, batchsize=batchsize,
-                           quantize=quantize, ub_bias=ub_bias)
+                           quantize=quantize, beam_width=beam_width,
+                           ub_bias=ub_bias)
     return eval_model(exp, out_dir, split=split, reads_fastq=fq, ubs=ubs,
                       oracle_demux=oracle_demux, device=device, log=log)

@@ -1,6 +1,10 @@
-"""Device selection: the card unless the caller asks for the CPU."""
+"""Device selection: the card unless the caller asks for the CPU; and the
+``--profile`` trace of the CLIs."""
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import torch
 
@@ -14,3 +18,29 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def profiled(directory: str | None, device: torch.device, report):
+    """A ``torch.profiler`` trace of the ``with`` block (CPU activity and,
+    on the card, CUDA's; the card's queued work waited for) written to
+    ``directory/trace.json``, whose path goes to ``report``; nothing
+    without ``directory``.  The JAX package writes a ``jax.profiler`` trace
+    where the CLIs take ``--profile``."""
+    if not directory:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if on_card:
+            torch.cuda.synchronize()
+    os.makedirs(directory, exist_ok=True)
+    trace = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(trace)
+    report(trace)
