@@ -33,6 +33,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      a batch, no Viterbi K2b or K2c) and ``beam_width=PIPELINE_BEAM`` (K4,
      K2a and the beam kernel once a batch), each read's qstring as long
      as its sequence and valid phred characters, the mean q printed;
+     4d. with the counts set to 0, ``superbatch=2`` (two batches an
+     upload): every read called as ``superbatch=1`` calls it, K1 5 times
+     and K2a/b/c once per real batch; then the pipeline's samples/s at
+     G = 1, 2 and 4 in turns; 4e. the random weights written as a
+     reference-format ``weights_1.tar`` (bonito's key names) and as
+     ``weights_1.npz``, both loaded by ``load_model`` on the card (load
+     times in turns; weights and one batch's labels bit-equal), and
+     ``make_sharded_scorer(devices=[cuda:0])``'s labels bit-equal to
+     ``basecall``'s on the batch, both timed in turns;
   5. hold K3a (trainable LSTM forward) and K3b (its backward recursion)
      against their plain versions on the tensors of one training batch
      (T=720, N=64, H=768; layers 0 and 1, so both directions), in bf16
@@ -58,14 +67,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      donors from ``simulate_donor_dataset``) under ``--profile``, read the
      counts, check the losses and that the batches gained UBs, and read
      the card's busy share over the steps from the trace;
+  8e. ``python -m torch.distributed.run --nproc-per-node 1 -m
+     xna_basecaller_tpu_torch train`` (NCCL, world size 1) with phase 8's
+     arguments on its ctc-data (8 steps and one validation): losses, grad
+     norms, validation and weights against phase 8's run (a tolerance:
+     the card's training step is not bit-repeatable, see
+     ``drive_distributed_training``), both runs' step times;
   8c. the paper's bootstrap-data phase (B) on the card: 256 chunk-reads
      of 3600 through ``cli/basecaller.py::call_reads``, alone, then with
      the launch counts set to 0 with ``--reference`` (templates made from
      the first run's calls, on both strands), ``--save-ctc``,
-     ``--ub-only`` and ``--sam``; read the counts, check the kept chunks,
-     their UB targets, the SAM, the calls that changed between the runs
-     and ``filter_stats.csv``; ``dtw_segmentation`` with the native
-     library; that the checkpoint ensemble ``[model, model]`` calls the
+     ``--ub-only``, ``--sam``, ``--bam`` and ``--cram``; read the counts,
+     check the kept chunks, their UB targets, the SAM, the BAM and CRAM
+     read back against it (and each writer's records/s), the calls that
+     changed between the runs and ``filter_stats.csv``;
+     ``dtw_segmentation`` with the native library; that the checkpoint
+     ensemble ``[model, model]`` calls the
      256 chunk-reads as the model does; 2 steps of ``train --stitch
      --stitch-relax --ubs XY`` on
      B's ctc-data and its breakpoints (donors from phase 8b), then an
@@ -101,7 +118,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      projection, head, decode; for the quantized batch the int8
      projection and the int8 head), one batch through model and decode,
      the pipeline's samples/s over the same reads four times, both
-     unquantized and quantized, and one training step with its breakdown;
+     unquantized and quantized, one training step with its breakdown, and
+     the step with and without the data-parallel all-reduces (an NCCL
+     group of one rank in this process) in turns;
      ``spike_batch``, ``stitch_batch`` and their pick loop at 64 x 3600
      (CUDA events, and the card's share of one call of each by
      ``torch.profiler``), the augment closures with their numpy round trip
@@ -1022,6 +1041,93 @@ def drive_training(workroot: str):
     return launches, steps, np.diff(times)
 
 
+def drive_distributed_training(workroot: str, card: str):
+    """Phase 8e: ``python -m torch.distributed.run --nproc-per-node 1 -m
+    xna_basecaller_tpu_torch train`` (NCCL, world size 1: this script
+    needs one card), in a process of its own, with phase 8's
+    arguments on phase 8's ctc-data (8 steps and one validation), against
+    phase 8's run of the same command without the launcher.  The launched
+    run must join an NCCL group (its log says so; nothing catches a
+    failure to).  Bit-equality is printed; the check is a tolerance,
+    because the card's training step is not bit-repeatable from one run to
+    the next, launcher or not (``torch.gather``'s backward in the loss adds
+    with atomics where a target repeats a state, and 8 steps of AdamW
+    carry an ulp on: losses 3e-5 and the validation loss 5e-5 apart,
+    grad norms 9e-4, on an H100 80GB HBM3 at 700 W):
+    losses and the validation loss rtol 1e-3, grad norms rtol 1e-2 (a sum
+    of squares dominated by few elements), weights within 2 x the
+    learning rates' sum (AdamW moves an element by about lr whatever its
+    gradient's size).  Prints both runs' step times (host clock,
+    ``losses_1.csv``; the launcher sets OMP_NUM_THREADS=1)."""
+    import csv
+    import socket
+
+    from xna_basecaller_tpu_torch.train.checkpoint import load_flat
+
+    data = os.path.join(workroot, "data")
+    runs = {"plain (phase 8)": os.path.join(workroot, "run"),
+            "torch.distributed.run": os.path.join(workroot, "dist")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "1", "--master-port", str(port), "-m", "xna_basecaller_tpu_torch",
+         "train", runs["torch.distributed.run"], "--directory", data,
+         "--epochs", "1", "--batch", str(TRAIN_BATCH), "--seed", str(SEED),
+         "--device", "cuda", "-f"], cwd=root,
+        env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+        text=True, timeout=300)
+    log = p.stdout + p.stderr
+    print(f"phase 8e, train under torch.distributed.run: exit "
+          f"{p.returncode} in {time.perf_counter() - t0:.1f} s")
+    if p.returncode:
+        print(log[-4000:])
+        fail("the train CLI failed under torch.distributed.run")
+    if "[nccl process group: rank 0 of 1" not in log:
+        fail("the launched train run did not join an NCCL process group")
+
+    def table(name, f):
+        with open(os.path.join(runs[name], f)) as fh:
+            return list(csv.DictReader(fh))
+
+    a, b = (table(n, "losses_1.csv") for n in runs)
+    va, vb = (table(n, "training.csv")[-1] for n in runs)
+    wa, wb = (load_flat(os.path.join(runs[n], "weights_1.npz")) for n in runs)
+    col = {k: [(float(x[k]), float(y[k])) for x, y in zip(a, b)]
+           for k in ("loss", "grad_norm")}
+    rel = {k: max(abs(x - y) / abs(x) for x, y in v) for k, v in col.items()}
+    bit = (all(x == y for v in col.values() for x, y in v)
+           and all(va[k] == vb[k] for k in ("validation_loss",
+                                            "validation_mean",
+                                            "validation_median"))
+           and all(np.array_equal(wa[k], wb[k]) for k in wa))
+    w_err = max(float(np.abs(wa[k] - wb[k]).max()) for k in wa)
+    step = 2 * sum(float(r["lr"]) for r in a)
+    print(f"phase 8e against phase 8's plain run: {len(b)} and {len(a)} "
+          f"steps; losses max rel diff {rel['loss']:.3e} (rtol 1e-3), grad "
+          f"norms {rel['grad_norm']:.3e} (rtol 1e-2); validation loss "
+          f"{vb['validation_loss']} / {va['validation_loss']}; weights max "
+          f"abs diff {w_err:.3e} (tolerance {step:.3e}); bit-equal: {bit}")
+    for name, rows in (("plain (phase 8)", a), ("torch.distributed.run", b)):
+        times = np.diff([0.0] + [float(r["time"]) for r in rows]) * 1e3
+        print(f"phase 8e step times, {name} (ms, host clock at each step's "
+              f"enqueue; the first with its warm-up): "
+              f"{[round(float(v), 2) for v in times]}, median of steps 3.. "
+              f"{statistics.median(times[2:]):.2f} on {card}")
+    if len(a) != len(b) or not all(
+            np.isclose(x, y, rtol=1e-3, atol=0) for x, y in col["loss"]) \
+            or not all(np.isclose(x, y, rtol=1e-2, atol=0)
+                       for x, y in col["grad_norm"]):
+        fail("the launched run's steps, losses or grad norms differ")
+    if not np.isclose(float(va["validation_loss"]),
+                      float(vb["validation_loss"]), rtol=1e-3, atol=0) \
+            or w_err > step:
+        fail("the launched run's validation or weights differ")
+
+
 def fixed_augment_batch(periodic: bool, B: int = TRAIN_BATCH,
                         L: int = 450, T: int = 3600):
     """A batch whose spike and stitch results no draw enters: targets of 21
@@ -1299,6 +1405,66 @@ def time_library_alignment(align, chunksize: int, card: str):
               f" + sw_align, dtw_band; {card})")
 
 
+def check_binary_outputs(sam_records, bam_path: str, cram_path: str,
+                         written, targets: dict, card: str):
+    """Phase 8c's BAM and CRAM, read back against its SAM: a record for
+    each SAM record, in order, with its name, flag, template, position,
+    mapq, cigar, sequence (X/Y as N, BAM's folding) and quality; the
+    CRAM's unmapped records with the sequence and quality as called (the
+    SAM's reverse-complemented back where the flag is 16) and the SAM's
+    read group.  Then each writer's records/s on the same records (host
+    clock, the file's opening and closing included, median of 3)."""
+    from xna_basecaller_tpu_torch.core.alphabet import reverse_complement_str
+    from xna_basecaller_tpu_torch.data.bam import BamWriter, read_bam
+    from xna_basecaller_tpu_torch.data.cram import CramWriter, read_cram
+
+    refs, bam = read_bam(bam_path)
+    _, cram = read_cram(cram_path)
+    names = [n for n, _ in refs]
+
+    def from_bam(b):
+        return (b["query_name"], str(b["flag"]),
+                names[b["ref_id"]] if b["ref_id"] >= 0 else "*",
+                str(b["pos"] + 1), str(b["mapq"]),
+                "".join(f"{n}{op}" for op, n in b["cigar"]) or "*",
+                b["seq"], b["qual"], b["tags"])
+
+    def from_sam(r):
+        return (*r[:6], "".join(c if c in "ACGTN" else "N" for c in r[9]),
+                r[10], r[11:])
+
+    def cram_of_sam(r):
+        rc = r[1] == "16"
+        return (r[0], reverse_complement_str(r[9]) if rc else r[9],
+                r[10][::-1] if rc else r[10], r[11:])
+
+    bam_bad = sum(from_bam(b) != from_sam(r)
+                  for b, r in zip(bam, sam_records))
+    cram_bad = sum((c["read_id"], c["seq"], c["qstring"], c["tags"])
+                   != cram_of_sam(r) for c, r in zip(cram, sam_records))
+    print(f"phase B's BAM and CRAM read back: {len(bam)} and {len(cram)} "
+          f"records for the SAM's {len(sam_records)}; differing from the "
+          f"SAM's: BAM {bam_bad}, CRAM {cram_bad} (tolerance 0)")
+    if len(bam) != len(sam_records) or len(cram) != len(sam_records) \
+            or bam_bad or cram_bad:
+        fail("phase B's BAM or CRAM does not hold the SAM's records")
+    tmp = os.path.join(os.path.dirname(bam_path), "timed")
+    rg = sam_records[0][11].split(":", 2)[2] if sam_records else None
+    for name, cls in (("BAM", BamWriter), ("CRAM", CramWriter)):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            w = cls(tmp, targets, read_group=rg)
+            for a in written:
+                w.write(*a)
+            w.close()
+            ts.append(time.perf_counter() - t0)
+        print(f"{name} writer: {len(written)} records in "
+              f"{[round(t * 1e3, 2) for t in ts]} ms, "
+              f"{len(written) / statistics.median(ts):.0f} records/s "
+              f"(median of 3, host clock) on {card}")
+
+
 def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
     """Phase 8c: the paper's bootstrap-data phase (B) on the card at the
     flagship's width, then its output feeding spliced training (C).
@@ -1340,6 +1506,7 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
     from xna_basecaller_tpu_torch.cli import basecaller
     from xna_basecaller_tpu_torch.cli import main as cli
     from xna_basecaller_tpu_torch.core.alphabet import reverse_complement_str
+    from xna_basecaller_tpu_torch.data import bam as bam_mod
     from xna_basecaller_tpu_torch.data.fast5 import read_chunks
     from xna_basecaller_tpu_torch.data.simulate import self_reference
     from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
@@ -1479,16 +1646,28 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
                 mapping["read_end"] - mapping["read_start"]) / len(seq)))
         return mapping, refseq
 
+    # the BAM writer's calls, to time both writers on them afterwards
+    bam_path, cram_path = (os.path.join(bdir, f"calls.{k}")
+                           for k in ("bam", "cram"))
+    written, bam_write = [], bam_mod.BamWriter.write
+
+    def recorded_write(self, *a):
+        written.append(a)
+        return bam_write(self, *a)
+
     for w in wrappers.values():
         w.launches = 0
     basecaller.align = timed_align
+    bam_mod.BamWriter.write = recorded_write
     try:
         stats, sam, t_b = run(bias, "--reference", fasta, "--save-ctc",
                               ctc_dir,
                               "--ub-only", "--sam", "--ctc-min-accuracy",
-                              "0.2", "--ctc-min-coverage", "0.5")
+                              "0.2", "--ctc-min-coverage", "0.5", "--bam",
+                              bam_path, "--cram", cram_path)
     finally:
         basecaller.align = align
+        bam_mod.BamWriter.write = bam_write
     launches = {k: w.launches for k, w in wrappers.items()}
     need = {"K1": cfg.encoder.num_rnn_layers, "K2a": 1, "K2b": 1, "K2c": 1}
     print(f"phase B step 2, the basecall with alignment and the writer: "
@@ -1521,6 +1700,8 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
     if len(records) != n_called:
         fail(f"the SAM holds {len(records)} records for {n_called} called "
              "chunk-reads")
+    check_binary_outputs(records, bam_path, cram_path, written,
+                         read_fasta(fasta), card)
     if len(other) > K1_DIFFER_MAX:
         fail(f"{len(other)} of {n_called} calls changed between two "
              f"basecalls of the same chunk-reads, more than {K1_DIFFER_MAX}")
@@ -1697,6 +1878,147 @@ def drive_northstar(workroot: str, card: str):
           f"ensemble {written['ensemble_val_err_only_ub']}, soup "
           f"{written['soup_val_err_only_ub']}")
     print(f"phase 8d wall time: {wall:.1f} s on {card}")
+
+
+SUPERBATCHES = (1, 2, 4)   # phase 4d: the pipeline's G, timed in turns
+SUPERBATCH_TURNS = 3
+
+
+def drive_superbatches(model, reads, fastq_one: str, cfg, n_batches: int,
+                       card: str) -> dict:
+    """Phase 4d: with the launch counts set to 0, ``run_basecaller``
+    with ``superbatch=2`` over phase 4's reads: every read as
+    ``superbatch=1`` called it, K1 5 times and K2a/b/c once per real
+    batch (the trailing group's empty batches are not computed); then the
+    pipeline's samples/s at each G of ``SUPERBATCHES`` over the same reads
+    x4, in turns (the order reverses every round)."""
+    from xna_basecaller_tpu_torch.infer.basecall import run_basecaller
+    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
+
+    bc = cfg.basecaller
+    opts = dict(chunksize=bc.chunksize, overlap=bc.overlap,
+                batchsize=bc.batchsize)
+    wrappers = {"K1": lstm_cuda.lstm_recurrence,
+                "K2a": crf_cuda.backward_scan,
+                "K2b": crf_cuda.forward_viterbi,
+                "K2c": crf_cuda.viterbi_traceback}
+    for w in wrappers.values():
+        w.launches = 0
+    fq = io.StringIO()
+    st = run_basecaller(model, iter(reads), fq, superbatch=2, **opts)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    need = {"K1": cfg.encoder.num_rnn_layers * n_batches, "K2a": n_batches,
+            "K2b": n_batches, "K2c": n_batches}
+    same = sum(a == b for a, b in zip(fq.getvalue().split("\n")[1::4],
+                                      fastq_one.split("\n")[1::4]))
+    print(f"superbatch 2 path: {st} launches {launches} (expected {need}; "
+          f"{n_batches} batches in {math.ceil(n_batches / 2)} uploads); "
+          f"{same} of {N_READS} reads called as superbatch 1 calls them "
+          f"(tolerance: all)")
+    if launches != need:
+        fail("the superbatch path did not run K1 and K2a/b/c once per "
+             "real batch")
+    if fq.getvalue() != fastq_one:
+        fail("superbatch 2 called the reads otherwise than superbatch 1")
+    rates = {g: [] for g in SUPERBATCHES}
+    for r in range(SUPERBATCH_TURNS):
+        for g in SUPERBATCHES if r % 2 == 0 else SUPERBATCHES[::-1]:
+            rates[g].append(run_basecaller(
+                model, iter(reads * 4), io.StringIO(), superbatch=g,
+                **opts)["samples_per_s"])
+    print("pipeline by superbatch, same reads x4, in turns: " + "; ".join(
+        f"G={g}: {[f'{v:.4e}' for v in vs]} samples/s (median "
+        f"{statistics.median(vs):.4e})" for g, vs in rates.items())
+        + f" on {card}")
+    return launches
+
+
+def drive_model_io(model, cfg, host_chunks: np.ndarray, card: str):
+    """Phase 4e: the model's random weights written as a reference-format
+    ``weights_1.tar`` (bonito's key names, ``export_state_dict``) beside
+    its config.toml, and as ``weights_1.npz``; both loaded by
+    ``load_model`` on the card (host-clock load times, in turns): the same
+    weights, and one batch's labels bit-equal.  Then
+    ``make_sharded_scorer(devices=[cuda:0])`` on the batch: labels
+    bit-equal to ``basecall``'s (the model and the Viterbi decode of the
+    f16 upload), and both timed in turns (host clock: upload, model,
+    decode, fetch)."""
+    from xna_basecaller_tpu_torch.core import config as config_lib
+    from xna_basecaller_tpu_torch.infer.basecall import _score_and_decode
+    from xna_basecaller_tpu_torch.infer.sharded import make_sharded_scorer
+    from xna_basecaller_tpu_torch.train.checkpoint import save_checkpoint
+    from xna_basecaller_tpu_torch.utils.model_io import load_model
+    from xna_basecaller_tpu_torch.utils.torch_import import (
+        export_state_dict,
+    )
+    from xna_basecaller_tpu_torch.utils.weights import params_to_jax
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                        "chip_smoke_io")
+    shutil.rmtree(root, ignore_errors=True)
+    dev = next(model.parameters()).device
+    nb, sl = cfg.n_base, cfg.state_len
+    try:
+        dirs = {k: os.path.join(root, k) for k in ("tar", "npz")}
+        for d in dirs.values():
+            os.makedirs(d)
+            config_lib.save(cfg, d)
+        torch.save(export_state_dict(model.state_dict()),
+                   os.path.join(dirs["tar"], "weights_1.tar"))
+        save_checkpoint(dirs["npz"], 1, params_to_jax(model.state_dict()))
+        loads = {k: [] for k in dirs}
+        for r in range(3):
+            for k in ("tar", "npz") if r % 2 == 0 else ("npz", "tar"):
+                t0 = time.perf_counter()
+                loaded, _ = load_model(dirs[k], device="cuda")
+                torch.cuda.synchronize()
+                loads[k].append((time.perf_counter() - t0) * 1e3)
+                if k == "tar":
+                    m_tar = loaded
+                else:
+                    m_npz = loaded
+        sizes = {k: os.path.getsize(os.path.join(d, f"weights_1.{k}"))
+                 for k, d in dirs.items()}
+        print("load_model of the flagship, in turns (ms, host clock): "
+              + "; ".join(f"weights_1.{k} ({sizes[k] / 1e6:.1f} MB) "
+                          f"{[round(v, 1) for v in vs]}"
+                          for k, vs in loads.items()) + f" on {card}")
+        a, b = m_tar.state_dict(), m_npz.state_dict()
+        if sorted(a) != sorted(b) or not all(torch.equal(a[k], b[k])
+                                             for k in a):
+            fail("the tar-loaded weights differ from the npz-loaded ones")
+        x = torch.from_numpy(host_chunks.astype(np.float16)).to(dev)
+        with torch.inference_mode():
+            lab = {k: _score_and_decode(m(x), nb, sl)
+                   for k, m in (("tar", m_tar), ("npz", m_npz),
+                                ("model", model))}
+        n_diff = int((lab["tar"] != lab["npz"]).sum())
+        print(f"labels of one batch, tar-loaded against npz-loaded model: "
+              f"{n_diff} frames differ (tolerance 0)")
+        if n_diff:
+            fail("the tar-loaded model labels the batch otherwise")
+        del m_tar, m_npz, a, b
+        scorer = make_sharded_scorer(model, [torch.device("cuda", 0)])
+        paths = scorer(host_chunks)
+        n_diff = int((torch.from_numpy(paths) != lab["model"].cpu()).sum())
+        print(f"sharded scorer [cuda:0] against basecall's batch: {n_diff} "
+              f"label frames differ (tolerance 0)")
+        if n_diff:
+            fail("the sharded scorer labels the batch otherwise than "
+                 "basecall")
+        host_f16 = host_chunks.astype(np.float16)
+
+        def basecall_batch():
+            with torch.inference_mode():
+                return _score_and_decode(model(torch.from_numpy(
+                    host_f16).to(dev)), nb, sl).cpu()
+        t = host_turns({"sharded scorer [cuda:0]": lambda: scorer(
+            host_chunks), "basecall's batch": basecall_batch}, reps=7)
+        print("one batch of 256 x 3600, medians of 7 in turns (host clock, "
+              "upload to labels on the host): " + ", ".join(
+                  f"{k} {v:.2f} ms" for k, v in t.items()) + f" on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def host_turns(fns: dict, reps: int = 21, burst: int = 1) -> dict:
@@ -2206,8 +2528,9 @@ def time_decoders(model, batch, scores, betas, logz, dec_inputs, nb, sl,
 
 def time_training(model, batch, loss_keep, card):
     """Phase 9 (training side): the loss kernel K5b (as ``crf_ms``) with
-    its plain version (no PyTorch call computes this function), and one
-    training step with its breakdown."""
+    its plain version (no PyTorch call computes this function), one
+    training step with its breakdown, and the step with and without the
+    data-parallel all-reduces (an NCCL group of one rank) in turns."""
     from xna_basecaller_tpu_torch.ops import crf, crf_cuda
     from xna_basecaller_tpu_torch.train.loop import (
         make_optimizer, train_step,
@@ -2244,6 +2567,31 @@ def time_training(model, batch, loss_keep, card):
         step()
     torch.cuda.synchronize()
     t_step = (time.perf_counter() - t0) / 5 * 1e3
+    # the same step with the data-parallel all-reduces (the valid counts,
+    # then one flat bucket of the gradients and the loss), in an NCCL
+    # group of one rank joined by this process; in turns with the plain
+    # step, host clock
+    import socket
+
+    from xna_basecaller_tpu_torch.parallel import distributed
+    from xna_basecaller_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(chunks.device)
+        dp = host_turns({
+            "train step": step,
+            "train step with the all-reduces (NCCL, world size 1)":
+                lambda: train_step(model, opt, chunks, targets, lengths,
+                                   mesh=mesh)}, reps=11)
+    finally:
+        distributed.shutdown()
+    print("train step with and without data parallelism, medians of 11 in "
+          "turns (host clock): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in dp.items()) + f" on {card}")
     fwd = lambda: model(chunks, inference=False)  # noqa: E731
     scores = fwd().detach().requires_grad_()
     masked_loss(scores).backward()
@@ -2542,6 +2890,12 @@ def main() -> int:
                   f"Viterbi path calls them; {st['samples_per_s']:.4e} "
                   f"samples/s on {card}")
 
+    # -- 4d. superbatches, through run_basecaller(superbatch=2) ---------
+    drive_superbatches(model, reads, fastq.getvalue(), cfg, n_batches,
+                       card)
+    # -- 4e. a reference-format checkpoint, the sharded scorer ---------
+    drive_model_io(model, cfg, chunks[:batchsize], card)
+
     # -- 5.-8. the training path -----------------------------------------
     sim = simulate_ctc_dataset(TRAIN_BATCH, chunk_len=chunksize,
                                target_len=400, seed=SEED + 1)
@@ -2557,6 +2911,8 @@ def main() -> int:
         train_launches, train_steps, step_s = drive_training(workroot)
         # -- 8b. the training path with both augmentations ---------------
         donor_tables = drive_augmented_training(workroot)
+        # -- 8e. the train CLI under torch.distributed.run (NCCL) --------
+        drive_distributed_training(workroot, card)
         # -- 8c. phase B (bootstrap data) on the card, feeding phase C ---
         drive_bootstrap_data(workroot, model, cfg, reads, card)
         # -- 8d. the north-star chain A -> E (tools/spliced_northstar) --

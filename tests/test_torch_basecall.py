@@ -29,6 +29,7 @@ from xna_basecaller_tpu.infer import basecall as jbasecall
 from xna_basecaller_tpu.models.crf_model import Model as JaxModel
 from xna_basecaller_tpu.train import checkpoint as ckpt
 from xna_basecaller_tpu_torch.cli import main as port_cli
+from xna_basecaller_tpu_torch.data import chunkops
 from xna_basecaller_tpu_torch.data.simulate import (
     self_reference, simulate_reads,
 )
@@ -102,16 +103,48 @@ def test_run_basecaller_qscores_and_beam_match_jax(model_dir, opts):
 
 def test_basecall_refuses_superbatches_without_qscores_or_beam(model_dir,
                                                                capsys):
+    """Superbatches are ported: ``superbatch=2`` alone calls what 1 calls,
+    without a warning; with a beam (or ``qscores``) it still runs as 1,
+    with JAX's warning."""
     d, _, _ = model_dir
     model, _ = load_model(d, device="cpu")
     reads = list(simulate_reads(1, mean_len=1500, seed=5))
-    with pytest.raises(NotImplementedError, match="superbatch"):
-        list(tbasecall.basecall(model, iter(reads), superbatch=2, **OPTS))
+    one = list(tbasecall.basecall(model, iter(reads), **OPTS))
+    two = list(tbasecall.basecall(model, iter(reads), superbatch=2, **OPTS))
+    assert [a["sequence"] for _, a in two] == [a["sequence"] for _, a in one]
+    assert "ignored" not in capsys.readouterr().err
     out = list(tbasecall.basecall(model, iter(reads), superbatch=3,
                                   beam_width=2, **OPTS))
     assert len(out) == 1
     assert "--superbatch 3 ignored (runs as 1): qscores/beam decoding is " \
         "not superbatched" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("G", [2, 3])
+def test_run_basecaller_superbatch_matches_jax(model_dir, G, monkeypatch):
+    """``superbatch=G`` (3: a partial trailing group, padded with empty
+    batches) in f32: the FASTQ equal to ``superbatch=1``'s and to JAX's
+    ``superbatch=G``; each real batch is computed once, the padding not."""
+    d, jmodel, jparams = model_dir
+    reads = list(simulate_reads(4, mean_len=3000, seed=4))
+    fq_jax, fq_one, fq_g = io.StringIO(), io.StringIO(), io.StringIO()
+    jbasecall.run_basecaller(jmodel, jparams, iter(reads), fq_jax,
+                             compute_dtype=jnp.float32, superbatch=G, **OPTS)
+    model, _ = load_model(d, device="cpu")
+    tbasecall.run_basecaller(model, iter(reads), fq_one,
+                             compute_dtype=torch.float32, **OPTS)
+    calls = []
+    forward = tbasecall._forward
+    monkeypatch.setattr(tbasecall, "_forward", lambda m, x, *a: (
+        calls.append(x.shape), forward(m, x, *a))[1])
+    tbasecall.run_basecaller(model, iter(reads), fq_g,
+                             compute_dtype=torch.float32, superbatch=G,
+                             **OPTS)
+    assert fq_g.getvalue() == fq_one.getvalue() == fq_jax.getvalue()
+    n_chunks = sum(len(chunkops.chunk(r.signal, 1200, 200)) for r in reads)
+    assert len(calls) == -(-n_chunks // OPTS["batchsize"])
+    # 4 batches: G = 3 pads its trailing group with 2 empty batches
+    assert (len(calls) % G != 0) == (G == 3)
 
 
 def test_basecall_bf16_runs_on_cpu(model_dir):
@@ -330,3 +363,89 @@ def test_cli_profile_writes_a_trace(model_dir, fast5_dir, tmp_path, capsys):
     trace = trace_dir / "trace.json"
     assert f"> profile trace: {trace}" in err
     assert json.loads(trace.read_text())["traceEvents"]
+
+
+@pytest.fixture()
+def self_ref(model_dir, fast5_dir, tmp_path):
+    """A reference made of JAX's calls of the fast5 reads."""
+    from xna_basecaller_tpu.data.fast5 import get_reads
+
+    _, jmodel, jparams = model_dir
+    calls = [a["sequence"] for _, a in jbasecall.basecall(
+        jmodel, jparams, get_reads(fast5_dir, n_proc=1),
+        compute_dtype=jnp.float32, **OPTS)]
+    fasta = tmp_path / "ref.fasta"
+    self_reference(calls, fasta)
+    return str(fasta)
+
+
+@pytest.mark.parametrize("case", [
+    "superbatch_2", "superbatch_3", "reference_bam", "cram",
+    "reference_bam_cram_sam", "reference_cram_ensemble"])
+def test_cli_binary_outputs_and_superbatch_match_jax_cli(
+        model_dir, fast5_dir, self_ref, tmp_path, capsys, f32_clis,
+        monkeypatch, case):
+    """``--superbatch G``, ``--reference --bam``, ``--cram`` and both with
+    ``--sam`` (standard output: FASTQ only when no binary writer is set and
+    ``--sam`` is off), and a two-member ensemble (its read group the first
+    member's directory): standard output and every file byte-equal to
+    JAX's CLI's.  The CRAM's gzip blocks carry the clock's time, pinned."""
+    import shutil
+    import time
+
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    d, _, _ = model_dir
+    if case.endswith("ensemble"):
+        d2 = tmp_path / "member2"
+        shutil.copytree(d, d2)
+        d = f"{d},{d2}"
+    flags = {
+        "superbatch_2": ["--superbatch", "2"],
+        "superbatch_3": ["--superbatch", "3"],
+        "reference_bam": ["--reference", self_ref, "--bam", "{}.bam"],
+        "cram": ["--cram", "{}.cram"],
+        "reference_bam_cram_sam": ["--reference", self_ref, "--sam", "--bam",
+                                   "{}.bam", "--cram", "{}.cram"],
+        "reference_cram_ensemble": ["--reference", self_ref, "--cram",
+                                    "{}.cram"]}[case]
+
+    def run(cli, name, *extra):
+        out = [f.format(tmp_path / name) for f in flags]
+        cli(["basecaller", d, fast5_dir, "--chunksize", "1200", "--overlap",
+             "200", "--batchsize", "4", *out, *extra])
+        files = {f[-4:]: open(f, "rb").read() for f in out
+                 if f.endswith((".bam", ".cram"))}
+        return capsys.readouterr().out, files
+
+    want = run(jax_cli, "jax")
+    got = run(port_cli, "port", "--device", "cpu")
+    assert got == want
+    stdout, files = got
+    if case.startswith("superbatch"):
+        assert stdout.count("\n") == 8
+    else:
+        assert ("@HD" in stdout) == ("--sam" in flags)
+        assert "@aaa" not in stdout and files
+    if ".cram" in files:
+        from xna_basecaller_tpu_torch.data.cram import read_cram
+        path = tmp_path / "port.cram"
+        header, recs = read_cram(str(path))
+        assert sorted(r["read_id"] for r in recs) == ["aaa", "bbb"]
+        first = os.path.basename(os.path.normpath(d.split(",")[0]))
+        assert all(r["tags"] == [f"RG:Z:{first}"] for r in recs)
+    if ".bam" in files:
+        from xna_basecaller_tpu_torch.data.bam import read_bam
+        _, recs = read_bam(str(tmp_path / "port.bam"))
+        assert sorted(r["query_name"] for r in recs) == ["aaa", "bbb"]
+
+
+def test_cli_bam_needs_a_reference(model_dir, fast5_dir, tmp_path):
+    d, _, _ = model_dir
+    msgs = []
+    for cli, extra in ((jax_cli, []), (port_cli, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            cli(["basecaller", d, fast5_dir, "--bam", str(tmp_path / "x.bam"),
+                 *extra])
+        msgs.append(exc.value.code)
+    assert msgs == ["--bam requires --reference"] * 2
+    assert not (tmp_path / "x.bam").exists()

@@ -14,8 +14,10 @@ from xna_basecaller_tpu_torch.cli.basecaller import NOT_PORTED
 from xna_basecaller_tpu_torch.core.config import EncoderConfig, ModelConfig
 from xna_basecaller_tpu_torch.data.ctc_data import save_ctc_data
 from xna_basecaller_tpu_torch.data.simulate import simulate_ctc_dataset
+from xna_basecaller_tpu_torch.infer.sharded import make_sharded_scorer
 from xna_basecaller_tpu_torch.models.crf_model import Model
 from xna_basecaller_tpu_torch.ops import _build, crf_cuda, lstm_cuda
+from xna_basecaller_tpu_torch.parallel.mesh import make_mesh
 from xna_basecaller_tpu_torch.train.loop import Trainer
 from xna_basecaller_tpu_torch.utils.model_io import load_model
 
@@ -86,6 +88,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_cli(["train", str(tmp_path / "run"), "--directory",
                   str(tmp_path / "data")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_sharded_scorer(Model(cfg, device="cpu"), ["cuda:0"])
     assert next(Model(cfg, device="cpu").parameters()).device.type == "cpu"
 
 
@@ -139,6 +145,10 @@ def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
     # with --qscores or --beam JAX runs --superbatch G as 1 (a warning)
     ["--qscores", "--superbatch", "2"],
     ["--beam", "3", "--superbatch", "4"],
+    # ported since: superbatches, BAM (with a reference) and CRAM
+    ["--superbatch", "4"],
+    ["--cram", "out.cram"],
+    ["--reference", "ref.fasta", "--bam", "out.bam"],
 ])
 def test_cli_accepts_what_changes_no_result(args, tmp_path):
     """Values with which JAX computes what the port does pass the flag

@@ -1,24 +1,26 @@
-"""``xnacall basecaller`` — basecall fast5 reads on the card to FASTQ or
-SAM, optionally aligning to a reference and writing new ctc training data.
+"""``xnacall basecaller`` — basecall fast5 reads on the card to FASTQ,
+SAM, BAM or CRAM, optionally aligning to a reference and writing new ctc
+training data.
 
 Port of ``xna_basecaller_tpu/cli/basecaller.py`` for the CRF model:
 FASTQ, or with ``--reference`` SAM (``--sam``, ``--read-group``), the
 summary's alignment columns and, with ``--save-ctc``, ctc-data made of the
 reads' chunks that align (``--ctc-min-coverage``, ``--ctc-min-accuracy``,
 ``--ub-only``): phase B of the paper's chain, whose DTW breakpoints
-``tools/dtw_segmentation.py`` writes.  ``--qscores`` writes real per-base
-qualities (the FASTQ's and SAM's, and the summary's ``mean_qscore``),
-``--beam W`` decodes with the path-collapsing beam search, ``--profile
-DIR`` writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``.
-The flags of the JAX command that this package does not port yet
-(``--cram``, ``--bam``, ``--mods-model``, and ``--superbatch`` above 1
-without ``--qscores`` or ``--beam``) are still recognised, and each is
-refused with an error instead of being ignored, but only where it would
-change the result: ``--superbatch 1`` and ``--beamsize`` (JAX reads it only
-for the CTC family, which this package does not load) are accepted, as JAX
-does nothing with them, and ``--superbatch G`` together with ``--qscores``
-or ``--beam``, where JAX runs it as 1 with a warning.  Comma-separated
-model directories basecall as a checkpoint ensemble, as in JAX.
+``tools/dtw_segmentation.py`` writes.  ``--bam PATH`` (with
+``--reference``) and ``--cram PATH`` write the calls in those formats as
+well (``data/bam.py``, ``data/cram.py``); FASTQ goes to standard output
+only when neither is set and ``--sam`` is off.  ``--superbatch G``
+uploads G batches at once (``infer/basecall.py``).  ``--qscores`` writes
+real per-base qualities (the FASTQ's and SAM's, and the summary's
+``mean_qscore``), ``--beam W`` decodes with the path-collapsing beam
+search, ``--profile DIR`` writes a ``torch.profiler`` trace of the run to
+``DIR/trace.json``.  ``--mods-model``, which this package does not port
+yet, is still recognised and refused with an error instead of being
+ignored; ``--beamsize`` (JAX reads it only for the CTC family, which this
+package does not load) is accepted, as JAX does nothing with it.
+Comma-separated model directories basecall as a checkpoint ensemble, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -30,19 +32,12 @@ import sys
 from time import perf_counter
 
 # flag -> argparse dest of the options that are not ported yet
-NOT_PORTED = {
-    "--cram": "cram", "--bam": "bam", "--superbatch": "superbatch",
-    "--mods-model": "mods_model",
-}
-# the values with which JAX does what this package does
-INERT = {"superbatch": 1}
+NOT_PORTED = {"--mods-model": "mods_model"}
 
 
 def main(args):
     for flag, dest in NOT_PORTED.items():
-        if dest == "superbatch" and (args.qscores or args.beam > 0):
-            continue   # runs as 1, with JAX's warning (infer.basecall)
-        if getattr(args, dest) not in (None, False, INERT.get(dest)):
+        if getattr(args, dest) is not None:
             sys.exit(f"xnacall basecaller: {flag} is not ported to "
                      "xna_basecaller_tpu_torch yet")
 
@@ -103,11 +98,11 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
     basecall ``reads`` (objects with ``read_id`` and ``signal``; with
     ``--save-ctc`` cut into chunk-reads of the model's chunk size first),
     align each call to ``--reference``'s templates, and write FASTQ or
-    SAM to ``out`` (standard output by default), the summary and the
-    ctc-data, as the JAX command does.  Returns {"reads", "samples",
-    "seconds"}: the reads (chunk-reads) called, their samples, and the
-    host-clock time of the calls, alignment and writing (the ctc-data's
-    save excluded)."""
+    SAM to ``out`` (standard output by default), the BAM and CRAM files,
+    the summary and the ctc-data, as the JAX command does.  Returns
+    {"reads", "samples", "seconds"}: the reads (chunk-reads) called, their
+    samples, and the host-clock time of the calls, alignment and writing
+    (the ctc-data's save excluded)."""
     from xna_basecaller_tpu_torch.data.fast5 import read_chunks
     from xna_basecaller_tpu_torch.data.writers import (
         CtcDataWriter, SamWriter, mean_qscore_from_qstring, summary_row,
@@ -138,12 +133,22 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
             min_accuracy=args.ctc_min_accuracy, ub_only=args.ub_only,
             log=lambda *a: sys.stderr.write(" ".join(map(str, a)) + "\n"))
     # read group <model_name> (reference io.py:86-111 uses
-    # <run_id>_<model>; run_id is per-read here, so the stable part)
+    # <run_id>_<model>; run_id is per-read here, so the stable part): the
+    # first member's directory for an ensemble
     read_group = args.read_group or os.path.basename(
-        os.path.normpath(args.model_directory))
+        os.path.normpath(args.model_directory.split(",")[0]))
     sam = None
     if args.sam and targets is not None:
         sam = SamWriter(out, targets, read_group=read_group)
+    bam = cram = None
+    if args.bam is not None:
+        if targets is None:
+            sys.exit("--bam requires --reference")
+        from xna_basecaller_tpu_torch.data.bam import BamWriter
+        bam = BamWriter(args.bam, targets, read_group=read_group)
+    if args.cram is not None:
+        from xna_basecaller_tpu_torch.data.cram import CramWriter
+        cram = CramWriter(args.cram, targets, read_group=read_group)
 
     summary_fh = open(args.summary, "w") if args.summary else None
     header_written = False
@@ -172,9 +177,10 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
                     ctc_writer.add(read.signal[:chunksize], seq, mapping,
                                    refseq=refseq)
                 if len(seq):
-                    if sam is not None:
-                        sam.write(read.read_id, seq, qstring, mapping)
-                    else:
+                    for w in (bam, cram, sam):
+                        if w is not None:
+                            w.write(read.read_id, seq, qstring, mapping)
+                    if sam is bam is cram is None:
                         write_fastq(out, read.read_id, seq, qstring)
                 if summary_fh is not None:
                     row = summary_row(read, len(seq),
@@ -186,6 +192,9 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
                     summary_fh.write(
                         "\t".join(str(v) for v in row.values()) + "\n")
             duration = perf_counter() - t0
+        for w in (bam, cram):
+            if w is not None:
+                w.close()
         if ctc_writer is not None:
             ctc_writer.save()
         sys.stderr.write(f"> completed reads: {n_reads}\n")
@@ -247,8 +256,18 @@ def argparser():
     parser.add_argument("--sam", action="store_true",
                         help="emit SAM instead of FASTQ (needs --reference)")
     parser.add_argument("--read-group", default=None,
-                        help="@RG id for SAM output (default: model "
+                        help="@RG id for SAM/BAM output (default: model "
                              "directory name)")
+    parser.add_argument("--bam", default=None, metavar="PATH",
+                        help="also write binary BAM to PATH "
+                             "(needs --reference)")
+    parser.add_argument("--cram", default=None, metavar="PATH",
+                        help="write basecalls as a CRAM 3.0 container "
+                             "(unmapped records)")
+    parser.add_argument("--superbatch", default=1, type=int, metavar="G",
+                        help="upload G batches at once; they run one after "
+                             "another.  Runs as 1 (a warning) with "
+                             "--qscores or --beam")
     parser.add_argument("--save-ctc", default=None,
                         help="directory to write ctc training data")
     parser.add_argument("--ctc-min-coverage", default=0.90, type=float)
@@ -259,11 +278,6 @@ def argparser():
                         help="write a torch.profiler trace (CPU and CUDA "
                              "activity) of the run to DIR/trace.json")
     not_ported = parser.add_argument_group(
-        "not ported yet (each is refused with an error)")
-    for flag in ("--cram", "--bam", "--mods-model"):
-        not_ported.add_argument(flag, default=None)
-    not_ported.add_argument("--superbatch", default=1, type=int,
-                            metavar="G",
-                            help="only 1, or any G with --qscores or --beam "
-                                 "(runs as 1, with a warning, as in JAX)")
+        "not ported yet (refused with an error)")
+    not_ported.add_argument("--mods-model", default=None)
     return parser

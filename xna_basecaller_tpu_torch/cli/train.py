@@ -9,6 +9,17 @@ The validation set is augmented the same way.  ``--profile DIR`` writes a
 ``torch.profiler`` trace of the fit (CPU and, on the card, CUDA
 activities) to ``DIR/trace.json`` as a Chrome trace.  Without ``--config``
 or ``--pretrained`` the flagship ``ModelConfig()`` is trained.
+
+Data-parallel training over N GPUs (``parallel/distributed.py``)::
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m xna_basecaller_tpu_torch train <workdir> --directory <ctc-data>
+
+Each rank joins the process group (NCCL; gloo with ``--device cpu``), runs
+on ``cuda:LOCAL_RANK``, trains on its slice of every global batch of
+``--batch`` rows, and rank 0 writes the workdir.  Without the launcher it
+is one process, as before; JAX's command has no flag for this either (it
+spans every device).
 """
 
 from __future__ import annotations
@@ -55,17 +66,42 @@ def build_augment(args):
 
 
 def main(args):
+    from xna_basecaller_tpu_torch.parallel import distributed
+
+    workdir = os.path.expanduser(args.training_directory)
+    # every rank looks before joining: the group forms only when all have
+    # looked, so no rank has made the directory yet
+    exists = os.path.exists(workdir)
+    distributed.initialize(device=args.device)
+    try:
+        fit(args, workdir, exists)
+    finally:
+        distributed.shutdown()
+
+
+def fit(args, workdir: str, exists: bool):
+    """``main`` once this process has its place: build the data, the model
+    and the Trainer on this rank's device, and train."""
+    import torch.distributed
+
     from xna_basecaller_tpu_torch.core import config as config_lib
     from xna_basecaller_tpu_torch.data.ctc_data import load_datasets
     from xna_basecaller_tpu_torch.models.crf_model import Model
+    from xna_basecaller_tpu_torch.parallel.distributed import local_device
+    from xna_basecaller_tpu_torch.parallel.mesh import make_mesh
     from xna_basecaller_tpu_torch.train.loop import Trainer
     from xna_basecaller_tpu_torch.utils.model_io import load_model
 
-    workdir = os.path.expanduser(args.training_directory)
-    if os.path.exists(workdir) and not args.force:
+    if exists and not args.force:
         sys.stderr.write(
             f"[error] {workdir} exists, use -f to force continue\n")
         exit(1)
+    args.device = str(local_device(args.device))
+    mesh = make_mesh(args.device)
+    if torch.distributed.is_initialized():
+        sys.stderr.write(
+            f"[{torch.distributed.get_backend()} process group: rank "
+            f"{mesh.rank} of {mesh.world_size} on {mesh.device}]\n")
     os.makedirs(workdir, exist_ok=True)
 
     augment = build_augment(args)
@@ -90,9 +126,10 @@ def main(args):
         train_data.replace_6_letter = True
         valid_data.replace_6_letter = True
 
-    config_lib.save(cfg, os.path.join(workdir, "config.toml"))
-    with open(os.path.join(workdir, "argv.txt"), "w") as fh:
-        fh.write(" ".join(sys.argv) + "\n")
+    if mesh.rank == 0:
+        config_lib.save(cfg, os.path.join(workdir, "config.toml"))
+        with open(os.path.join(workdir, "argv.txt"), "w") as fh:
+            fh.write(" ".join(sys.argv) + "\n")
 
     frozen_predicate = None
     if args.freeze_bottom:
@@ -114,11 +151,13 @@ def main(args):
         restore_optim=args.restore_optim,
         save_optim_every=args.save_optim_every,
         grad_accum_split=args.grad_accum_split,
-        frozen_predicate=frozen_predicate,
+        frozen_predicate=frozen_predicate, mesh=mesh,
     )
     from xna_basecaller_tpu_torch.utils.device import profiled
 
-    with profiled(args.profile, trainer.device, lambda trace:
+    # one trace, rank 0's
+    with profiled(args.profile if mesh.rank == 0 else None, trainer.device,
+                  lambda trace:
                   sys.stderr.write(f"[profile trace: {trace}]\n")):
         trainer.fit(workdir, epochs=args.epochs)
 

@@ -33,8 +33,15 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
   through every member on the device and the decode runs on the mean of
   their f32 scores.
 
-Not ported yet: superbatches (``superbatch`` above 1 is refused, except
-with ``qscores`` or a beam, where JAX too runs it as 1, with its warning).
+* ``superbatch = G > 1`` (JAX's ``_super_forward_decode``,
+  ``infer/basecall.py:127-150, 229-262`` there): G padded batches go up as
+  one [G, N, T] upload, and their sub-batches run in order through the
+  model and the Viterbi decode, so that one sub-batch's [T, N, C] f32
+  scores is live at a time.  The trailing group is padded with empty
+  batches (n = 0), so that every upload has one shape; unlike JAX, which
+  computes them, they are skipped (K1 runs 5 times and K2a/b/c once per
+  real batch, whatever G).  The calls equal G = 1's.  With ``qscores`` or
+  a beam, G runs as 1, with JAX's warning.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from xna_basecaller_tpu_torch.ops import crf as crf_ops
 from xna_basecaller_tpu_torch.ops.crf_cuda import (
     decode_beam_cuda, decode_paths_cuda, decode_paths_with_qual_cuda,
 )
+from xna_basecaller_tpu_torch.utils.device import on_device
 from xna_basecaller_tpu_torch.utils.pipeline import (
     ordered_thread_map, thread_iter,
 )
@@ -140,8 +148,9 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
     ``qscores`` emits real per-base qualities from the Viterbi edge
     posteriors; ``beam_width > 0`` decodes with the path-collapsing beam
     search instead of Viterbi (``qscores`` wins where both are set, as in
-    JAX).  ``superbatch`` above 1 runs as 1, with JAX's warning, together
-    with either; alone it is not ported and raises.
+    JAX).  ``superbatch`` G > 1 uploads G batches at once and runs them
+    one after another; together with ``qscores`` or a beam it runs as 1,
+    with JAX's warning.
     ``cancel`` (a threading.Event) stops the read producer early.
     ``quantize`` uploads ``clip(rint(sig * QUANT_SCALE), -127, 127)`` as
     int8 and runs the model's int8 path (``lstm_int8=True``)."""
@@ -153,13 +162,10 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         np.float32 if compute_dtype == torch.float32 else np.float16)
     n_base, state_len = model.seqdist.n_base, model.seqdist.state_len
     G = max(1, int(superbatch))
-    if G > 1:
-        if not (qscores or beam_width > 0):
-            raise NotImplementedError(
-                "superbatch above 1 is not ported to xna_basecaller_tpu_torch "
-                "yet (ROADMAP Queue 1, loading and output)")
+    if G > 1 and (qscores or beam_width > 0):
         print(f"[basecall] --superbatch {superbatch} ignored (runs as 1): "
               "qscores/beam decoding is not superbatched", file=sys.stderr)
+        G = 1
 
     def gen_chunks():
         for read in reads:
@@ -172,45 +178,70 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
     chunks = thread_iter(gen_chunks())
     batches = thread_iter(chunkops.batchify(iter(chunks), batchsize))
 
+    def upload(group):
+        """One [G, N, T] upload of a group of padded batches."""
+        host = torch.from_numpy(np.stack([a for _, _, a in group]))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return ([k for k, _, _ in group], [n for _, n, _ in group],
+                host.to(device, non_blocking=True))
+
     def gen_uploads():
+        group = []
         for keys, batch in batches:
             padded, n = _pad_batch(np.asarray(batch), batchsize)
             if quantize:
                 padded = np.clip(np.rint(padded * QUANT_SCALE), -127, 127)
-            host = torch.from_numpy(np.ascontiguousarray(padded, up_dtype))
-            if device.type == "cuda":
-                host = host.pin_memory()
-            yield keys, n, host.to(device, non_blocking=True)
+            group.append((keys, n, np.asarray(padded, up_dtype)))
+            if len(group) == G:
+                yield upload(group)
+                group = []
+        if group:
+            # the trailing group padded with empty batches (n = 0): one
+            # upload shape; they are not computed
+            empty = np.zeros_like(group[0][2])
+            yield upload(group + [((), 0, empty)] * (G - len(group)))
 
     uploads = thread_iter(gen_uploads(), maxsize=3)
 
     def gen_compute():
         # enqueues the device work without waiting for it; the fetch
-        # stage's .cpu() waits for each batch's labels
-        with torch.inference_mode():
-            for keys, n, dev in uploads:
-                scores = _forward(members, dev, compute_dtype, quantize)
-                probs = None
-                if qscores:
-                    paths, probs = _score_and_decode_qual(
-                        scores, n_base, state_len, reverse, float(ub_bias))
-                elif beam_width > 0:
-                    paths = _score_and_decode_beam(
-                        scores, n_base, state_len, beam_width, reverse,
-                        float(ub_bias))
-                else:
-                    paths = _score_and_decode(
-                        scores, n_base, state_len, reverse, float(ub_bias))
-                yield keys, n, paths, probs
+        # stage's .cpu() waits for each batch's labels.  A group's
+        # sub-batches run in order, one sub-batch's scores live at a time.
+        # The kernels launch on this thread's current device: the model's.
+        with torch.inference_mode(), on_device(device):
+            for keys_g, n_g, dev in uploads:
+                outs = []
+                for keys, n, x in zip(keys_g, n_g, dev):
+                    if not keys:
+                        continue
+                    scores = _forward(members, x, compute_dtype, quantize)
+                    probs = None
+                    if qscores:
+                        paths, probs = _score_and_decode_qual(
+                            scores, n_base, state_len, reverse,
+                            float(ub_bias))
+                    elif beam_width > 0:
+                        paths = _score_and_decode_beam(
+                            scores, n_base, state_len, beam_width, reverse,
+                            float(ub_bias))
+                    else:
+                        paths = _score_and_decode(
+                            scores, n_base, state_len, reverse,
+                            float(ub_bias))
+                    del scores
+                    outs.append((keys, n, paths, probs))
+                yield outs
 
     computed = thread_iter(gen_compute(), maxsize=3)
 
     def gen_fetch():
-        for keys, n, paths, probs in computed:
-            out = {"path": paths[:n].cpu().numpy()}
-            if probs is not None:
-                out["prob"] = probs[:n].cpu().numpy().astype(np.float32)
-            yield keys, out
+        for outs in computed:
+            for keys, n, paths, probs in outs:
+                out = {"path": paths[:n].cpu().numpy()}
+                if probs is not None:
+                    out["prob"] = probs[:n].cpu().numpy().astype(np.float32)
+                yield keys, out
 
     fetched = thread_iter(gen_fetch())
 

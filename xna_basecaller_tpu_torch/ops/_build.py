@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -112,3 +114,13 @@ def check(lib: ctypes.CDLL, rc: int, what: str,
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     raise RuntimeError(f"{what}: CUDA error {rc} ({fn(rc).decode()})")
+
+
+def check_device(name: str, t: torch.Tensor) -> None:
+    """Raise unless the CUDA tensor ``t`` is on the current device: the
+    kernels launch there, on its current stream (``torch.cuda.device``
+    sets it)."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{name}: the tensor is on {t.device}, the current device is "
+            f"cuda:{torch.cuda.current_device()} (use torch.cuda.device)")

@@ -89,6 +89,7 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int,
            contiguous: bool = True):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    _build.check_device(name, t)
     if t.dtype != dtype or t.ndim != ndim \
             or (contiguous and not t.is_contiguous()):
         raise ValueError(

@@ -104,6 +104,7 @@ def _check(what: str, shapes: dict[str, tuple],
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous CUDA "
                              f"tensor, got {t.device}")
+        _build.check_device(f"{what}: {name}", t)
         if t.shape != shapes[name]:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")

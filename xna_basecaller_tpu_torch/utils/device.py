@@ -20,6 +20,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (where the
+    kernels launch, on its current stream); nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def profiled(directory: str | None, device: torch.device, report):
     """A ``torch.profiler`` trace of the ``with`` block (CPU activity and,

@@ -5,9 +5,12 @@ model family: the latest checkpoint unless one is named, command-line
 overrides of the basecaller settings and of the drop rates, and
 ``skip_top`` (the CRF head keeps its fresh initialisation, for alphabet
 transfer; the checkpoint's head is not even shape-checked).  Model
-directories written by either package load as they are.  Reference-format
-torch checkpoints (``weights_N.tar``) and the CTC family are not ported
-yet.
+directories written by either package load as they are.  A directory with
+no ``weights_N.npz`` falls back to the reference's torch checkpoints
+(``weights_N.tar``, mapped by ``utils/torch_import.py``), the latest one
+unless ``weights`` names one, as JAX's ``load_model:55-79`` does; where
+``weights`` names an N that has a tar and no npz, the tar loads (JAX
+looks for the npz only and raises).  The CTC family is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from xna_basecaller_tpu_torch.core import config as config_lib
 from xna_basecaller_tpu_torch.models.crf_model import Model
 from xna_basecaller_tpu_torch.utils.device import resolve_device
+from xna_basecaller_tpu_torch.utils.torch_import import load_torch_checkpoint
 from xna_basecaller_tpu_torch.utils.weights import params_from_jax
 
 
@@ -58,19 +62,31 @@ def load_model(dirname: str, device: str | torch.device = "cuda",
     if cfg.is_ctc:
         raise NotImplementedError(
             f"{dirname}: the CTC (QuartzNet) model family is not ported yet")
-    epoch = weights if weights is not None else latest_epoch(dirname)
-    if epoch is None:
-        raise FileNotFoundError(
-            f"no weights_N.npz in '{dirname}' (reference-format torch "
-            "checkpoints are not ported yet)")
     head = ("head", "head_ext")
-    with np.load(os.path.join(dirname, f"weights_{epoch}.npz")) as npz:
-        state = params_from_jax({
-            k: npz[k] for k in npz.files
-            if not (skip_top and k.split("/")[0] in head)})
+    epoch = weights if weights is not None else latest_epoch(dirname)
+    npz_path = os.path.join(dirname, f"weights_{epoch}.npz")
+    tar_path = None
+    if epoch is None:   # no npz: the latest reference-format checkpoint
+        tars = glob(os.path.join(dirname, "weights_*.tar"))
+        if not tars:
+            raise FileNotFoundError(f"no model weights found in '{dirname}'")
+        tar_path = max(tars, key=lambda f: int(
+            re.sub(r".*_([0-9]+)\.tar$", r"\1", f)))
+    elif not os.path.exists(npz_path) and os.path.exists(
+            os.path.join(dirname, f"weights_{epoch}.tar")):
+        tar_path = os.path.join(dirname, f"weights_{epoch}.tar")
+    if tar_path is not None:
+        state = {k: v for k, v in load_torch_checkpoint(tar_path, cfg).items()
+                 if not (skip_top and k.split(".")[0] in head)}
+    else:
+        with np.load(npz_path) as npz:
+            state = params_from_jax({
+                k: npz[k] for k in npz.files
+                if not (skip_top and k.split("/")[0] in head)})
     model = Model(cfg, device="cpu", seed=seed if skip_top else None)
     if skip_top:   # the head keeps its fresh initialisation
         state.update({k: v for k, v in model.state_dict().items()
                       if k.split(".")[0] in head})
     model.load_state_dict(state)
     return model.to(dev), cfg
+
