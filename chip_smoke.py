@@ -7,7 +7,11 @@ decodes), the int8 ``--quantize`` basecall (batch 256) and training
 (batch 64), plain and with the spike and stitch
 augmentations, and the bootstrap-data phase that makes stitch's donors
 (basecall, alignment, ctc-data, DTW breakpoints), and the paper's whole
-north-star chain A -> E through the port's north-star script.
+north-star chain A -> E through the port's north-star script; and the
+other model families and commands: the legacy QuartzNet CTC family
+(basecall and train), the mods classifier (``basecaller --mods-model``),
+duplex pair decoding (``xnacall duplex``), ``evaluate``, ``view`` and
+``export``.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. print the card's name and power limit, build every kernel in
@@ -99,6 +103,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      both kinds, phase D's summary for each epoch of both seeds and its
      choice of epoch, phase E's summaries and ``northstar_summary.json``'s
      keys (JAX's); each phase's wall time is printed by the script;
+  8f. the legacy QuartzNet CTC family at full width
+     (``quartznet5x5_config("NACGTXY")``, random weights from SEED, the
+     batchnorm running stats brought to the batch's): its log-probs on the
+     card held to the port's CPU run of the same chunks, each block's time
+     at 64 x 3600, ``basecall_ctc`` over phase 4's reads greedy and with
+     beam 5 (every read called), the host decode of a read, a training
+     step by stage, and ``train --config <quartznet toml>`` for 8 steps on
+     phase 8's ctc-data (losses finite and falling, the batchnorm running
+     stats moved, the validation loss finite, and again with the stats
+     brought to the validation chunks');
+  8g. ``mods.train.fit`` on the card on seeded synthetic sites (held-out
+     accuracy >= 0.8), then with the launch counts set to 0
+     ``call_reads`` with ``--mods-model --reference --bam`` over simulated
+     reads through phase 8d's phase-A model: at least half the BAM's
+     records carry MM/ML tags, and a read's site probabilities on the card
+     equal the CPU's within 1e-5; ``call_mods``' time a read;
+  8h. ``read_transition_probs`` on the card held to the CPU's plain route
+     (K1's f32 route and K2a), its stages; each pair through
+     ``decode_pair``'s steps one at a time: the card's time a read, the
+     host's simplex decodes, NW + envelope and pair Viterbi (with its
+     cells), and the exit the pair takes; with the launch counts set to
+     0, ``xnacall duplex --pairs --pair-decode`` over DUPLEX_PAIRS
+     simulated template/complement pairs with phase A's model: one duplex
+     read a pair, each equal to ``decode_pair``'s joint call or, where it
+     made none, to the consensus merge's read; the accuracies against the
+     simulated sequence beside the merge's and the simplex calls';
+  8i. with the launch counts set to 0, ``xnacall evaluate --weights 1,2
+     --poa`` on phase 8's ctc-data with phase A's checkpoints (both
+     checkpoints and the POA reported, K1 and K2a/b/c on every batch),
+     ``view``, and ``export`` of a one-layer model of the flagship's width;
   9. time each kernel, its plain version and its library yardstick with
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
@@ -1651,9 +1685,9 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
                            for k in ("bam", "cram"))
     written, bam_write = [], bam_mod.BamWriter.write
 
-    def recorded_write(self, *a):
+    def recorded_write(self, *a, **kw):
         written.append(a)
-        return bam_write(self, *a)
+        return bam_write(self, *a, **kw)
 
     for w in wrappers.values():
         w.launches = 0
@@ -2621,6 +2655,704 @@ def time_training(model, batch, loss_keep, card):
     return t
 
 
+# phase 8f: the CTC family's training run: phase 8's ctc-data (528 chunks)
+# leaves 512 training chunks (8 steps of 64) and 16 validation chunks; the
+# warmup starts at a tenth of --lr, so 2e-3 moves the weights in 8 steps
+CTC_BATCH, CTC_LR, CTC_CPU_CHUNKS = 64, "2e-3", 4
+# phase 8g: the mods classifier's synthetic sites and the reads it calls
+MODS_SITES, MODS_TRAIN, MODS_READS, MODS_LEN = 8192, 6144, 8, 16_000
+# phase 8h: simulated template/complement pairs of one sequence each
+DUPLEX_PAIRS, DUPLEX_BASES = 8, 2500
+# phase 8i: evaluate's chunks of phase 8's ctc-data and its batch
+EVAL_CHUNKS, EVAL_BATCH = 128, 64
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` (the card waited for), after one
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def drive_ctc_family(workroot: str, reads, card: str):
+    """Phase 8f: the legacy QuartzNet CTC family at full width
+    (``quartznet5x5_config("NACGTXY")``: filters 256-1024, kernels 33-87,
+    C1 stride 3; random weights from SEED) on the card: ``basecall_ctc``
+    over phase 4's reads, greedy and beam 5; the card's log-probs of
+    CTC_CPU_CHUNKS chunks held to the port's CPU run of the same chunks;
+    ``train --config <quartznet toml>`` for 8 steps of 64 on phase 8's
+    ctc-data (the loss finite and falling, the batchnorm running stats
+    moved); each stage's time."""
+    import csv
+
+    from xna_basecaller_tpu_torch.cli import main as cli
+    from xna_basecaller_tpu_torch.core import config as config_lib
+    from xna_basecaller_tpu_torch.data import chunkops
+    from xna_basecaller_tpu_torch.data.ctc_data import load_datasets
+    from xna_basecaller_tpu_torch.infer.ctc_basecall import (
+        basecall_ctc, forward_f16,
+    )
+    from xna_basecaller_tpu_torch.models.ctc_model import (
+        CtcModel, masked_ctc_loss, merge_bn_stats, quartznet5x5_config,
+    )
+    from xna_basecaller_tpu_torch.ops import ctc as ctc_ops
+    from xna_basecaller_tpu_torch.ops.conv import ACTIVATIONS
+    from xna_basecaller_tpu_torch.train.loop import make_optimizer
+    from xna_basecaller_tpu_torch.utils.model_io import load_model
+
+    t_phase = time.perf_counter()
+    cfg = quartznet5x5_config("NACGTXY")
+    model = CtcModel(cfg, device="cuda", seed=SEED)
+    chunks = np.concatenate([chunkops.chunk(r.signal, 3600, 500)
+                             for r in reads])
+    batch = torch.from_numpy(chunks[:CTC_BATCH].astype(np.float16)).cuda()
+    # random weights with the batchnorm stats at 0 / 1 let the activations
+    # grow block by block (log-probs of ~1e4); the running stats are first
+    # brought to the batch's, as training brings them: 50 training-mode
+    # forwards of 16 chunks at momentum 0.1 (99.5 % of the way)
+    with torch.no_grad():
+        for _ in range(50):
+            merge_bn_stats(model(batch[:16], train=True)[1])
+    with torch.inference_mode():
+        lp = model(batch)
+        if lp.shape != (1200, CTC_BATCH, 7) \
+                or not bool(torch.isfinite(lp).all()):
+            fail(f"QuartzNet log-probs {tuple(lp.shape)} not finite/expected")
+        cpu = CtcModel(cfg, device="cpu", seed=None)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict()
+                             .items()})
+        x = batch[:CTC_CPU_CHUNKS]
+        got, want = model(x).cpu(), cpu(x.cpu())
+        err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / (1 + want.abs())).max().item()
+        same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        print(f"QuartzNet 5x5 (NACGTXY, {model.n_params()} parameters) on "
+              f"the card vs the port's CPU run, {CTC_CPU_CHUNKS} chunks: "
+              f"log-probs max_abs {err:.3e} (tolerance 1e-3; largest "
+              f"|log-prob| {want.abs().max().item():.3e}), max |a - b| / "
+              f"(1 + |b|) "
+              f"{rel:.3e} (tolerance 1e-4), argmax frames equal {same:.6f} "
+              f"(tolerance >= 0.999)")
+        if err > 1e-3 or rel > 1e-4 or same < 0.999:
+            fail("the QuartzNet forward on the card disagrees with the CPU")
+        # each stage of the forward at the batch, CUDA events
+        act = ACTIVATIONS[cfg.encoder.activation]
+        xs, stage = [batch.float()[:, None, :]], {}
+        for i, block in enumerate(model.blocks):
+            blk = cfg.blocks[i]
+            xs.append(block(xs[-1], act, False, lambda y: y, []))
+            stage[f"block {i} (filters {blk.filters}, k{blk.kernel[0]}, "
+                  f"x{blk.repeat}{', separable' if blk.separable else ''})"
+                  ] = elapsed_ms(lambda b=block, v=xs[-2]: b(
+                      v, act, False, lambda y: y, []), 5)
+        stage["decoder + log_softmax"] = elapsed_ms(
+            lambda: torch.log_softmax(model.decoder(xs[-1]).permute(
+                2, 0, 1), -1), 5)
+        stage["forward (whole)"] = elapsed_ms(lambda: model(batch), 5)
+        stage["forward + f16 [N, T', C] + fetch"] = host_ms(
+            lambda: forward_f16(model, batch).cpu())
+    print(f"QuartzNet forward at {CTC_BATCH} x 3600, by stage (ms, CUDA "
+          f"events; fetch by host clock) on {card}: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+
+    for name, beam in (("greedy", 1), ("beam 5", 5)):
+        t0 = time.perf_counter()
+        out = list(basecall_ctc(model, iter(reads), beamsize=beam))
+        wall = time.perf_counter() - t0
+        seqs = [a["sequence"] for _, a in out]
+        if len(out) != len(reads) or not all(seqs) \
+                or not all(set(s) <= set("ACGTXY") for s in seqs):
+            fail(f"basecall_ctc ({name}) did not call every read")
+        if beam == 1 and any(len(a["qstring"]) != len(a["sequence"])
+                             for _, a in out):
+            fail("basecall_ctc (greedy): a qstring of another length")
+        n_samples = sum(len(r.signal) for r in reads)
+        print(f"basecall_ctc {name}: {len(out)} reads, mean "
+              f"{statistics.mean(map(len, seqs)):.0f} bases, "
+              f"{n_samples / wall:.4e} samples/s (host clock) on {card}")
+    with torch.inference_mode():
+        lp_read = chunkops.stitch(forward_f16(model, torch.from_numpy(
+            chunkops.chunk(reads[0].signal, 3600, 500).astype(np.float16))
+            .cuda()).float().cpu().numpy(), 3600, 500,
+            len(reads[0].signal), model.stride)
+    t_greedy = host_ms(lambda: ctc_ops.collapse_path(
+        lp_read.argmax(1), np.exp(lp_read.max(1)), cfg.alphabet))
+    t_beam = host_ms(lambda: ctc_ops.beam_search(np.exp(lp_read),
+                                                 cfg.alphabet, 5))
+    print(f"host decode of one read ({len(lp_read)} frames): greedy "
+          f"collapse {t_greedy:.2f} ms, beam 5 {t_beam:.2f} ms")
+
+    # one training step at the batch, by stage (host clock, card waited)
+    tbatch = simulated_ctc_batch(CTC_BATCH)
+    m2 = CtcModel(cfg, device="cuda", seed=SEED)
+    opt = make_optimizer(m2, lambda _: 1e-4)
+    t = {}
+
+    def step_parts():
+        for p in m2.parameters():
+            p.grad = None
+        t0 = time.perf_counter()
+        lp_t, stats = m2(tbatch[0], train=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = masked_ctc_loss(lp_t, tbatch[1], tbatch[2])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        opt.step()
+        merge_bn_stats(stats)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, v in (("forward", t1 - t0), ("ctc loss", t2 - t1),
+                     ("backward", t3 - t2), ("clip + AdamW + bn stats",
+                                             t4 - t3)):
+            t.setdefault(k, []).append(v * 1e3)
+    for _ in range(4):
+        step_parts()
+    print(f"CTC training step at {CTC_BATCH} x 3600, medians of 3 after one "
+          f"warm-up (ms, host clock) on {card}: " + "; ".join(
+              f"{k} {statistics.median(v[1:]):.2f}" for k, v in t.items()))
+    del m2, opt
+
+    run = os.path.join(workroot, "ctc_run")
+    toml = os.path.join(workroot, "quartznet.toml")
+    config_lib.save(cfg, toml)
+    t0 = time.perf_counter()
+    cli(["train", run, "--config", toml, "--directory",
+         os.path.join(workroot, "data"), "--epochs", "1", "--batch",
+         str(CTC_BATCH), "--lr", CTC_LR, "--seed", str(SEED), "--device",
+         "cuda", "-f"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "losses_1.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    with open(os.path.join(run, "training.csv")) as fh:
+        val = list(csv.DictReader(fh))[-1]
+    losses = [float(r["loss"]) for r in rows]
+    times = np.diff([0.0] + [float(r["time"]) for r in rows]) * 1e3
+    print(f"train --config quartznet.toml: {len(rows)} steps of {CTC_BATCH}"
+          f" in {wall:.1f} s; losses {[round(v, 4) for v in losses]}; step "
+          f"times {[round(float(v), 1) for v in times]} ms; validation "
+          f"loss {val['validation_loss']} mean_acc {val['validation_mean']}"
+          f" on {card}")
+    if len(rows) != TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or not statistics.mean(losses[-3:]) < losses[0]:
+        fail("the CTC training run's losses are not finite or do not fall")
+    trained, _ = load_model(run, device="cuda")
+    bn = trained.blocks[1].convs[0].bn
+    moved = float(bn.mean.abs().max()), float((bn.var - 1).abs().max())
+    print(f"batchnorm running stats after training: max |mean| "
+          f"{moved[0]:.3e}, max |var - 1| {moved[1]:.3e}")
+    if not (moved[0] > 0 and moved[1] > 0):
+        fail("the CTC training left the batchnorm running stats in place")
+    # the validation runs on the running stats, which 8 steps at momentum
+    # 0.1 bring 1 - 0.9^8 = 57 % of the way from 0 / 1 to the data's; with
+    # the stats brought to the validation chunks' (as at the top of this
+    # phase) the loss should fall to the training losses' size
+    if not math.isfinite(float(val["validation_loss"])):
+        fail("the CTC validation loss is not finite")
+    _, valid = load_datasets(os.path.join(workroot, "data"))
+    vx = torch.from_numpy(np.asarray(valid.chunks, np.float32)).cuda()
+    vt = torch.from_numpy(np.asarray(valid.targets, np.int64)).cuda()
+    vl = torch.from_numpy(np.asarray(valid.lengths, np.int64)).cuda()
+    with torch.no_grad():
+        before = float(masked_ctc_loss(trained(vx), vt, vl))
+        for _ in range(50):
+            merge_bn_stats(trained(vx, train=True)[1])
+        after = float(masked_ctc_loss(trained(vx), vt, vl))
+    print(f"CTC validation loss of the trained model on its {len(vx)} "
+          f"validation chunks: {before:.4f} with its running stats, "
+          f"{after:.4f} with the stats brought to the chunks'")
+    if not (math.isfinite(before) and math.isfinite(after)):
+        fail("the CTC validation loss is not finite")
+    print(f"phase 8f wall time: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+
+
+def simulated_ctc_batch(n: int):
+    """A batch of phase 8's kind of ctc-data on the card: chunks [n, 3600],
+    targets [n, 400], lengths [n]."""
+    from xna_basecaller_tpu_torch.data.simulate import simulate_ctc_dataset
+
+    c, t, l, _ = simulate_ctc_dataset(n, chunk_len=3600, target_len=400,
+                                      seed=SEED + 7)
+    return tuple(torch.from_numpy(a.astype(dt)).cuda() for a, dt in zip(
+        (c, t, l), (np.float32, np.int64, np.int64)))
+
+
+def _reads_fasta(reads, path: str) -> None:
+    with open(path, "w") as fh:
+        for r in reads:
+            fh.write(f">{r.read_id}\n{r.sequence}\n")
+
+
+def drive_mods(workroot: str, boot_dir: str, card: str):
+    """Phase 8g: the modified-base classifier.  Trains a ``ModsConfig()``
+    classifier with ``mods.train.fit`` on the card on seeded synthetic
+    site windows (modified sites carry a level shift at the centre), then
+    calls MODS_READS simulated reads through ``cli/basecaller.py::call_reads``
+    with ``--mods-model --reference --bam`` and phase 8d's phase-A model
+    (trained on simulated DNA, so that its calls hold CG sites), with the
+    launch counts set to 0 just before; counts the BAM's MM/ML tags and
+    holds the card's site probabilities of a read to the CPU's."""
+    from xna_basecaller_tpu_torch.cli import basecaller
+    from xna_basecaller_tpu_torch.data.bam import read_bam
+    from xna_basecaller_tpu_torch.data.simulate import simulate_reads
+    from xna_basecaller_tpu_torch.infer.basecall import basecall
+    from xna_basecaller_tpu_torch.mods import (
+        ModsConfig, ModsModel, call_mods, load_mods_model, save_mods_model,
+    )
+    from xna_basecaller_tpu_torch.mods.infer import (
+        extract_features, find_motif_sites, site_probs,
+    )
+    from xna_basecaller_tpu_torch.mods.train import accuracy, fit
+    from xna_basecaller_tpu_torch.utils.model_io import load_model
+
+    t_phase = time.perf_counter()
+    cfg = ModsConfig()
+    rng = np.random.default_rng(SEED)
+    labels = rng.integers(0, 2, MODS_SITES)
+    sig = rng.normal(size=(MODS_SITES, cfg.sig_window)).astype(np.float32)
+    sig[labels == 1, 24:40] += 0.8
+    ctx = rng.integers(1, 5, size=(MODS_SITES, 2 * cfg.context + 1))
+    ctx[:, cfg.context], ctx[:, cfg.context + 1] = 2, 3      # C, G
+    tr = slice(0, MODS_TRAIN)
+    te = slice(MODS_TRAIN, MODS_SITES)
+    t0 = time.perf_counter()
+    mods, hist = fit(cfg, sig[tr], ctx[tr], labels[tr], epochs=5, batch=256,
+                     seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    acc = accuracy(cfg, mods, sig[te], ctx[te], labels[te])
+    print(f"mods.train.fit on the card: {MODS_TRAIN} sites x 5 epochs in "
+          f"{time.perf_counter() - t0:.2f} s, loss history "
+          f"{[round(h, 4) for h in hist]}, held-out accuracy {acc:.4f}")
+    if not hist[-1] < hist[0] or acc < 0.8:
+        fail("the mods classifier did not learn the synthetic sites")
+    mods_dir = os.path.join(workroot, "mods_model")
+    save_mods_model(mods_dir, cfg, mods)
+
+    model, mcfg = load_model(boot_dir, device="cuda")
+    mreads = list(simulate_reads(MODS_READS, mean_len=MODS_LEN,
+                                 seed=SEED + 5))
+    fasta = os.path.join(workroot, "mods_ref.fa")
+    _reads_fasta(mreads, fasta)
+    bam = os.path.join(workroot, "mods.bam")
+    args = basecaller.argparser().parse_args(
+        [boot_dir, "reads", "--reference", fasta, "--bam", bam,
+         "--mods-model", mods_dir])
+    wrappers = training_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    stats = basecaller.call_reads(args, model, mcfg, iter(mreads),
+                                  out=io.StringIO())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    records = read_bam(bam)[1]
+    # the BAM writer (JAX's, copied byte for byte) stores ML's B:C array
+    # as a Z string, so it reads back as "ML:Z:C,..."
+    mm = [t for r in records for t in r["tags"]
+          if t.startswith("MM:Z:C+m?,")]
+    ml = [t for r in records for t in r["tags"] if t.startswith("ML:")]
+    n_ml = sum(len(t.split(",")) - 1 for t in ml)
+    with_mm = min(len(mm), len(ml))
+    print(f"basecaller --mods-model --reference --bam: {stats['reads']} "
+          f"reads in {wall:.2f} s, {len(records)} BAM records, {with_mm} "
+          f"with MM/ML tags, {n_ml} site probabilities; launches "
+          f"{launches}")
+    if with_mm < MODS_READS // 2:
+        fail("fewer than half the reads carry MM/ML tags")
+    # card vs CPU on one read's sites, and call_mods' time per read
+    calls = list(basecall(model, iter(mreads[:4])))
+    read, attrs = calls[0]
+    sites = find_motif_sites(attrs["sequence"], cfg.motif, cfg.motif_offset)
+    feats = extract_features(read.signal, attrs["sequence"], attrs["moves"],
+                             attrs["stride"], sites, cfg)
+    if not len(sites):
+        fail(f"read {read.read_id}'s call holds no CG site")
+    cpu = ModsModel(cfg, mods.params(), device="cpu")
+    p_card, p_cpu = site_probs(mods, *feats), site_probs(cpu, *feats)
+    err = float(np.abs(p_card - p_cpu).max())
+    print(f"site probabilities of read {read.read_id} ({len(sites)} CG "
+          f"sites), card vs CPU: max_abs {err:.3e} (tolerance 1e-5)")
+    if err > 1e-5:
+        fail("the mods classifier on the card disagrees with the CPU")
+    loaded = load_mods_model(mods_dir, device="cuda")
+    per = []
+    for r, a in calls:
+        t0 = time.perf_counter()
+        call_mods(loaded, r, dict(a))
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) * 1e3)
+    n_sites = [len(find_motif_sites(a["sequence"], "CG", 0))
+               for _, a in calls]
+    print(f"call_mods per read (host clock): {[round(v, 2) for v in per]} "
+          f"ms for {n_sites} CG sites on {card}")
+    print(f"phase 8g wall time: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    return launches
+
+
+def simulated_pairs(n: int, bases: int):
+    """``n`` template/complement reads of one random DNA sequence each
+    (``simulate_squiggle``), and the sequences."""
+    from xna_basecaller_tpu_torch.core.alphabet import reverse_complement_str
+    from xna_basecaller_tpu_torch.data.pore_model import load_pore_model
+    from xna_basecaller_tpu_torch.data.simulate import (
+        SimReadObj, simulate_squiggle,
+    )
+
+    rng = np.random.default_rng(SEED + 9)
+    pore = load_pore_model()
+    reads, truth = [], {}
+    for p in range(n):
+        seq = "".join(rng.choice(list("ACGT"), size=bases))
+        truth[f"t{p}"] = seq
+        for kind, s in (("t", seq), ("c", reverse_complement_str(seq))):
+            codes = np.array(["NACGTXY".index(c) for c in s], np.uint8)
+            sig, _ = simulate_squiggle(codes, pore, rng)
+            reads.append(SimReadObj(f"{kind}{p}", sig, s))
+    return reads, truth
+
+
+def decode_pair_by_stage(t1, i1, t2, i2, alphabet: str, padding: int = 40,
+                         min_match: float = 0.80, min_len: int = 10) -> dict:
+    """``infer/pair_decode.py::decode_pair``'s steps one at a time, with
+    its defaults and the duplex command's padding, each timed on the host
+    clock: the exit the pair takes ("joint call", or the reason it returns
+    None: "min_len", "gate" (the simplex calls match below min_match),
+    "max_cells" (native.pair_viterbi's cap on (T1 + 1) x the widest
+    window x ns), "empty" (the final cell unreachable)), the DP's cells,
+    and the call."""
+    from xna_basecaller_tpu_torch.eval.accuracy import accuracy, sw_align
+    from xna_basecaller_tpu_torch.infer import pair_decode as pdec
+    from xna_basecaller_tpu_torch.utils import native
+
+    n_base = len(alphabet) - 1
+    T1, ns = t1.shape[:2]
+    T2 = t2.shape[0]
+    d = {"frames": f"{T1} x {T2}"}
+    t0 = time.perf_counter()
+    c1, f1 = pdec.simplex_from_trans(t1, i1, n_base)
+    c2, f2 = pdec.simplex_from_trans(t2, i2, n_base)
+    d["simplex ms"] = (time.perf_counter() - t0) * 1e3
+    d["simplex lengths"] = (len(c1), len(c2))
+    if len(c1) < min_len or len(c2) < min_len:
+        d["exit"] = "min_len"
+        return d
+    seq1 = "".join(alphabet[c] for c in c1)
+    seq2 = "".join(alphabet[c] for c in c2)
+    d["match"] = accuracy(seq1, seq2)
+    # the local alignment that identity is taken over
+    d["match columns"] = sum(n for _, n in sw_align(seq2, seq1)[1])
+    d["seqs"] = (seq1, seq2)
+    if d["match"] < min_match * 100:
+        d["exit"] = "gate"
+        return d
+    t0 = time.perf_counter()
+    env = pdec.build_envelope(T1, f1, T2, f2, pdec.nw_columns(seq1, seq2),
+                              padding=padding)
+    d["nw + envelope ms"] = (time.perf_counter() - t0) * 1e3
+    # the windows as native.pair_viterbi reads them: row 0, then a row a
+    # strand-1 frame, the last one stretched to the end of strand 2
+    lo = np.maximum(env[:, 0], 0)
+    hi = np.minimum(env[:, 1], T2)
+    lo = np.minimum(lo, hi)
+    hi[-1] = T2
+    widths = np.concatenate([[min(int(env[0, 1]), T2) + 1], hi - lo + 1])
+    d["widest window"] = (int(widths.max()), f"row {int(widths.argmax())}")
+    d["median window"] = float(np.median(widths))
+    d["cells"] = (T1 + 1) * int(widths.max()) * ns
+    t0 = time.perf_counter()
+    got = native.pair_viterbi(t1, i1, t2, i2, env, n_base)
+    ms = (time.perf_counter() - t0) * 1e3
+    if got is None:
+        d["exit"] = ("max_cells" if d["cells"] > 500_000_000
+                     else "no native library")
+        return d
+    d["pair viterbi ms"] = ms
+    codes, frames = got
+    if not len(codes):
+        d["exit"] = "empty"
+        return d
+    d["exit"] = "joint call"
+    d["call length"] = len(codes)
+    d["first emission frame"] = int(frames[0])
+    d["longest emission gap (frames)"] = int(np.diff(
+        np.concatenate([[0], frames, [T1]])).max())
+    d["call"] = "".join(alphabet[c] for c in codes)
+    return d
+
+
+def drive_duplex(workroot: str, boot_dir: str, card: str):
+    """Phase 8h: duplex calling.  DUPLEX_PAIRS pairs of simulated
+    template/complement reads (``simulate_squiggle``, ~9 samples a base)
+    through ``xnacall duplex --pairs --pair-decode`` with phase 8d's
+    phase-A model (the reads handed to the command through its
+    ``get_reads``: no h5py on the card's machine), with the launch counts
+    set to 0 just before; ``read_transition_probs`` on the card held to
+    the CPU's plain route on one read; each pair through
+    ``decode_pair_by_stage``: the card's time (the f32 forward, K2a and
+    the stitch's gather) apart from each of the host's stages, and the
+    exit each pair takes, which the command's reads must follow."""
+    import contextlib
+
+    from xna_basecaller_tpu_torch.cli import main as cli
+    from xna_basecaller_tpu_torch.core.alphabet import reverse_complement_str
+    from xna_basecaller_tpu_torch.data import fast5
+    from xna_basecaller_tpu_torch.eval.accuracy import accuracy
+    from xna_basecaller_tpu_torch.infer.basecall import basecall
+    from xna_basecaller_tpu_torch.infer import pair_decode as pdec
+    from xna_basecaller_tpu_torch.models.crf_model import Model
+    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
+    from xna_basecaller_tpu_torch.utils.model_io import load_model
+
+    t_phase = time.perf_counter()
+    reads, truth = simulated_pairs(DUPLEX_PAIRS, DUPLEX_BASES)
+    model, cfg = load_model(boot_dir, device="cuda")
+    alphabet = cfg.alphabet
+
+    # the f32 route on the card against the CPU's plain route, one read
+    lstm_cuda.lstm_recurrence.launches = 0
+    crf_cuda.backward_scan.launches = 0
+    tg, ig = pdec.read_transition_probs(model, reads[0].signal)
+    f32_launches = {"K1 f32": lstm_cuda.lstm_recurrence.launches,
+                    "K2a": crf_cuda.backward_scan.launches}
+    cpu = Model(cfg, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tc, ic = pdec.read_transition_probs(cpu, reads[0].signal)
+    err = float(np.abs(np.exp(tg) - np.exp(tc)).max())
+    err_i = float(np.abs(np.exp(ig) - np.exp(ic)).max())
+    print(f"read_transition_probs of {reads[0].read_id} "
+          f"({len(reads[0].signal)} samples, {tg.shape[0]} frames) on the "
+          f"card vs the CPU's plain route: posteriors max_abs {err:.3e}, "
+          f"initial {err_i:.3e} (tolerance 1e-3); launches {f32_launches}")
+    if err > 1e-3 or err_i > 1e-3:
+        fail("read_transition_probs on the card disagrees with the CPU")
+    # read_transition_probs' stages on one read (CUDA events; the fetch
+    # and the host's log by host clock)
+    from xna_basecaller_tpu_torch.data import chunkops
+    from xna_basecaller_tpu_torch.ops import crf, lstm
+    from xna_basecaller_tpu_torch.ops.conv import conv_stack_forward
+    nb, sl = cfg.n_base, cfg.state_len
+    with torch.inference_mode():
+        xc = torch.from_numpy(chunkops.chunk(reads[0].signal, 3600, 500)
+                              ).cuda()
+        sc = model(xc, compute_dtype=torch.float32)
+        xf = conv_stack_forward(model.conv, xc[:, None, :],
+                                cfg.encoder.activation).permute(2, 0, 1)
+        p32 = model.rnn[0].params(torch.float32)
+        xp32 = lstm.input_projection(p32, xf.contiguous())
+        trans, _ = crf.compute_transition_probs(
+            crf.reverse_complement(sc, nb, sl), nb, sl)
+        parts = {
+            "f32 forward": elapsed_ms(lambda: model(
+                xc, compute_dtype=torch.float32), 3),
+            "K1 f32 (one layer)": elapsed_ms(
+                lambda: lstm_cuda.lstm_recurrence(xp32, p32["w_hh"], True),
+                3),
+            "reverse_complement + compute_transition_probs (K2a)":
+                elapsed_ms(lambda: crf.compute_transition_probs(
+                    crf.reverse_complement(sc, nb, sl), nb, sl), 3),
+            "gather + fetch": host_ms(lambda: trans.transpose(0, 1)
+                                      .reshape(-1, *trans.shape[2:])
+                                      [:tg.shape[0]].cpu()),
+        }
+    probs = np.exp(tg)
+    parts["host log"] = host_ms(lambda: np.log(probs + 1e-30))
+    print(f"read_transition_probs by stage, {xc.shape[0]} chunks (ms) on "
+          f"{card}: " + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    # each pair through decode_pair's steps one by one: the card's
+    # read_transition_probs of both strands (host clock, the card waited),
+    # then the host's simplex decodes, NW + envelope and pair Viterbi, and
+    # the exit the pair takes
+    diag = []
+    for p in range(DUPLEX_PAIRS):
+        t0 = time.perf_counter()
+        t1, i1 = pdec.read_transition_probs(model, reads[2 * p].signal)
+        t2, i2 = pdec.read_transition_probs(model, reads[2 * p + 1].signal,
+                                            reverse=True)
+        card_ms = (time.perf_counter() - t0) * 1e3 / 2
+        if p == 0:
+            repeat = bool(np.array_equal(t1, tg) and np.array_equal(i1, ig))
+        d = decode_pair_by_stage(t1, i1, t2, i2, alphabet)
+        d["card ms a read"] = card_ms
+        if "seqs" in d:
+            # both simplex calls are in the template's orientation
+            d["simplex accuracy against the simulated sequence"] = tuple(
+                round(accuracy(truth[f"t{p}"], x), 2) for x in d["seqs"])
+        diag.append(d)
+        print(f"pair {p}: " + "; ".join(
+            f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in d.items() if k not in ("call", "seqs")))
+    exits = collections.Counter(d["exit"] for d in diag)
+
+    def span(key, rows):
+        vals = [d[key] for d in rows if key in d]
+        return (f"{min(vals):.1f}-{max(vals):.1f}" if vals
+                else "not run on any pair")
+    ran = [d for d in diag if "pair viterbi ms" in d]
+    per_cell = [d["pair viterbi ms"] * 1e6 / d["cells"] for d in ran]
+    print(f"decode_pair's exits over the {DUPLEX_PAIRS} pairs: "
+          f"{dict(exits)}; read_transition_probs bit-equal across two calls:"
+          f" {repeat}")
+    print(f"duplex split on {card}: read_transition_probs on the card "
+          f"{span('card ms a read', diag)} ms a read (host clock, the card "
+          f"waited); on the host, a pair: simplex decodes of both strands "
+          f"{span('simplex ms', diag)} ms, NW + envelope "
+          f"{span('nw + envelope ms', diag)} ms, pair Viterbi "
+          f"{span('pair viterbi ms', ran)} ms over {len(ran)} pairs "
+          f"(cells {[d['cells'] for d in ran]}, "
+          f"{[round(v, 3) for v in per_cell]} ns a cell)")
+    # the CLI
+    with open(os.path.join(workroot, "pairs.txt"), "w") as fh:
+        fh.writelines(f"t{p} c{p}\n" for p in range(DUPLEX_PAIRS))
+    by_id = {r.read_id: r for r in reads}
+    real_get_reads = fast5.get_reads
+    fast5.get_reads = lambda directory, read_ids=None, **kw: iter(
+        [by_id[r] for r in sorted(by_id) if read_ids is None
+         or r in read_ids])
+    wrappers = {**training_wrappers(),
+                "K2b-qual": crf_cuda.forward_viterbi_qual,
+                "K2c-qual": crf_cuda.viterbi_traceback_qual}
+    for w in wrappers.values():
+        w.launches = 0
+    out, merged = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli(["duplex", boot_dir, "reads", "--pairs",
+                 os.path.join(workroot, "pairs.txt"), "--pair-decode",
+                 "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()
+                    if w.launches}
+        # the same pairs through the consensus merge alone
+        with contextlib.redirect_stdout(merged):
+            cli(["duplex", boot_dir, "reads", "--pairs",
+                 os.path.join(workroot, "pairs.txt"), "--device", "cuda"])
+    finally:
+        fast5.get_reads = real_get_reads
+
+    def accuracies(text):
+        lines = text.splitlines()
+        return lines[0::4], lines[1::4], [
+            accuracy(truth[h[1:].split(";")[0]], s)
+            for h, s in zip(lines[0::4], lines[1::4])]
+    heads, seqs, accs = accuracies(out.getvalue())
+    _, merge_seqs, merge_accs = accuracies(merged.getvalue())
+    simplex = []
+    for r, a in basecall(model, iter(reads[:4])):
+        ref = truth[f"t{r.read_id[1:]}"]
+        if r.read_id.startswith("c"):
+            ref = reverse_complement_str(ref)
+        simplex.append(accuracy(ref, a["sequence"]))
+    print(f"xnacall duplex --pairs --pair-decode: {len(heads)} duplex reads "
+          f"of {DUPLEX_PAIRS} pairs in {wall:.2f} s; lengths "
+          f"{[len(x) for x in seqs]} of {DUPLEX_BASES}; accuracy against "
+          f"the simulated sequence {[round(a, 2) for a in accs]} (without "
+          f"--pair-decode, the consensus merge: "
+          f"{[round(a, 2) for a in merge_accs]}; simplex calls of the first "
+          f"two pairs {[round(a, 2) for a in simplex]}); launches "
+          f"{launches} on {card}")
+    if len(heads) != DUPLEX_PAIRS or not all(seqs) \
+            or len(merge_seqs) != DUPLEX_PAIRS:
+        fail("the duplex command did not call every pair")
+    # a pair whose decode_pair made a joint call gives it; any other pair
+    # the consensus merge's read
+    differ = [p for p, d in enumerate(diag) if seqs[p] != (
+        d["call"] if d["exit"] == "joint call" else merge_seqs[p])]
+    print(f"--pair-decode reads equal to decode_pair's joint call or, where "
+          f"it made none, the consensus merge's: {DUPLEX_PAIRS - len(differ)}"
+          f" of {DUPLEX_PAIRS} (differing pairs {differ})")
+    if differ:
+        fail("the duplex command's reads are not decode_pair's calls")
+    print(f"phase 8h wall time: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    return f32_launches, launches
+
+
+def drive_evaluate_view_export(workroot: str, boot_dir: str, card: str):
+    """Phase 8i: ``xnacall evaluate --weights 1,2 --poa`` on phase 8's
+    ctc-data with phase 8d's phase-A checkpoints 1 and 2 (the launch counts
+    set to 0 just before), then ``view`` and ``export``."""
+    import contextlib
+
+    from xna_basecaller_tpu_torch.cli import main as cli
+
+    t_phase = time.perf_counter()
+    wrappers = training_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli(["evaluate", boot_dir, "--directory",
+             os.path.join(workroot, "data"), "--weights", "1,2", "--poa",
+             "--chunks", str(EVAL_CHUNKS), "--batchsize", str(EVAL_BATCH),
+             "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    text = out.getvalue()
+    print("xnacall evaluate --weights 1,2 --poa: " + " | ".join(
+        text.splitlines()) + f"; launches {launches} on {card}")
+    if text.count("* mean") != 2 or "* poa mean" not in text:
+        fail("evaluate did not report both checkpoints and the POA")
+    n_batches = 2 * math.ceil(EVAL_CHUNKS / EVAL_BATCH)
+    if launches.get("K2a", 0) < n_batches or launches.get("K1", 0) < \
+            5 * n_batches:
+        fail(f"evaluate did not run K1 and K2a/b/c on its {n_batches} "
+             "batches")
+    # export writes every weight as JSON text (~20 characters each): the
+    # flagship's 24.8 M would take about a minute, so a model of the
+    # flagship's width with one LSTM layer (random weights from SEED) is
+    # exported
+    from dataclasses import replace
+
+    from xna_basecaller_tpu_torch.core.config import ModelConfig
+    from xna_basecaller_tpu_torch.core import config as config_lib
+    from xna_basecaller_tpu_torch.models.crf_model import Model
+    from xna_basecaller_tpu_torch.train import checkpoint as ckpt
+    from xna_basecaller_tpu_torch.utils.weights import params_to_jax
+
+    one = ModelConfig()
+    one = replace(one, encoder=replace(one.encoder, num_rnn_layers=1))
+    one_dir = os.path.join(workroot, "one_layer")
+    os.makedirs(one_dir)
+    config_lib.save(one, one_dir)
+    ckpt.save_checkpoint(one_dir, 1, params_to_jax(
+        Model(one, device="cpu", seed=SEED).state_dict()))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli(["view", boot_dir])
+        cli(["export", one_dir, "--output",
+             os.path.join(workroot, "model.json"), "--device", "cuda"])
+    t_export = time.perf_counter() - t0
+    with open(os.path.join(workroot, "model.json")) as fh:
+        exported = json.load(fh)
+    print("xnacall view: " + " | ".join(out.getvalue().splitlines()[:-1])
+          + f"; export of the one-layer model: {len(exported['layers'])} "
+          f"layers, alphabet {exported['alphabet']}, "
+          f"{os.path.getsize(os.path.join(workroot, 'model.json'))} bytes "
+          f"in {t_export:.1f} s")
+    if len(exported["layers"]) != 3 + 1 + 1:
+        fail("export did not write the model's 5 layers")
+    print(f"phase 8i wall time: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2917,6 +3649,18 @@ def main() -> int:
         drive_bootstrap_data(workroot, model, cfg, reads, card)
         # -- 8d. the north-star chain A -> E (tools/spliced_northstar) --
         drive_northstar(workroot, card)
+        boot_dir = os.path.join(workroot, "northstar", "bootstrap_model")
+        # -- 8f. the legacy CTC (QuartzNet) family ---------------------
+        drive_ctc_family(workroot, reads, card)
+        # -- 8g. modified bases (basecaller --mods-model) ---------------
+        mods_launches = drive_mods(workroot, boot_dir, card)
+        # -- 8h. duplex pairs (xnacall duplex --pair-decode) ------------
+        duplex_f32, duplex_launches = drive_duplex(workroot, boot_dir, card)
+        # -- 8i. evaluate, view, export ----------------------------------
+        eval_launches = drive_evaluate_view_export(workroot, boot_dir, card)
+        print(f"launches of the new paths: mods {mods_launches}, duplex "
+              f"read_transition_probs {duplex_f32}, duplex CLI "
+              f"{duplex_launches}, evaluate {eval_launches}")
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     print(f"training path step times (host clock, losses_1.csv): "

@@ -1,8 +1,9 @@
 """CLI dispatcher: ``python -m xna_basecaller_tpu_torch basecaller|train ...``.
 
-Port of ``xna_basecaller_tpu/cli/__init__.py``.  ``basecaller`` and
-``train`` are ported; the JAX package's other subcommands are listed so
-that calling one says it is not ported yet.
+Port of ``xna_basecaller_tpu/cli/__init__.py``.  ``basecaller``,
+``train``, ``evaluate``, ``view``, ``export`` and ``duplex`` are ported;
+``convert`` and ``download`` are listed so that calling one says it is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -13,9 +14,8 @@ import sys
 
 __version__ = "0.1.0"
 
-modules = ["basecaller", "train"]
-not_ported = ["evaluate", "view", "convert", "export", "download",
-              "duplex"]
+modules = ["basecaller", "train", "evaluate", "view", "export", "duplex"]
+not_ported = ["convert", "download"]
 
 
 def _not_ported(args):

@@ -15,12 +15,13 @@ uploads G batches at once (``infer/basecall.py``).  ``--qscores`` writes
 real per-base qualities (the FASTQ's and SAM's, and the summary's
 ``mean_qscore``), ``--beam W`` decodes with the path-collapsing beam
 search, ``--profile DIR`` writes a ``torch.profiler`` trace of the run to
-``DIR/trace.json``.  ``--mods-model``, which this package does not port
-yet, is still recognised and refused with an error instead of being
-ignored; ``--beamsize`` (JAX reads it only for the CTC family, which this
-package does not load) is accepted, as JAX does nothing with it.
-Comma-separated model directories basecall as a checkpoint ensemble, as
-in JAX.
+``DIR/trace.json``.  ``--mods-model DIR`` calls the modified bases of
+each read (``mods.call_mods``, the classifier's forward on the model's
+device) and writes their MM/ML tags into the FASTQ, SAM, BAM and CRAM
+records.  A ``[[block]]`` model directory (the legacy CTC family) calls
+through ``infer/ctc_basecall.py`` with ``--beamsize`` (1 = greedy);
+ensembles of it are refused, as JAX refuses them.  Comma-separated model
+directories basecall as a checkpoint ensemble, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,16 +32,8 @@ import os
 import sys
 from time import perf_counter
 
-# flag -> argparse dest of the options that are not ported yet
-NOT_PORTED = {"--mods-model": "mods_model"}
-
 
 def main(args):
-    for flag, dest in NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            sys.exit(f"xnacall basecaller: {flag} is not ported to "
-                     "xna_basecaller_tpu_torch yet")
-
     from xna_basecaller_tpu_torch.data.fast5 import get_reads
     from xna_basecaller_tpu_torch.utils.model_io import load_model
     from xna_basecaller_tpu_torch.utils.pipeline import cancel_on_sigint
@@ -57,7 +50,12 @@ def main(args):
             overlap=args.overlap)
         if not models:
             cfg = cfg_d
-        elif (cfg_d.alphabet != cfg.alphabet
+            if cfg.is_ctc and len(model_dirs) > 1:
+                sys.stderr.write(
+                    "> ensembles are CRF-only (legacy CTC decode takes one "
+                    "model)\n")
+                sys.exit(1)
+        elif (cfg_d.is_ctc or cfg_d.alphabet != cfg.alphabet
               or cfg_d.state_len != cfg.state_len
               or cfg_d.encoder != cfg.encoder):
             sys.exit(f"xnacall basecaller: ensemble member {d} is "
@@ -99,7 +97,8 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
     ``--save-ctc`` cut into chunk-reads of the model's chunk size first),
     align each call to ``--reference``'s templates, and write FASTQ or
     SAM to ``out`` (standard output by default), the BAM and CRAM files,
-    the summary and the ctc-data, as the JAX command does.  Returns
+    the summary and the ctc-data, as the JAX command does; with
+    ``--mods-model``, each record carries the read's MM/ML tags.  Returns
     {"reads", "samples", "seconds"}: the reads (chunk-reads) called, their
     samples, and the host-clock time of the calls, alignment and writing
     (the ctc-data's save excluded)."""
@@ -110,6 +109,8 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
     )
     from xna_basecaller_tpu_torch.eval.xna_refs import read_fasta
     from xna_basecaller_tpu_torch.infer.basecall import basecall
+    from xna_basecaller_tpu_torch.infer.ctc_basecall import basecall_ctc
+    from xna_basecaller_tpu_torch.mods import call_mods, load_mods_model
     from xna_basecaller_tpu_torch.utils.device import profiled
 
     out = sys.stdout if out is None else out
@@ -150,41 +151,64 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
         from xna_basecaller_tpu_torch.data.cram import CramWriter
         cram = CramWriter(args.cram, targets, read_group=read_group)
 
+    first = model[0] if isinstance(model, (list, tuple)) else model
+    device = next(first.parameters()).device
+    mods_model = None
+    if args.mods_model:
+        mods_model = load_mods_model(args.mods_model, device=device)
+        sys.stderr.write(
+            f"> mods model: {mods_model[0].mod_long_name} "
+            f"({mods_model[0].motif})\n")
+
     summary_fh = open(args.summary, "w") if args.summary else None
     header_written = False
-    first = model[0] if isinstance(model, (list, tuple)) else model
     t0 = perf_counter()
     n_reads = n_samples = 0
+    if cfg.is_ctc:
+        # the legacy QuartzNet family: score-level stitch, host decode
+        called = basecall_ctc(
+            model, reads, chunksize=chunksize,
+            overlap=cfg.basecaller.overlap,
+            batchsize=cfg.basecaller.batchsize, beamsize=args.beamsize,
+            qscores=args.qscores, cancel=cancel)
+    else:
+        called = basecall(
+            model, reads, chunksize=chunksize,
+            overlap=cfg.basecaller.overlap,
+            batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
+            qscores=args.qscores, cancel=cancel,
+            quantize=args.quantize or cfg.basecaller.quantize,
+            beam_width=args.beam, superbatch=args.superbatch,
+            ub_bias=args.ub_bias)
     try:
-        with profiled(args.profile, next(first.parameters()).device,
+        with profiled(args.profile, device,
                       lambda trace: sys.stderr.write(
                           f"> profile trace: {trace}\n")):
-            for read, attrs in basecall(
-                    model, reads, chunksize=chunksize,
-                    overlap=cfg.basecaller.overlap,
-                    batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
-                    qscores=args.qscores, cancel=cancel,
-                    quantize=args.quantize or cfg.basecaller.quantize,
-                    beam_width=args.beam, superbatch=args.superbatch,
-                    ub_bias=args.ub_bias):
+            for read, attrs in called:
                 n_reads += 1
                 n_samples += len(read.signal)
                 seq, qstring = attrs["sequence"], attrs["qstring"]
+                mean_q = attrs.get("mean_qscore",
+                                   mean_qscore_from_qstring(qstring))
                 mapping, refseq = (None, None)
                 if targets is not None and len(seq):
                     mapping, refseq = align(seq, targets)
                 if ctc_writer is not None:
                     ctc_writer.add(read.signal[:chunksize], seq, mapping,
                                    refseq=refseq)
+                tags = None
+                if mods_model is not None and len(seq):
+                    tags = call_mods(mods_model, read, attrs).get("mods")
                 if len(seq):
                     for w in (bam, cram, sam):
                         if w is not None:
-                            w.write(read.read_id, seq, qstring, mapping)
+                            w.write(read.read_id, seq, qstring, mapping,
+                                    tags=tags)
                     if sam is bam is cram is None:
-                        write_fastq(out, read.read_id, seq, qstring)
+                        write_fastq(out, read.read_id, seq, qstring,
+                                    tags=tags)
                 if summary_fh is not None:
-                    row = summary_row(read, len(seq),
-                                      mean_qscore_from_qstring(qstring),
+                    row = summary_row(read, len(seq), mean_q,
                                       alignment=mapping)
                     if not header_written:
                         summary_fh.write("\t".join(row) + "\n")
@@ -228,8 +252,7 @@ def argparser():
                         help="reverse-complement decoding (R strand)")
     parser.add_argument("--recursive", action="store_true")
     parser.add_argument("--beamsize", default=5, type=int,
-                        help="CTC-family beam width: accepted for the JAX "
-                             "command's sake, CRF models do not read it")
+                        help="CTC-family beam width (1 = greedy)")
     parser.add_argument("--beam", default=0, type=int, metavar="W",
                         help="CRF path-collapsing beam width (0 = Viterbi; "
                              "1 to 256 on the card)")
@@ -277,7 +300,7 @@ def argparser():
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler trace (CPU and CUDA "
                              "activity) of the run to DIR/trace.json")
-    not_ported = parser.add_argument_group(
-        "not ported yet (refused with an error)")
-    not_ported.add_argument("--mods-model", default=None)
+    parser.add_argument("--mods-model", default=None, metavar="DIR",
+                        help="modified-base model directory (emits MM/ML "
+                             "tags; reference's remora hook, mod_util.py)")
     return parser

@@ -8,7 +8,10 @@ insert; without ``--ubs`` they change nothing, as in JAX (``need_bkps``).
 The validation set is augmented the same way.  ``--profile DIR`` writes a
 ``torch.profiler`` trace of the fit (CPU and, on the card, CUDA
 activities) to ``DIR/trace.json`` as a Chrome trace.  Without ``--config``
-or ``--pretrained`` the flagship ``ModelConfig()`` is trained.
+or ``--pretrained`` the flagship ``ModelConfig()`` is trained.  A
+``--config`` with ``[[block]]`` sections trains the QuartzNet CTC family
+(``models/ctc_model.py``; JAX's command builds the CRF model for any
+config, so that its Trainer fails on such a config).
 
 Data-parallel training over N GPUs (``parallel/distributed.py``)::
 
@@ -87,6 +90,7 @@ def fit(args, workdir: str, exists: bool):
     from xna_basecaller_tpu_torch.core import config as config_lib
     from xna_basecaller_tpu_torch.data.ctc_data import load_datasets
     from xna_basecaller_tpu_torch.models.crf_model import Model
+    from xna_basecaller_tpu_torch.models.ctc_model import CtcModel
     from xna_basecaller_tpu_torch.parallel.distributed import local_device
     from xna_basecaller_tpu_torch.parallel.mesh import make_mesh
     from xna_basecaller_tpu_torch.train.loop import Trainer
@@ -118,7 +122,8 @@ def fit(args, workdir: str, exists: bool):
     else:
         cfg = (config_lib.load(args.config) if args.config
                else config_lib.ModelConfig())
-        model = Model(cfg, device=args.device, seed=args.seed)
+        family = CtcModel if cfg.is_ctc else Model
+        model = family(cfg, device=args.device, seed=args.seed)
 
     if len(cfg.labels) == 6:
         # 5-letter model (single UB letter): remap Y->X in targets

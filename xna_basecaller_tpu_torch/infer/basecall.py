@@ -133,6 +133,93 @@ def _pad_batch(batch: np.ndarray, batchsize: int) -> tuple[np.ndarray, int]:
     return np.concatenate([batch, pad], axis=0), n
 
 
+def _quantize_signal(batch: np.ndarray) -> np.ndarray:
+    """The int8 codes of ``--quantize``, before the cast."""
+    return np.clip(np.rint(batch * QUANT_SCALE), -127, 127)
+
+
+def read_batches(reads: Iterable, chunksize: int, overlap: int,
+                 batchsize: int, cancel=None):
+    """The host stages: each read's chunks, packed into batches of at most
+    ``batchsize`` (``chunkops.batchify``), on background threads.
+    ``cancel`` (a threading.Event) stops the read producer early."""
+    def gen_chunks():
+        for read in reads:
+            if cancel is not None and cancel.is_set():
+                return
+            sig = np.asarray(read.signal, dtype=np.float32)
+            yield ((read, 0, len(sig)),
+                   chunkops.chunk(sig, chunksize, overlap))
+
+    chunks = thread_iter(gen_chunks())
+    return thread_iter(chunkops.batchify(iter(chunks), batchsize))
+
+
+def device_stages(batches, device: torch.device, batchsize: int, up_dtype,
+                  run, superbatch: int = 1, host_transform=None):
+    """The device stages of a pipeline, on background threads: upload,
+    compute, fetch.  Each batch of ``batches`` ((keys, chunks) pairs) is
+    padded to ``batchsize`` rows, passed through ``host_transform`` if
+    given, cast to ``up_dtype`` and sent from pinned memory, ``superbatch``
+    G batches as one [G, N, T] upload (the trailing group padded with empty
+    batches, which are not computed).  The compute thread runs ``run(x)``
+    -> {name: device tensor [N, ...]} on each batch, under inference mode
+    with ``device`` current, and only enqueues the work; the fetch thread
+    brings back each output's first n rows with ``.cpu()`` (f16 as f32).
+    Yields (keys, {name: numpy array})."""
+    G = max(1, int(superbatch))
+
+    def upload(group):
+        """One [G, N, T] upload of a group of padded batches."""
+        host = torch.from_numpy(np.stack([a for _, _, a in group]))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return ([k for k, _, _ in group], [n for _, n, _ in group],
+                host.to(device, non_blocking=True))
+
+    def gen_uploads():
+        group = []
+        for keys, batch in batches:
+            padded, n = _pad_batch(np.asarray(batch), batchsize)
+            if host_transform is not None:
+                padded = host_transform(padded)
+            group.append((keys, n, np.asarray(padded, up_dtype)))
+            if len(group) == G:
+                yield upload(group)
+                group = []
+        if group:
+            # the trailing group padded with empty batches (n = 0): one
+            # upload shape; they are not computed
+            empty = np.zeros_like(group[0][2])
+            yield upload(group + [((), 0, empty)] * (G - len(group)))
+
+    uploads = thread_iter(gen_uploads(), maxsize=3)
+
+    def gen_compute():
+        # enqueues the device work without waiting for it; the fetch
+        # stage's .cpu() waits for each batch's outputs.  A group's
+        # sub-batches run in order, one sub-batch's intermediates live at a
+        # time.  The kernels launch on this thread's current device.
+        with torch.inference_mode(), on_device(device):
+            for keys_g, n_g, dev in uploads:
+                yield [(keys, n, run(x))
+                       for keys, n, x in zip(keys_g, n_g, dev) if keys]
+
+    computed = thread_iter(gen_compute(), maxsize=3)
+
+    def gen_fetch():
+        for outs in computed:
+            for keys, n, out in outs:
+                host = {}
+                for name, t in out.items():
+                    a = t[:n].cpu().numpy()
+                    host[name] = (a.astype(np.float32)
+                                  if a.dtype == np.float16 else a)
+                yield keys, host
+
+    return thread_iter(gen_fetch())
+
+
 def basecall(model, reads: Iterable, chunksize: int = 3600,
              overlap: int = 500, batchsize: int = 256,
              reverse: bool = False, compute_dtype=torch.bfloat16,
@@ -167,83 +254,23 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
               "qscores/beam decoding is not superbatched", file=sys.stderr)
         G = 1
 
-    def gen_chunks():
-        for read in reads:
-            if cancel is not None and cancel.is_set():
-                return
-            sig = np.asarray(read.signal, dtype=np.float32)
-            yield ((read, 0, len(sig)),
-                   chunkops.chunk(sig, chunksize, overlap))
+    def run(x):
+        scores = _forward(members, x, compute_dtype, quantize)
+        if qscores:
+            paths, probs = _score_and_decode_qual(
+                scores, n_base, state_len, reverse, float(ub_bias))
+            return {"path": paths, "prob": probs}
+        if beam_width > 0:
+            return {"path": _score_and_decode_beam(
+                scores, n_base, state_len, beam_width, reverse,
+                float(ub_bias))}
+        return {"path": _score_and_decode(
+            scores, n_base, state_len, reverse, float(ub_bias))}
 
-    chunks = thread_iter(gen_chunks())
-    batches = thread_iter(chunkops.batchify(iter(chunks), batchsize))
-
-    def upload(group):
-        """One [G, N, T] upload of a group of padded batches."""
-        host = torch.from_numpy(np.stack([a for _, _, a in group]))
-        if device.type == "cuda":
-            host = host.pin_memory()
-        return ([k for k, _, _ in group], [n for _, n, _ in group],
-                host.to(device, non_blocking=True))
-
-    def gen_uploads():
-        group = []
-        for keys, batch in batches:
-            padded, n = _pad_batch(np.asarray(batch), batchsize)
-            if quantize:
-                padded = np.clip(np.rint(padded * QUANT_SCALE), -127, 127)
-            group.append((keys, n, np.asarray(padded, up_dtype)))
-            if len(group) == G:
-                yield upload(group)
-                group = []
-        if group:
-            # the trailing group padded with empty batches (n = 0): one
-            # upload shape; they are not computed
-            empty = np.zeros_like(group[0][2])
-            yield upload(group + [((), 0, empty)] * (G - len(group)))
-
-    uploads = thread_iter(gen_uploads(), maxsize=3)
-
-    def gen_compute():
-        # enqueues the device work without waiting for it; the fetch
-        # stage's .cpu() waits for each batch's labels.  A group's
-        # sub-batches run in order, one sub-batch's scores live at a time.
-        # The kernels launch on this thread's current device: the model's.
-        with torch.inference_mode(), on_device(device):
-            for keys_g, n_g, dev in uploads:
-                outs = []
-                for keys, n, x in zip(keys_g, n_g, dev):
-                    if not keys:
-                        continue
-                    scores = _forward(members, x, compute_dtype, quantize)
-                    probs = None
-                    if qscores:
-                        paths, probs = _score_and_decode_qual(
-                            scores, n_base, state_len, reverse,
-                            float(ub_bias))
-                    elif beam_width > 0:
-                        paths = _score_and_decode_beam(
-                            scores, n_base, state_len, beam_width, reverse,
-                            float(ub_bias))
-                    else:
-                        paths = _score_and_decode(
-                            scores, n_base, state_len, reverse,
-                            float(ub_bias))
-                    del scores
-                    outs.append((keys, n, paths, probs))
-                yield outs
-
-    computed = thread_iter(gen_compute(), maxsize=3)
-
-    def gen_fetch():
-        for outs in computed:
-            for keys, n, paths, probs in outs:
-                out = {"path": paths[:n].cpu().numpy()}
-                if probs is not None:
-                    out["prob"] = probs[:n].cpu().numpy().astype(np.float32)
-                yield keys, out
-
-    fetched = thread_iter(gen_fetch())
+    fetched = device_stages(
+        read_batches(reads, chunksize, overlap, batchsize, cancel), device,
+        batchsize, up_dtype, run, superbatch=G,
+        host_transform=_quantize_signal if quantize else None)
 
     def finish(item):
         (read, start, end), attrs = item

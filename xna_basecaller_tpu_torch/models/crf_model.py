@@ -129,8 +129,8 @@ class Model(nn.Module):
                  device: str | torch.device = "cuda", seed: int | None = 0):
         super().__init__()
         if cfg.is_ctc:
-            raise NotImplementedError(
-                "the CTC (QuartzNet) model family is not ported yet")
+            raise ValueError("a [[block]] config is the CTC (QuartzNet) "
+                             "family: models/ctc_model.py::CtcModel")
         dev = resolve_device(device)
         enc = cfg.encoder
         self.cfg = cfg

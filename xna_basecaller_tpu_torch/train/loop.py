@@ -45,6 +45,15 @@ slice of every validation batch and gathers the per-row losses and
 accuracies in the global order, so that its numbers are a single
 process's.
 
+The CTC (QuartzNet) family (``cfg.is_ctc``) dispatches as JAX's
+``train_step`` (``:113-117`` there) and ``eval_scores`` (``:161-163``):
+``models/ctc_model.py::train_step`` (the masked CTC + label-smoothing loss
+in f32, the same clip and AdamW, the batchnorm running stats written after
+the update; no ``grad_accum_split``, as in JAX) and the f32 forward; the
+validation's loss is the CTC + label-smoothing loss.  It trains in one
+process: its batchnorm statistics are those of the whole batch in JAX,
+and they are not reduced over ranks here.
+
 Dropout draws from a ``torch.Generator`` on the model's device seeded from
 (seed, step, rank), as ``fold_in(base_rng, step)`` keys it in JAX (the bits
 differ).  There is no ``steps_per_dispatch``: the fused dispatch of
@@ -68,6 +77,7 @@ from torch.profiler import record_function
 
 from xna_basecaller_tpu_torch.core.alphabet import decode as decode_codes
 from xna_basecaller_tpu_torch.eval.accuracy import accuracy
+from xna_basecaller_tpu_torch.models import ctc_model
 from xna_basecaller_tpu_torch.models.crf_model import Model
 from xna_basecaller_tpu_torch.parallel.distributed import (
     all_gather_rows, all_reduce_sum,
@@ -103,6 +113,9 @@ class Optimizer:
                  weight_decay: float = 1e-2,
                  frozen_predicate: Callable[[str], bool] | None = None):
         named = [(jax_key(n), p) for n, p in model.named_parameters()]
+        # buffers (the CTC family's batchnorm stats) sit in optax's state
+        # with moments that stay 0: written so, never read
+        self.buffers = [(jax_key(n), b) for n, b in model.named_buffers()]
         self.named = [(k, p) for k, p in named
                       if frozen_predicate is None or not frozen_predicate(k)]
         self.multi = frozen_predicate is not None
@@ -143,6 +156,10 @@ class Optimizer:
                 arr = (st[name] if st else torch.zeros_like(p)).float()
                 flat[f"{pre}1/0/{m}/{k}"] = np.ascontiguousarray(
                     swap_layout(k, arr.cpu().numpy()))
+        for k, b in self.buffers:
+            for m in ("mu", "nu"):
+                flat[f"{pre}1/0/{m}/{k}"] = np.zeros(
+                    swap_layout(k, b.cpu().numpy()).shape, np.float32)
         return flat
 
     def state_tensors(self):
@@ -218,8 +235,15 @@ def train_step(model: Model, optimizer: Optimizer, chunks: torch.Tensor,
     all-reduced, each rank runs the micro-batches' parts it holds, and the
     gradients and the loss are summed over the ranks in one all-reduce
     before the clip."""
-    state_len = model.cfg.state_len
     reduce = mesh is not None and dist.is_initialized()
+    if model.cfg.is_ctc:
+        if reduce and mesh.world_size > 1:
+            raise ValueError("the CTC family trains in one process (its "
+                             "batchnorm statistics are not reduced over "
+                             "ranks)")
+        return ctc_model.train_step(model, optimizer, chunks, targets,
+                                    lengths, dropout)
+    state_len = model.cfg.state_len
     world, rank = (mesh.world_size, mesh.rank) if reduce else (1, 0)
     b = chunks.shape[0]
     k = max(grad_accum_split, 1)
@@ -267,6 +291,21 @@ def train_step(model: Model, optimizer: Optimizer, chunks: torch.Tensor,
     grad_norm = global_norm(grads)
     optimizer.step()
     return loss, grad_norm
+
+
+def eval_scores(model, chunks: torch.Tensor,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The inference forward: the CRF scores in ``compute_dtype``, or the
+    CTC family's f32 log-probs (JAX's ``eval_scores``)."""
+    if model.cfg.is_ctc:
+        return model(chunks)
+    return model(chunks, compute_dtype)
+
+
+def uses_dropout(cfg) -> bool:
+    """Whether a training step of ``cfg`` draws dropout masks."""
+    return (cfg.encoder.drop_rate > 0 or cfg.encoder.drop_rate_bottom > 0
+            or any(b.dropout > 0 for b in cfg.blocks))
 
 
 class CSVLogger:
@@ -392,8 +431,7 @@ class Trainer:
     def _run_epoch(self, workdir, epoch, optimizer, schedule, history,
                    step) -> int:
         cfg = self.model.cfg
-        use_dropout = (cfg.encoder.drop_rate > 0
-                       or cfg.encoder.drop_rate_bottom > 0)
+        use_dropout = uses_dropout(cfg)
         dev = self.device
         t0 = perf_counter()
         chunks_seen = 0
@@ -477,7 +515,7 @@ class Trainer:
                 n_real = len(batch[0])
                 real = torch.arange(first, first + len(c),
                                     device=l.device) < n_real
-                scores = self.model(c, self.compute_dtype)
+                scores = eval_scores(self.model, c, self.compute_dtype)
                 # padding rows (length 0) get a length the loss can take;
                 # their values are dropped below
                 per_row = self.model.loss(

@@ -10,7 +10,11 @@ no ``weights_N.npz`` falls back to the reference's torch checkpoints
 (``weights_N.tar``, mapped by ``utils/torch_import.py``), the latest one
 unless ``weights`` names one, as JAX's ``load_model:55-79`` does; where
 ``weights`` names an N that has a tar and no npz, the tar loads (JAX
-looks for the npz only and raises).  The CTC family is not ported yet.
+looks for the npz only and raises).  A ``[[block]]`` config (the CTC
+family, ``cfg.is_ctc``) gives the QuartzNet ``CtcModel``, whose
+``skip_top`` keeps the decoder's fresh initialisation, as JAX's
+``load_model:47-50`` dispatches; its weights load from ``weights_N.npz``
+only (the reference-format import maps the CRF family's keys).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from xna_basecaller_tpu_torch.core import config as config_lib
 from xna_basecaller_tpu_torch.models.crf_model import Model
+from xna_basecaller_tpu_torch.models.ctc_model import CtcModel
 from xna_basecaller_tpu_torch.utils.device import resolve_device
 from xna_basecaller_tpu_torch.utils.torch_import import load_torch_checkpoint
 from xna_basecaller_tpu_torch.utils.weights import params_from_jax
@@ -59,10 +64,7 @@ def load_model(dirname: str, device: str | torch.device = "cuda",
         drop_rate_bottom=(drop_rate_bottom if drop_rate_bottom is not None
                           else enc.drop_rate_bottom),
     ))
-    if cfg.is_ctc:
-        raise NotImplementedError(
-            f"{dirname}: the CTC (QuartzNet) model family is not ported yet")
-    head = ("head", "head_ext")
+    head = ("decoder",) if cfg.is_ctc else ("head", "head_ext")
     epoch = weights if weights is not None else latest_epoch(dirname)
     npz_path = os.path.join(dirname, f"weights_{epoch}.npz")
     tar_path = None
@@ -75,6 +77,10 @@ def load_model(dirname: str, device: str | torch.device = "cuda",
     elif not os.path.exists(npz_path) and os.path.exists(
             os.path.join(dirname, f"weights_{epoch}.tar")):
         tar_path = os.path.join(dirname, f"weights_{epoch}.tar")
+    if tar_path is not None and cfg.is_ctc:
+        raise FileNotFoundError(
+            f"no weights_N.npz in '{dirname}': reference-format checkpoints "
+            "load for the CRF family only")
     if tar_path is not None:
         state = {k: v for k, v in load_torch_checkpoint(tar_path, cfg).items()
                  if not (skip_top and k.split(".")[0] in head)}
@@ -83,7 +89,8 @@ def load_model(dirname: str, device: str | torch.device = "cuda",
             state = params_from_jax({
                 k: npz[k] for k in npz.files
                 if not (skip_top and k.split("/")[0] in head)})
-    model = Model(cfg, device="cpu", seed=seed if skip_top else None)
+    family = CtcModel if cfg.is_ctc else Model
+    model = family(cfg, device="cpu", seed=seed if skip_top else None)
     if skip_top:   # the head keeps its fresh initialisation
         state.update({k: v for k, v in model.state_dict().items()
                       if k.split(".")[0] in head})

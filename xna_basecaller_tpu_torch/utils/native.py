@@ -1,6 +1,7 @@
 """Copied from ``xna_basecaller_tpu/utils/native.py``: the ctypes loader
-and the bindings this package uses (``levenshtein``, ``sw_align``,
-``sw_align_banded``, ``sw_score_batch``, ``lev_demux``, ``dtw_band``).  The library is built into this
+and the bindings (``levenshtein``, ``sw_align``, ``sw_align_banded``,
+``sw_score_batch``, ``lev_demux``, ``dtw_band``, ``ctc_beam_search``,
+``poa_consensus``, ``nw_trace``, ``pair_viterbi``).  The library is built into this
 package's ``build/`` directory, beside the CUDA kernels (a ``.so`` file
 beside the modules would be listed as a Python extension module by
 ``pkgutil``), through a temporary file renamed into place.
@@ -107,6 +108,37 @@ def _load():
             np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
             ctypes.c_int, ctypes.c_float,
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        lib.ctc_beam_search.restype = ctypes.c_int
+        lib.ctc_beam_search.argtypes = [
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int]
+        lib.nw_trace.restype = ctypes.c_int
+        lib.nw_trace.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_longlong]
+        lib.pair_viterbi.restype = ctypes.c_int
+        lib.pair_viterbi.argtypes = [
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            ctypes.c_int,
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_longlong]
+        lib.poa_consensus.restype = ctypes.c_int
+        lib.poa_consensus.argtypes = [
+            ctypes.c_char_p,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
         _lib = lib
         return _lib
 
@@ -188,6 +220,92 @@ def lev_demux(query: str, candidates: list[str]):
     idx = lib.lev_demux(qb, len(qb), flat, offsets, len(candidates),
                         ctypes.byref(best_d))
     return idx, best_d.value
+
+
+def ctc_beam_search(probs: np.ndarray, alphabet: str, beamsize: int = 5,
+                    threshold: float = 1e-3):
+    """Native CTC prefix beam search; returns (sequence, frames) or None
+    if the kernel is unavailable/overflowed (caller falls back to
+    ops/ctc.py::_beam_search_py, which defines the semantics)."""
+    lib = _load()
+    if lib is None:
+        return None
+    p = np.ascontiguousarray(probs, np.float32)
+    T, C = p.shape
+    seq = np.empty(T + 1, np.int32)
+    frames = np.empty(T + 1, np.int32)
+    n = lib.ctc_beam_search(p, T, C, int(beamsize), np.float32(threshold),
+                            seq, frames, T + 1)
+    if n < 0:
+        return None
+    return ("".join(alphabet[c] for c in seq[:n]),
+            frames[:n].astype(np.int64))
+
+
+def poa_consensus(seqs: list[str]) -> str | None:
+    """Native partial-order-alignment consensus of one group; None when
+    the library is unavailable (caller falls back to utils/poa.py)."""
+    lib = _load()
+    if lib is None:
+        return None
+    blobs = [s.encode() for s in seqs]
+    lens = np.array([len(b) for b in blobs], np.int32)
+    cap = int(lens.max(initial=0)) * 2 + 16
+    out = ctypes.create_string_buffer(cap)
+    n = lib.poa_consensus(b"".join(blobs), lens, len(blobs), out, cap)
+    if n < 0:
+        return None
+    return out.raw[:n].decode()
+
+
+def nw_trace(a: str, b: str, match: int = 5, mismatch: int = -4,
+             gap: int = 2, max_cells: int = 256_000_000):
+    """Global NW alignment columns as (idx_a, idx_b) int32 [n, 2] in the
+    reference envelope's cumsum-1 form (cli/duplex.py:143-148), or None
+    when the native library is unavailable or the matrix exceeds
+    ``max_cells`` (caller falls back to the numpy oracle / a cap)."""
+    lib = _load()
+    if lib is None:
+        return None
+    ab, bb = a.encode(), b.encode()
+    pairs = np.empty((len(ab) + len(bb) + 1, 2), np.int32)
+    n = lib.nw_trace(ab, len(ab), bb, len(bb), match, mismatch, gap,
+                     pairs, pairs.shape[0], max_cells)
+    if n < 0:
+        return None
+    return pairs[:n]
+
+
+def pair_viterbi(logt1: np.ndarray, logi1: np.ndarray,
+                 logt2: np.ndarray, logi2: np.ndarray,
+                 env: np.ndarray, n_base: int,
+                 max_cells: int = 500_000_000):
+    """Envelope-banded exact pair Viterbi (duplex decode core).
+
+    ``logt*`` [T, ns, n_base+1] log transition posteriors, ``logi*`` [ns]
+    log initial-state posteriors, ``env`` [T1, 2] int32 strand2 windows.
+    Returns (codes 1..n_base int32 [L], strand1 frames int32 [L]) or None
+    when the native library is unavailable or the DP exceeds
+    ``max_cells`` (caller falls back to the oracle / consensus merge).
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    t1 = np.ascontiguousarray(logt1, np.float32)
+    t2 = np.ascontiguousarray(logt2, np.float32)
+    i1 = np.ascontiguousarray(logi1, np.float32)
+    i2 = np.ascontiguousarray(logi2, np.float32)
+    e = np.ascontiguousarray(env, np.int32)
+    T1, ns = t1.shape[:2]
+    T2 = t2.shape[0]
+    cap = T1 + T2 + 1
+    seq = np.empty(cap, np.int32)
+    frames = np.empty(cap, np.int32)
+    n = lib.pair_viterbi(t1, i1, T1, t2, i2, T2, e, ns, n_base,
+                         seq, frames, cap, max_cells)
+    if n < 0:
+        return None
+    return seq[:n], frames[:n]
 
 
 def dtw_band(query: np.ndarray, ref: np.ndarray,

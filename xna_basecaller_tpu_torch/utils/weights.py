@@ -14,6 +14,15 @@ tree paths:
 Only the convolution weights change layout; ``w_hh`` stays [H, 4H], as
 the LSTM kernel reads it.  Gate order is i, f, g, o and there is no
 ``bias_hh`` on either side.
+
+The CTC (QuartzNet) family's tree (``models/ctc_model.py``) maps key for
+key, '/' for '.', its batchnorm running stats (buffers here) included:
+
+  blocks/{i}/convs/{j}/tcs/{conv|depthwise|pointwise}/w [k, in/g, out]
+  blocks/{i}/convs/{j}/bn/{scale, bias, mean, var}
+  blocks/{i}/residual/tcs/conv/w, blocks/{i}/residual/bn/...
+  decoder/{w [1, in, C], b}
+  -> the same names with '.', convolution weights [out, in/g, k]
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
         elif parts[0] in ("head", "head_ext") and len(parts) == 2 \
                 and parts[1] in ("w", "b"):
             state[f"{parts[0]}.{parts[1]}"] = arr
+        elif _is_ctc_key(parts):
+            state[".".join(parts)] = swap_layout(key, arr)
         else:
             raise KeyError(f"unexpected JAX parameter {key!r}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
@@ -76,15 +87,39 @@ def jax_key(name: str) -> str:
         return "/".join(parts)
     if parts[0] in ("head", "head_ext") and len(parts) == 2:
         return "/".join(parts)
+    if _is_ctc_key(parts):
+        return "/".join(parts)
     raise KeyError(f"unexpected parameter {name!r}")
+
+
+_BN_LEAVES = ("scale", "bias", "mean", "var")
+
+
+def _is_ctc_key(parts: list[str]) -> bool:
+    """A key of the CTC family's tree, split at '/' or '.'."""
+    if parts[0] == "decoder":
+        return len(parts) == 2 and parts[1] in ("w", "b")
+    if parts[0] != "blocks" or len(parts) < 5 or not parts[1].isdigit():
+        return False
+    if parts[2] == "convs" and parts[3].isdigit():
+        rest = parts[4:]
+    elif parts[2] == "residual":
+        rest = parts[3:]
+    else:
+        return False
+    return (rest[:1] == ["tcs"] and len(rest) == 3
+            and rest[1] in ("conv", "depthwise", "pointwise")
+            and rest[2] == "w") \
+        or (rest[:1] == ["bn"] and len(rest) == 2 and rest[1] in _BN_LEAVES)
 
 
 def swap_layout(key: str, arr: np.ndarray) -> np.ndarray:
     """The array of JAX key ``key`` in the other package's layout: a
-    convolution weight (``conv/{i}/w``) transposed between [out, in, k] and
-    [k, in, out] (either way), anything else as it is."""
+    convolution weight (``conv/{i}/w``, and the CTC family's ``.../w``)
+    transposed between [out, in, k] and [k, in, out] (either way), anything
+    else as it is."""
     parts = key.split("/")
-    if parts[0] == "conv" and parts[-1] == "w":
+    if parts[-1] == "w" and parts[0] in ("conv", "blocks", "decoder"):
         return arr.transpose(2, 1, 0)
     return arr
 
