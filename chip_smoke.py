@@ -128,11 +128,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      simulated template/complement pairs with phase A's model: one duplex
      read a pair, each equal to ``decode_pair``'s joint call or, where it
      made none, to the consensus merge's read; the accuracies against the
-     simulated sequence beside the merge's and the simplex calls';
+     simulated sequence beside the merge's and the simplex calls'; every
+     pair through the match gate to the pair Viterbi, each complement's
+     simplex identity >= 95 %, the joint calls' median >= 90 %, and a pair
+     of unrelated strands turned down at the gate;
   8i. with the launch counts set to 0, ``xnacall evaluate --weights 1,2
      --poa`` on phase 8's ctc-data with phase A's checkpoints (both
      checkpoints and the POA reported, K1 and K2a/b/c on every batch),
      ``view``, and ``export`` of a one-layer model of the flagship's width;
+  8j. the tail that needs no card: ``xnacall download --models`` from a
+     ``file://`` mirror holding phase A's model and ``download --from`` a
+     reference ``weights_1.tar`` of it, each install called on the card
+     (with the launch counts set to 0) byte-equal to the source model on
+     phase 4's first reads; ``comp_basecalls_perf`` over phase 8d's seeds
+     reproducing the winner's summary; ``forensics`` on tables the phase
+     writes; ``convert`` where h5py is installed;
   9. time each kernel, its plain version and its library yardstick with
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
@@ -2661,8 +2671,11 @@ def time_training(model, batch, loss_keep, card):
 CTC_BATCH, CTC_LR, CTC_CPU_CHUNKS = 64, "2e-3", 4
 # phase 8g: the mods classifier's synthetic sites and the reads it calls
 MODS_SITES, MODS_TRAIN, MODS_READS, MODS_LEN = 8192, 6144, 8, 16_000
-# phase 8h: simulated template/complement pairs of one sequence each
+# phase 8h: simulated template/complement pairs of one sequence each; the
+# least simplex identity of a complement's call, and the least median
+# identity of the joint calls (%)
 DUPLEX_PAIRS, DUPLEX_BASES = 8, 2500
+DUPLEX_SIMPLEX_MIN, DUPLEX_JOINT_MIN = 95.0, 90.0
 # phase 8i: evaluate's chunks of phase 8's ctc-data and its batch
 EVAL_CHUNKS, EVAL_BATCH = 128, 64
 
@@ -2959,11 +2972,12 @@ def drive_mods(workroot: str, boot_dir: str, card: str):
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items() if w.launches}
     records = read_bam(bam)[1]
-    # the BAM writer (JAX's, copied byte for byte) stores ML's B:C array
-    # as a Z string, so it reads back as "ML:Z:C,..."
+    # ML is the SAM spec's B:C array, read back as "ML:B:C,..."
     mm = [t for r in records for t in r["tags"]
           if t.startswith("MM:Z:C+m?,")]
     ml = [t for r in records for t in r["tags"] if t.startswith("ML:")]
+    if any(not t.startswith("ML:B:C,") for t in ml):
+        fail("the BAM's ML tags are not B:C arrays")
     n_ml = sum(len(t.split(",")) - 1 for t in ml)
     with_mm = min(len(mm), len(ml))
     print(f"basecaller --mods-model --reference --bam: {stats['reads']} "
@@ -3026,11 +3040,14 @@ def simulated_pairs(n: int, bases: int):
 
 
 def decode_pair_by_stage(t1, i1, t2, i2, alphabet: str, padding: int = 40,
-                         min_match: float = 0.80, min_len: int = 10) -> dict:
+                         min_match: float = 0.80, min_len: int = 10,
+                         min_coverage: float = 0.5) -> dict:
     """``infer/pair_decode.py::decode_pair``'s steps one at a time, with
     its defaults and the duplex command's padding, each timed on the host
     clock: the exit the pair takes ("joint call", or the reason it returns
-    None: "min_len", "gate" (the simplex calls match below min_match),
+    None: "min_len", "gate" (the simplex calls match below min_match over
+    a local alignment that covers at least min_coverage of the template's
+    call),
     "max_cells" (native.pair_viterbi's cap on (T1 + 1) x the widest
     window x ns), "empty" (the final cell unreachable)), the DP's cells,
     and the call."""
@@ -3052,9 +3069,12 @@ def decode_pair_by_stage(t1, i1, t2, i2, alphabet: str, padding: int = 40,
         return d
     seq1 = "".join(alphabet[c] for c in c1)
     seq2 = "".join(alphabet[c] for c in c2)
-    d["match"] = accuracy(seq1, seq2)
-    # the local alignment that identity is taken over
-    d["match columns"] = sum(n for _, n in sw_align(seq2, seq1)[1])
+    d["match"] = accuracy(seq1, seq2, min_coverage=min_coverage)
+    # the local alignment that identity is taken over, and its coverage of
+    # the template's call
+    _, cigar, (_, _, r0, r1) = sw_align(seq2, seq1)
+    d["match columns"] = sum(n for _, n in cigar)
+    d["coverage"] = (r1 - r0) / len(seq1)
     d["seqs"] = (seq1, seq2)
     if d["match"] < min_match * 100:
         d["exit"] = "gate"
@@ -3104,7 +3124,13 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
     the CPU's plain route on one read; each pair through
     ``decode_pair_by_stage``: the card's time (the f32 forward, K2a and
     the stitch's gather) apart from each of the host's stages, and the
-    exit each pair takes, which the command's reads must follow."""
+    exit each pair takes, which the command's reads must follow.  Fails
+    unless every pair passes the match gate and reaches the pair Viterbi,
+    each complement's simplex call (reverse-complemented through the
+    alphabet) is at least DUPLEX_SIMPLEX_MIN identical to the simulated
+    sequence, the joint calls' median identity is at least
+    DUPLEX_JOINT_MIN, and a pair of unrelated strands (pair 0's template,
+    pair 1's complement) is turned down at the gate."""
     import contextlib
 
     from xna_basecaller_tpu_torch.cli import main as cli
@@ -3154,7 +3180,7 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
         p32 = model.rnn[0].params(torch.float32)
         xp32 = lstm.input_projection(p32, xf.contiguous())
         trans, _ = crf.compute_transition_probs(
-            crf.reverse_complement(sc, nb, sl), nb, sl)
+            model.seqdist.reverse_complement(sc), nb, sl)
         parts = {
             "f32 forward": elapsed_ms(lambda: model(
                 xc, compute_dtype=torch.float32), 3),
@@ -3163,7 +3189,7 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
                 3),
             "reverse_complement + compute_transition_probs (K2a)":
                 elapsed_ms(lambda: crf.compute_transition_probs(
-                    crf.reverse_complement(sc, nb, sl), nb, sl), 3),
+                    model.seqdist.reverse_complement(sc), nb, sl), 3),
             "gather + fetch": host_ms(lambda: trans.transpose(0, 1)
                                       .reshape(-1, *trans.shape[2:])
                                       [:tg.shape[0]].cpu()),
@@ -3185,12 +3211,19 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
         card_ms = (time.perf_counter() - t0) * 1e3 / 2
         if p == 0:
             repeat = bool(np.array_equal(t1, tg) and np.array_equal(i1, ig))
+            template0 = (t1, i1)
         d = decode_pair_by_stage(t1, i1, t2, i2, alphabet)
         d["card ms a read"] = card_ms
         if "seqs" in d:
             # both simplex calls are in the template's orientation
             d["simplex accuracy against the simulated sequence"] = tuple(
-                round(accuracy(truth[f"t{p}"], x), 2) for x in d["seqs"])
+                accuracy(truth[f"t{p}"], x) for x in d["seqs"])
+        if "call" in d:
+            d["joint call accuracy"] = accuracy(truth[f"t{p}"], d["call"])
+        if p == 1:
+            # unrelated strands: pair 0's template with this complement
+            unrelated = decode_pair_by_stage(*template0, t2, i2, alphabet)
+            unrelated_call = pdec.decode_pair(*template0, t2, i2, alphabet)
         diag.append(d)
         print(f"pair {p}: " + "; ".join(
             f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
@@ -3210,10 +3243,36 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
           f"{span('card ms a read', diag)} ms a read (host clock, the card "
           f"waited); on the host, a pair: simplex decodes of both strands "
           f"{span('simplex ms', diag)} ms, NW + envelope "
-          f"{span('nw + envelope ms', diag)} ms, pair Viterbi "
-          f"{span('pair viterbi ms', ran)} ms over {len(ran)} pairs "
+          f"{span('nw + envelope ms', diag)} ms, pair Viterbi on matched "
+          f"pairs {span('pair viterbi ms', ran)} ms over {len(ran)} pairs "
           f"(cells {[d['cells'] for d in ran]}, "
           f"{[round(v, 3) for v in per_cell]} ns a cell)")
+    comp = [d.get("simplex accuracy against the simulated sequence",
+                  (0.0, 0.0)) for d in diag]
+    joint = [d.get("joint call accuracy", 0.0) for d in diag]
+    print(f"simplex identity to the simulated sequence, template: "
+          f"{[c[0] for c in comp]} %; complement (reverse-complemented "
+          f"through the alphabet): {[c[1] for c in comp]} % (each must be "
+          f">= {DUPLEX_SIMPLEX_MIN})")
+    print(f"joint call identity to the simulated sequence: {joint} %, "
+          f"median {float(np.median(joint))} (must be >= "
+          f"{DUPLEX_JOINT_MIN}); call lengths "
+          f"{[d.get('call length') for d in diag]} of {DUPLEX_BASES}")
+    print(f"unrelated pair (t0 with c1): exit {unrelated['exit']}, match "
+          f"{unrelated.get('match')}, coverage {unrelated.get('coverage')}, "
+          f"match columns {unrelated.get('match columns')}; decode_pair "
+          f"{'None' if unrelated_call is None else 'made a joint call'}")
+    if len(ran) != DUPLEX_PAIRS:
+        fail(f"only {len(ran)} of {DUPLEX_PAIRS} matched pairs reached the "
+             "pair Viterbi")
+    if min(c[1] for c in comp) < DUPLEX_SIMPLEX_MIN:
+        fail("a complement's simplex call is under "
+             f"{DUPLEX_SIMPLEX_MIN} % identical to the simulated sequence")
+    if float(np.median(joint)) < DUPLEX_JOINT_MIN:
+        fail(f"the joint calls' median identity is under {DUPLEX_JOINT_MIN}"
+             " %")
+    if unrelated["exit"] != "gate" or unrelated_call is not None:
+        fail("decode_pair did not turn down a pair of unrelated strands")
     # the CLI
     with open(os.path.join(workroot, "pairs.txt"), "w") as fh:
         fh.writelines(f"t{p} c{p}\n" for p in range(DUPLEX_PAIRS))
@@ -3349,6 +3408,236 @@ def drive_evaluate_view_export(workroot: str, boot_dir: str, card: str):
     if len(exported["layers"]) != 3 + 1 + 1:
         fail("export did not write the model's 5 layers")
     print(f"phase 8i wall time: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    return launches
+
+
+# phase 8j: the reads the installed models call, and the registry's name
+TAIL_READS, TAIL_MODEL = 8, "xna_r9.4.1_e8_sup@v3.3"
+
+
+def _tail_forensics(root: str) -> str:
+    """``eval/forensics.py`` on tables written here with ``csv``: the
+    demux table read, its derived columns and a filter chain (with its
+    ``.csv.gz``), an eventalign table with reverse-complemented polished
+    k-mers repaired, and UB-area quality windows.  Fails on a wrong
+    value; returns a line to print."""
+    import csv
+    import gzip
+
+    from xna_basecaller_tpu_torch.eval import forensics
+
+    demux = os.path.join(root, "demux.csv")
+    with open(demux, "w", newline="") as fh:
+        w = csv.writer(fh, lineterminator="\n")
+        w.writerow(["read_id", "barcode_name", "read_length", "read_start",
+                    "read_end", "n_matches", "target_length",
+                    "barcode_distance"])
+        w.writerows([["a", "T1", 100, 0, 90, 85, 100, 1],
+                     ["b", "PC_T1", 250, 0, 240, 230, 100, 2],
+                     ["c", "T2", 400, 0, 380, 300, 400, 7],
+                     ["d", "T1", 90, 0, 80, 40, 100, 0]])
+    df = forensics.read_demux(demux)
+    kept = forensics.filter_demux(df, read_len_interval=(95, 300),
+                                  max_barcode_dist=5, read_type="XNA",
+                                  output_dir=root)
+    gz = os.path.join(root, "demux-k_15-w_5-XNA_only-l_95_300-d_5.csv.gz")
+    with gzip.open(gz, "rt") as fh:
+        saved = fh.read().splitlines()
+    ev = os.path.join(root, "T1_+_eventalign.tsv")
+    with open(ev, "w", newline="") as fh:
+        w = csv.writer(fh, delimiter="\t", lineterminator="\n")
+        w.writerow(["contig", "position", "reference_kmer", "read_name",
+                    "event_index", "model_kmer", "samples"])
+        w.writerows([["T1", 0, "GTNCGT", "r", "", "NNNNNN", "1.0,2.0"],
+                     ["T1", 1, "AGTNCG", "r", 1, "AGTNCG", "3.0"]])
+    events = forensics.read_eventalign(ev)
+
+    class Refs:
+        x_pos = {"T": [10]}
+        x_pos_rev = {"T": [9]}
+
+    recs = [dict(read_id=r, target_id="T", strand=st, target_length=20,
+                 target_start=0, read_start=0, cs=":20")
+            for r, st in (("f", "F"), ("r", "R"))]
+    wins = forensics.all_ub_area_qual(
+        recs, Refs(), {"f": np.arange(20.0), "r": np.arange(20.0)}, margin=1)
+    checks = {
+        "read_demux": (df.loc["b", "type"], df.loc["c", "template_coverage"])
+        == ("PC", 0.95),
+        "filter_demux": kept.index == ["a"] and len(saved) == 2
+        and saved[1].startswith("a,T1,100,"),
+        "read_eventalign": list(events["reference_kmer"]) == ["ACGNAC",
+                                                              "AGTNCG"],
+        "all_ub_area_qual": {k: v.tolist() for k, v in wins.items()}
+        == {"f": [[9.0, 10.0, 11.0]], "r": [[8.0, 9.0, 10.0]]},
+    }
+    if not all(checks.values()):
+        fail(f"forensics gave wrong values: {checks}")
+    return (f"forensics without pandas: read_demux {len(df)} rows, "
+            f"filter_demux kept {kept.index} and wrote "
+            f"{os.path.basename(gz)}, read_eventalign repaired "
+            f"{list(events['reference_kmer'])}, all_ub_area_qual "
+            f"{ {k: v.tolist() for k, v in wins.items()} }")
+
+
+def drive_tail(workroot: str, boot_dir: str, reads, card: str):
+    """Phase 8j: the commands that need no card, on the card's machine,
+    and the models they install called on the card.  ``xnacall download
+    --models`` from a ``file://`` mirror whose registry archive holds
+    phase 8d's phase-A model, and ``download --from`` a directory of its
+    ``config.toml`` and a reference ``weights_1.tar`` of the same model
+    (``utils/torch_import.export_state_dict``); each install, loaded with
+    ``load_model(device="cuda")``, calls the first TAIL_READS of phase 4's
+    reads as the source model does, byte for byte, with the launch counts
+    of K1 and K2a-c set to 0 just before.  ``comp_basecalls_perf`` over
+    phase 8d's seed directories reproduces the winner's
+    ``results_summ-POC-test.csv``; ``forensics`` reads, repairs and
+    filters tables the phase writes (this machine has no pandas);
+    ``convert`` runs only where h5py is installed."""
+    import contextlib
+    import csv
+    import importlib.util
+    import pathlib
+    import zipfile
+
+    from xna_basecaller_tpu_torch.cli import main as cli
+    from xna_basecaller_tpu_torch.infer.basecall import basecall
+    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
+    from xna_basecaller_tpu_torch.tools.comp_basecalls_perf import (
+        comp_basecalls_perf,
+    )
+    from xna_basecaller_tpu_torch.train.checkpoint import latest_epoch
+    from xna_basecaller_tpu_torch.utils.model_io import load_model
+    from xna_basecaller_tpu_torch.utils.torch_import import (
+        export_state_dict,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workroot, "tail")
+    mirror = os.path.join(root, "mirror")
+    registry = os.path.join(root, "registry")
+    os.makedirs(mirror)
+    epoch = latest_epoch(boot_dir)
+    with zipfile.ZipFile(os.path.join(mirror, f"{TAIL_MODEL}.zip"),
+                         "w") as zf:
+        for f in ("config.toml", f"weights_{epoch}.npz"):
+            zf.write(os.path.join(boot_dir, f), arcname=f"{TAIL_MODEL}/{f}")
+    source, _ = load_model(boot_dir, device="cuda")
+    tar_dir = os.path.join(root, "reference_layout")
+    os.makedirs(tar_dir)
+    shutil.copy(os.path.join(boot_dir, "config.toml"), tar_dir)
+    torch.save(export_state_dict(source.state_dict()),
+               os.path.join(tar_dir, "weights_1.tar"))
+    out = io.StringIO()
+    before = os.environ.get("XNACALL_MODEL_BASE_URL")
+    os.environ["XNACALL_MODEL_BASE_URL"] = pathlib.Path(mirror).as_uri()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli(["download", "--models", "--directory", registry])
+    finally:
+        if before is None:
+            del os.environ["XNACALL_MODEL_BASE_URL"]
+        else:
+            os.environ["XNACALL_MODEL_BASE_URL"] = before
+    t_mirror = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli(["download", "--from", tar_dir, "--model", "from_tar",
+             "--directory", registry])
+    t_tar = time.perf_counter() - t0
+    print(f"xnacall download --models (file:// mirror, weights_{epoch}.npz"
+          f" of phase A) in {t_mirror:.2f} s, download --from a "
+          f"weights_1.tar in {t_tar:.2f} s: "
+          + " | ".join(out.getvalue().splitlines()))
+
+    def calls(model):
+        return [(r.read_id, a["sequence"], a["qstring"])
+                for r, a in basecall(model, iter(reads[:TAIL_READS]))]
+    want = calls(source)
+    wrappers = {"K1": lstm_cuda.lstm_recurrence,
+                "K2a": crf_cuda.backward_scan,
+                "K2b": crf_cuda.forward_viterbi,
+                "K2c": crf_cuda.viterbi_traceback}
+    launches = {}
+    for install in (TAIL_MODEL, "from_tar"):
+        model, _ = load_model(os.path.join(registry, install), device="cuda")
+        for w in wrappers.values():
+            w.launches = 0
+        got = calls(model)
+        torch.cuda.synchronize()
+        launches[install] = {k: w.launches for k, w in wrappers.items()}
+        same = sum(g == w for g, w in zip(got, want))
+        print(f"{install}, installed and loaded on the card: {same} of "
+              f"{len(want)} calls equal the source model's (bases "
+              f"{sum(len(c[1]) for c in got)}); launches "
+              f"{launches[install]}")
+        if got != want:
+            fail(f"the model installed as {install} calls otherwise than "
+                 "its source")
+        if not all(launches[install].values()):
+            fail(f"{install}'s calls did not launch K1 and K2a-c")
+
+    # comp_basecalls_perf over the north-star chain's seed directories
+    ns = os.path.join(workroot, "northstar")
+    with open(os.path.join(ns, "northstar_summary.json")) as fh:
+        win = json.load(fh)["winner_dir"]
+    dirs = [os.path.join(ns, f"spliced_model_s{s}") for s in (25, 26)]
+    if os.path.join(ns, win) not in dirs:   # an ensemble or a soup won
+        dirs.append(os.path.join(ns, win))
+    logs = []
+    view = comp_basecalls_perf(dirs, exp="POC", split="test",
+                               out_csv=os.path.join(root, "comp.csv"),
+                               log=logs.append)
+    with open(os.path.join(ns, win, "basecalls-POC-test",
+                           "results_summ-POC-test.csv"), newline="") as fh:
+        summ = next(csv.DictReader(fh))
+    rows = [i for i, r in enumerate(view["run"].tolist()) if r == win]
+    print(f"comp_basecalls_perf over {[os.path.basename(d) for d in dirs]}"
+          f" (POC, test):\n" + "\n".join(logs))
+    if len(rows) != 1:
+        fail(f"comp_basecalls_perf has {len(rows)} rows of the winner {win}")
+    differ = []
+    for name in view.columns[1:]:
+        v, text = view[name][rows[0]], summ[name]
+        if view[name].dtype.kind == "f":
+            same = (math.isnan(v) and text in ("", "nan", "NaN")) or (
+                text not in ("", "nan", "NaN") and float(text) == v)
+        else:
+            same = str(v) == text
+        if not same:
+            differ.append((name, v, text))
+    print(f"the winner's row ({win}) against its results_summ-POC-test.csv:"
+          f" {len(view.columns) - 1 - len(differ)} of "
+          f"{len(view.columns) - 1} columns equal")
+    if differ:
+        fail(f"comp_basecalls_perf's row of the winner differs: {differ}")
+
+    print(_tail_forensics(root))
+    if importlib.util.find_spec("h5py") is None:
+        print("xnacall convert was not run: h5py, which it needs to read "
+              "chunkify HDF5, is not installed on this machine")
+    else:
+        import h5py
+
+        rng = np.random.default_rng(SEED)
+        h5 = os.path.join(root, "chunkify.hdf5")
+        with h5py.File(h5, "w") as fh:
+            g = fh.create_group("Reads").create_group("read_0")
+            g.create_dataset("Dacs", data=rng.integers(
+                0, 2000, 12000).astype(np.int16))
+            g.create_dataset("Reference", data=rng.integers(0, 4, 1500))
+            g.create_dataset("Ref_to_signal",
+                             data=np.sort(rng.integers(0, 12000, 1500)))
+        with contextlib.redirect_stdout(out):
+            cli(["convert", h5, os.path.join(root, "converted"),
+                 "--chunksize", "800"])
+        n = len(np.load(os.path.join(root, "converted", "chunks.npy")))
+        print(f"xnacall convert: {n} chunks of 800 samples")
+        if not n:
+            fail("convert wrote no chunks")
+    print(f"phase 8j wall time: {time.perf_counter() - t_phase:.1f} s on "
           f"{card}")
     return launches
 
@@ -3658,9 +3947,12 @@ def main() -> int:
         duplex_f32, duplex_launches = drive_duplex(workroot, boot_dir, card)
         # -- 8i. evaluate, view, export ----------------------------------
         eval_launches = drive_evaluate_view_export(workroot, boot_dir, card)
+        # -- 8j. download, convert, comp_basecalls_perf, forensics ------
+        tail_launches = drive_tail(workroot, boot_dir, reads, card)
         print(f"launches of the new paths: mods {mods_launches}, duplex "
               f"read_transition_probs {duplex_f32}, duplex CLI "
-              f"{duplex_launches}, evaluate {eval_launches}")
+              f"{duplex_launches}, evaluate {eval_launches}, installed "
+              f"models {tail_launches}")
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     print(f"training path step times (host clock, losses_1.csv): "

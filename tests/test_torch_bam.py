@@ -99,6 +99,32 @@ def test_encode_bam_record_matches_jax(fields):
         == jbam.encode_bam_record(fields, ref_ids, tags)
 
 
+@pytest.mark.parametrize("tag,fmt,values", [
+    ("ML:B:C,0,12,255", "B", [0, 12, 255]), ("XA:B:c,-128,0,127", "b",
+                                              [-128, 0, 127]),
+    ("XB:B:s,-300,7", "h", [-300, 7]), ("XC:B:S,65535", "H", [65535]),
+    ("XD:B:i,-70000,1", "i", [-70000, 1]), ("XE:B:I,4000000000", "I",
+                                             [4000000000]),
+    ("XF:B:f,1.5,-0.25", "f", [1.5, -0.25]), ("XG:B:C", "B", [])])
+def test_encode_tag_writes_typed_b_arrays(tag, fmt, values):
+    """A SAM ``B`` array as the spec types it: ``B``, the subtype, a
+    uint32 count and the packed little-endian values (JAX's writer stores
+    it as a ``Z`` string; the port does not copy that); ``read_bam``'s
+    decoder reads it back."""
+    import struct
+
+    name, _, rest = tag.split(":", 2)
+    got = tbam._encode_tag(tag)
+    assert got == (name.encode() + b"B" + rest[0].encode()
+                   + struct.pack(f"<I{len(values)}{fmt}", len(values),
+                                 *values))
+    back = tbam._decode_tags(got)
+    assert back == [tag if fmt != "f" else "XF:B:f,1.5,-0.25"]
+    assert jbam._encode_tag(tag)[2:3] == b"Z"
+    assert tbam._encode_tag("MM:Z:C+m?,1;") == jbam._encode_tag(
+        "MM:Z:C+m?,1;")
+
+
 def _write_both(tmp_path, targets, recs):
     sam_path = tmp_path / "out.sam"
     bam_path = str(tmp_path / "out.bam")

@@ -36,6 +36,8 @@ from xna_basecaller_tpu_torch.data.simulate import (
 from xna_basecaller_tpu_torch.infer import basecall as tbasecall
 from xna_basecaller_tpu_torch.utils.model_io import load_model
 
+from test_torch_crf import relabel_fastq
+
 OPTS = dict(chunksize=1200, overlap=200, batchsize=4)
 
 
@@ -72,7 +74,10 @@ def test_run_basecaller_fastq_matches_jax(model_dir, opts):
                                      **OPTS, **opts)
     assert stats["reads"] == 3
     assert stats["samples"] == sum(len(r.signal) for r in reads)
-    assert fq_port.getvalue() == fq_jax.getvalue()
+    # R: JAX's calls with its bases relabelled (test_torch_crf.py)
+    want = fq_jax.getvalue()
+    assert fq_port.getvalue() == (
+        relabel_fastq(want) if opts.get("reverse") else want)
     seqs = fq_port.getvalue().split("\n")[1::4]
     assert all(len(s) > 0 and set(s) <= set("ACGTXY") for s in seqs)
 
@@ -93,7 +98,9 @@ def test_run_basecaller_qscores_and_beam_match_jax(model_dir, opts):
     model, _ = load_model(d, device="cpu")
     tbasecall.run_basecaller(model, iter(reads), fq_port,
                              compute_dtype=torch.float32, **OPTS, **opts)
-    assert fq_port.getvalue() == fq_jax.getvalue()
+    want = fq_jax.getvalue()
+    assert fq_port.getvalue() == (
+        relabel_fastq(want) if opts.get("reverse") else want)
     lines = fq_port.getvalue().split("\n")
     seqs, quals = lines[1::4], lines[3::4]
     assert all(len(s) == len(q) > 0 for s, q in zip(seqs, quals))
@@ -291,6 +298,8 @@ def test_cli_qscores_and_beam_match_jax_cli(model_dir, fast5_dir, flags,
             "--batchsize", "4", *flags]
     jax_cli(["basecaller", *args])
     want = capsys.readouterr().out
+    if "--revcomp" in flags:
+        want = relabel_fastq(want)
     port_cli(["basecaller", *args, "--device", "cpu"])
     assert capsys.readouterr().out == want
     assert want.count("\n") == 8

@@ -94,9 +94,12 @@ def _record_decodes(monkeypatch):
     """Record every batch's decode input and labels."""
     seen, decode = [], tb._score_and_decode
 
-    def recording(scores, n_base, state_len, reverse=False, ub_bias=0.0):
-        labels = decode(scores, n_base, state_len, reverse, ub_bias)
-        seen.append((scores.float().cpu(), reverse, ub_bias, labels.cpu()))
+    def recording(scores, n_base, state_len, reverse=False, ub_bias=0.0,
+                  alphabet=None):
+        labels = decode(scores, n_base, state_len, reverse, ub_bias,
+                        alphabet)
+        seen.append((scores.float().cpu(), reverse, ub_bias, labels.cpu(),
+                     alphabet))
         return labels
 
     monkeypatch.setattr(tb, "_score_and_decode", recording)
@@ -105,7 +108,7 @@ def _record_decodes(monkeypatch):
 
 def _ties(card, cpu, n_base, state_len, ties, cuda) -> int:
     """One batch's decodes on the card and on the CPU (scores, reverse,
-    ub_bias, labels): the scores equal, and each row whose labels differ a
+    ub_bias, labels, alphabet): the scores equal, and each row whose labels differ a
     tie of its two paths (appended to ``ties``).  Returns the rows that
     differ."""
     assert torch.equal(card[0], cpu[0])
@@ -113,8 +116,8 @@ def _ties(card, cpu, n_base, state_len, ties, cuda) -> int:
     if not rows:
         return 0
     s = tb._apply_ub_bias(crf.reverse_complement(
-        card[0], n_base, state_len) if card[1] else card[0], n_base,
-        card[2])
+        card[0], n_base, state_len, card[4]) if card[1] else card[0],
+        n_base, card[2])
     sc = crf_cuda._ring_aligned(s.to(cuda).contiguous())
     betas = crf_cuda.backward_scan(sc, n_base, state_len)
     bp_c, v_c = crf_cuda.forward_viterbi(

@@ -35,6 +35,8 @@ from xna_basecaller_tpu.ops import crf as jcrf
 from xna_basecaller_tpu_torch.infer import basecall as tbasecall
 from xna_basecaller_tpu_torch.ops import crf, crf_cuda
 
+from test_torch_crf import jax_input
+
 ALPHABETS = [(2, 1), (4, 3), (6, 3)]
 
 
@@ -390,11 +392,13 @@ def test_qstring_of_no_bases_and_of_probabilities_past_one():
 
 @pytest.mark.parametrize("reverse,ub_bias", [(False, 0.0), (True, 0.5)])
 def test_score_and_decode_qual_matches_jax(reverse, ub_bias):
+    """On R the oracle is JAX's decode of the corrected reverse complement
+    (``test_torch_crf.py``: the port complements through the alphabet)."""
     s = _scores(6, 3, T=16, N=2, seed=8)
     want_p, want_q = jbasecall._score_and_decode_qual(
-        jnp.asarray(s), 6, 3, reverse, ub_bias)
+        jax_input(s, reverse), 6, 3, False, ub_bias)
     got_p, got_q = tbasecall._score_and_decode_qual(
-        torch.from_numpy(s), 6, 3, reverse, ub_bias)
+        torch.from_numpy(s), 6, 3, reverse, ub_bias, "NACGTXY")
     assert got_p.dtype == torch.int8 and got_q.dtype == torch.float16
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
     np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
@@ -403,9 +407,9 @@ def test_score_and_decode_qual_matches_jax(reverse, ub_bias):
 @pytest.mark.parametrize("reverse,ub_bias", [(False, 0.0), (True, -0.5)])
 def test_score_and_decode_beam_matches_jax(reverse, ub_bias):
     s = _scores(6, 3, T=16, N=2, seed=9)
-    want = jbasecall._score_and_decode_beam(jnp.asarray(s), 6, 3, 4,
-                                            reverse, ub_bias)
+    want = jbasecall._score_and_decode_beam(jax_input(s, reverse), 6, 3, 4,
+                                            False, ub_bias)
     got = tbasecall._score_and_decode_beam(torch.from_numpy(s), 6, 3, 4,
-                                           reverse, ub_bias)
+                                           reverse, ub_bias, "NACGTXY")
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

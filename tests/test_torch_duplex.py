@@ -51,6 +51,8 @@ from xna_basecaller_tpu_torch.ops import crf as tcrf
 from xna_basecaller_tpu_torch.utils import native, poa
 from xna_basecaller_tpu_torch.utils.model_io import load_model
 
+from test_torch_crf import relabel_columns, to_complement
+
 @pytest.fixture(autouse=True)
 def one_thread():
     """One torch thread: among the other test workers a pool of a thread
@@ -198,6 +200,113 @@ def test_decode_pair_matches_jax():
     assert got[0] == "".join(alphabet[c + 1] for c in codes)
 
 
+def _planted_strand(seq: str, alphabet: str, sl: int, seed: int,
+                    reverse: bool = False):
+    """The log transition posteriors and log initial states of a strand
+    planted with ``seq`` in its own orientation; ``reverse``: a complement
+    strand, reverse-complemented into the template's orientation first, as
+    ``read_transition_probs`` does."""
+    nb = len(alphabet) - 1
+    codes = [alphabet.index(c) - 1 for c in seq]
+    sc = torch.from_numpy(_plant_scores(np.random.default_rng(seed), codes,
+                                        nb, sl))
+    if reverse:
+        sc = tcrf.CTCCRF(sl, alphabet).reverse_complement(sc)
+    tt, it = tcrf.compute_transition_probs(sc, nb, sl)
+    return (np.log(tt[:, 0].numpy() + 1e-30),
+            np.log(it[0].numpy() + 1e-30))
+
+
+def _planted_seq(seed: int, n: int = 30, alphabet: str = "NACGTXY"):
+    rng = np.random.default_rng(seed)
+    return "".join(alphabet[1 + int(c)]
+                   for c in rng.integers(0, len(alphabet) - 1, size=n))
+
+
+@needs_native
+def test_decode_pair_joins_a_planted_template_and_complement():
+    """A planted NACGTXY pair: the complement strand carries the reverse
+    complement of the template's sequence; reverse-complemented through
+    the alphabet's map, the pair's joint call is the planted sequence.
+    A planted strand starts in the all-A state, so the template's sequence
+    ends in T's that the complement's start state stands for."""
+    alphabet, sl = "NACGTXY", 2
+    seq = _planted_seq(7) + "T" * sl
+    assert set("XY") <= set(seq)
+    got = tpd.decode_pair(
+        *_planted_strand(seq, alphabet, sl, 1),
+        *_planted_strand(reverse_complement_str(seq)[sl:], alphabet, sl, 2,
+                         reverse=True), alphabet)
+    assert got is not None and got[0] == seq
+
+
+@needs_native
+def test_decode_pair_turns_down_unrelated_strands():
+    """Two unrelated planted strands: JAX's match gate (identity over a
+    local alignment, no coverage floor) lets them through on a short
+    alignment; the port's (it must cover half of the template's call)
+    turns them down, so the caller falls back to the consensus merge."""
+    from xna_basecaller_tpu.eval.accuracy import accuracy as jaccuracy
+
+    alphabet, sl = "NACGTXY", 2
+    seq1, seq2 = _planted_seq(11), _planted_seq(21)
+    assert jaccuracy(seq1, seq2) >= 80.0          # 5 of 6 columns
+    strands = (*_planted_strand(seq1, alphabet, sl, 1),
+               *_planted_strand(seq2, alphabet, sl, 2))
+    assert tpd.decode_pair(*strands, alphabet) is None
+    assert jpd.decode_pair(*strands, alphabet) is not None
+
+
+class _PlantedModel(torch.nn.Module):
+    """Stands in for a CRF model: every chunk of a batch scores as one
+    planted read (one chunk a read, chunksize = its frames, stride 1)."""
+
+    stride = 1
+
+    def __init__(self, scores: np.ndarray, alphabet: str, state_len: int):
+        super().__init__()
+        self.scores = torch.nn.Parameter(torch.from_numpy(scores),
+                                         requires_grad=False)
+        self.seqdist = tcrf.CTCCRF(state_len, alphabet)
+
+    def forward(self, batch, compute_dtype=None, lstm_int8=False):
+        return self.scores.expand(-1, batch.shape[0], -1)
+
+
+def test_planted_xy_read_on_the_reverse_strand_is_its_reverse_complement():
+    """A planted NACGTXY read of 30 bases through ``basecall``: its
+    R-strand call is the reverse complement of its F-strand call, up to
+    the k-mer context at either end (JAX's index flip gives a call of X/Y
+    where T/A belong)."""
+    from types import SimpleNamespace
+
+    from xna_basecaller_tpu_torch.infer import basecall as tbasecall
+
+    alphabet, sl = "NACGTXY", 2
+    seq = _planted_seq(7)
+    sc = _plant_scores(np.random.default_rng(3),
+                       [alphabet.index(c) - 1 for c in seq], 6, sl)
+    model = _PlantedModel(sc, alphabet, sl)
+    read = SimpleNamespace(read_id="r",
+                           signal=np.zeros(len(sc), np.float32))
+
+    def call(reverse):
+        (_, attrs), = tbasecall.basecall(
+            model, iter([read]), chunksize=len(sc), overlap=0, batchsize=2,
+            reverse=reverse, compute_dtype=torch.float32)
+        return attrs["sequence"]
+
+    fwd, rev = call(False), call(True)
+    # F: the all-A start state's bases, then the read's but the last sl,
+    # which the end state holds; R: the reverse complement of the read
+    assert fwd == "A" * sl + seq[:-sl]
+    assert rev == reverse_complement_str(seq)
+    assert reverse_complement_str(rev)[:-sl] == fwd[sl:]
+    jax_r = tcrf.CTCCRF(sl, alphabet).path_to_str(np.asarray(
+        jbasecall._score_and_decode(jnp.asarray(sc), 6, sl, True))[0])
+    assert jax_r != reverse_complement_str(seq)
+
+
 def _crf_dir(path, seed=0):
     cfg = ModelConfig(encoder=EncoderConfig(features=32, num_rnn_layers=2))
     os.makedirs(path, exist_ok=True)
@@ -213,6 +322,14 @@ def test_read_transition_probs_matches_jax(tmp_path, reverse):
     sig = np.random.default_rng(5).normal(size=2700).astype(np.float32)
     opts = dict(chunksize=1000, overlap=200, reverse=reverse)
     tj, ij = jpd.read_transition_probs(JaxModel(cfg), params, sig, **opts)
+    if reverse:
+        # JAX's complement strand relabelled to the alphabet's complement
+        # (test_torch_crf.py): states and columns, as scores are laid out
+        g = to_complement(6, "NACGTXY")
+        tj = relabel_columns(tj.reshape(len(tj), -1), g, 6, 3).reshape(
+            tj.shape)
+        ij = relabel_columns(np.repeat(ij[:, None], 7, 1).reshape(-1), g,
+                             6, 3).reshape(-1, 7)[:, 0]
     model, _ = load_model(str(tmp_path / "m"), device="cpu")
     tt, it = tpd.read_transition_probs(model, sig, **opts)
     assert tt.shape == tj.shape == (540, 216, 7) and it.shape == ij.shape
@@ -307,10 +424,23 @@ def f32_clis(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [[], ["--pair-decode"]])
-def test_duplex_cli_fastq_matches_jax_cli(pair_dir, capsys, f32_clis, flags):
+def test_duplex_cli_fastq_matches_jax_cli(pair_dir, capsys, f32_clis, flags,
+                                         monkeypatch):
+    """With ``--pair-decode`` the oracle is JAX's CLI with the complement
+    strand reverse-complemented through the alphabet
+    (``test_torch_crf.py``)."""
     args = ["duplex", str(pair_dir / "model"), str(pair_dir / "reads"),
             "--pairs", str(pair_dir / "pairs.txt"), "--chunksize", "1200",
             "--overlap", "200", "--batchsize", "4", *flags]
+    if "--pair-decode" in flags:
+        flip = jcrf.reverse_complement
+
+        def corrected(scores, n_base, state_len):
+            return jnp.asarray(relabel_columns(
+                np.asarray(flip(scores, n_base, state_len)),
+                to_complement(n_base, "NACGTXY"[:n_base + 1]), n_base,
+                state_len))
+        monkeypatch.setattr(jcrf, "reverse_complement", corrected)
     jax_cli(args)
     want = capsys.readouterr().out
     port_cli([*args, "--device", "cpu"])

@@ -97,8 +97,17 @@ def _reg2bin(beg: int, end: int) -> int:
     return 0
 
 
+_ARRAY_FMT = {"c": "b", "C": "B", "s": "h", "S": "H", "i": "i", "I": "I",
+              "f": "f"}
+
+
 def _encode_tag(tag: str) -> bytes:
-    """One 'XX:T:value' SAM tag string -> BAM aux bytes."""
+    """One 'XX:T:value' SAM tag string -> BAM aux bytes.
+
+    A ``B`` array ('ML:B:C,12,250') is written as the SAM spec (4.2.4)
+    types it: ``B``, the subtype byte, a uint32 count and the packed
+    little-endian values.  JAX's writer stores it as a ``Z`` string; the
+    port does not copy that."""
     name, typ, value = tag.split(":", 2)
     out = name.encode()
     if typ == "i":
@@ -107,6 +116,14 @@ def _encode_tag(tag: str) -> bytes:
         return out + b"f" + struct.pack("<f", float(value))
     if typ == "A":
         return out + b"A" + value.encode()[:1]
+    if typ == "B":
+        sub, *items = value.split(",")
+        if sub not in _ARRAY_FMT:
+            raise ValueError(f"unknown B-array subtype {sub!r} in {tag!r}")
+        conv = float if sub == "f" else int
+        return (out + b"B" + sub.encode()
+                + struct.pack(f"<I{len(items)}{_ARRAY_FMT[sub]}",
+                              len(items), *map(conv, items)))
     return out + b"Z" + value.encode() + b"\0"  # Z and anything else
 
 
@@ -142,8 +159,8 @@ def _decode_tags(buf: bytes) -> list[str]:
             vals = [struct.unpack_from(fmt, buf, i + 5 + k * width)[0]
                     for k in range(n)]
             i += 5 + n * width
-            tags.append(f"{name}:B:{chr(sub)}," +
-                        ",".join(str(v) for v in vals))
+            tags.append(f"{name}:B:" +
+                        ",".join([chr(sub), *(str(v) for v in vals)]))
         else:
             raise ValueError(f"unknown BAM tag type {chr(typ)!r}")
     return tags

@@ -13,13 +13,21 @@ Means are taken in pandas' order of operations, so that the numbers equal
 pandas' bit for bit: ``series_mean`` as ``Series.mean`` (NaN as 0 in a
 pairwise numpy sum, over the count of the others) and ``group_mean`` as
 the mean of a ``groupby`` (a compensated sum in row order, NaN skipped).
+``read_csv`` reads a table as ``pd.read_csv`` types it (the same rules on
+the text: ints int64, ints or floats with blanks float64, True/False bool,
+anything else object with NaN for pandas' missing markers); ``concat``
+stacks tables as ``pd.concat`` does; ``to_string`` prints pandas'
+``to_string(index=False)``.  A path that ends in ``.gz`` is read and
+written through gzip, as pandas infers it.
 """
 
 from __future__ import annotations
 
 import csv
+import gzip
 import math
 import numbers
+import re
 
 import numpy as np
 
@@ -75,6 +83,137 @@ def group_mean(values) -> float:
 
 def _is_na(v) -> bool:
     return v is None or (isinstance(v, float) and math.isnan(v))
+
+
+def isna(values: np.ndarray) -> np.ndarray:
+    """``Series.isna()``: NaN in a float column, None or NaN in an object
+    one, nothing in others."""
+    if values.dtype.kind == "f":
+        return np.isnan(values)
+    if values.dtype.kind == "O":
+        return np.array([_is_na(v) for v in values.tolist()], bool)
+    return np.zeros(len(values), bool)
+
+
+def _open_text(path: str, mode: str):
+    if str(path).endswith(".gz"):
+        return gzip.open(path, mode + "t", newline="")
+    return open(path, mode, newline="")
+
+
+# pandas' default missing-value markers (``pandas._libs.parsers``)
+_NA_TEXT = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"})
+_INT_TEXT = re.compile(r"[+-]?[0-9]+\Z")
+_FLOAT_TEXT = re.compile(
+    r"[+-]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?\Z"
+    r"|[+-]?(inf|infinity)\Z", re.IGNORECASE)
+_BOOL_TEXT = {"True": True, "TRUE": True, "true": True,
+              "False": False, "FALSE": False, "false": False}
+
+
+def parse_column(texts: list[str]) -> np.ndarray:
+    """A column of CSV fields typed as ``pd.read_csv`` types it."""
+    na = [t in _NA_TEXT for t in texts]
+    given = [t for t, m in zip(texts, na) if not m]
+    if not given:
+        return np.full(len(texts), np.nan)
+    if all(_INT_TEXT.match(t) for t in given):
+        if not any(na):
+            return np.array([int(t) for t in texts], np.int64)
+        return np.array([np.nan if m else float(int(t))
+                         for t, m in zip(texts, na)])
+    if all(_FLOAT_TEXT.match(t) for t in given):
+        return np.array([np.nan if m else float(t)
+                         for t, m in zip(texts, na)])
+    if all(t in _BOOL_TEXT for t in given) and not any(na):
+        return np.array([_BOOL_TEXT[t] for t in texts], bool)
+    out = np.empty(len(texts), object)
+    for i, (t, m) in enumerate(zip(texts, na)):
+        out[i] = np.nan if m else _BOOL_TEXT.get(t, t)
+    return out
+
+
+def read_csv(path: str, sep: str = ",", index_col: int | None = None):
+    """``pd.read_csv(path, sep=sep, index_col=index_col)`` as a ``Table``:
+    blank header fields named ``Unnamed: i``, repeated names ``name.1``,
+    each column typed by ``parse_column``; ``index_col=0`` makes the first
+    column the row labels."""
+    with _open_text(path, "r") as fh:
+        rows = list(csv.reader(fh, delimiter=sep))
+    header, body = rows[0], [r for r in rows[1:] if r]
+    names, seen = [], {}
+    for i, h in enumerate(header):
+        name = h or f"Unnamed: {i}"
+        if name in seen:
+            seen[name] += 1
+            name = f"{name}.{seen[name]}"
+        seen.setdefault(name, 0)
+        names.append(name)
+    cols = {n: parse_column([r[i] if i < len(r) else "" for r in body])
+            for i, n in enumerate(names)}
+    if index_col is None:
+        return Table(cols)
+    if index_col != 0:
+        raise ValueError("read_csv takes index_col None or 0")
+    first = names[0]
+    index = cols.pop(first).tolist()
+    return Table(cols, index=index, index_names=[header[0] or None])
+
+
+def concat(tables: list["Table"]) -> "Table":
+    """``pd.concat(tables).reset_index(drop=True)``: the union of the
+    columns in order of first appearance; a column that a table lacks is
+    NaN there, so that ints become float64 and bools or text object."""
+    names: dict = {}
+    for t in tables:
+        names.update(dict.fromkeys(t.columns))
+    out = Table()
+    for name in names:
+        parts = [t.cols.get(name) for t in tables]
+        kinds = {p.dtype.kind for p in parts if p is not None}
+        if all(p is not None for p in parts) and len(
+                {p.dtype for p in parts}) == 1:
+            out.cols[name] = np.concatenate(parts)
+        elif kinds <= {"i", "u", "f"}:
+            out.cols[name] = np.concatenate([
+                p.astype(np.float64) if p is not None
+                else np.full(len(t), np.nan) for p, t in zip(parts, tables)])
+        else:
+            col = np.empty(sum(len(t) for t in tables), object)
+            at = 0
+            for p, t in zip(parts, tables):
+                col[at:at + len(t)] = (p.tolist() if p is not None
+                                       else [np.nan] * len(t))
+                at += len(t)
+            out.cols[name] = col
+    return out
+
+
+def _trim_zeros(cells: list[str]) -> list[str]:
+    """Trailing zeros trimmed equally from every number, one kept after
+    the point (pandas' ``_trim_zeros_float``)."""
+    while cells and all(c.endswith("0") for c in cells):
+        cells = [c[:-1] for c in cells]
+    return [c + "0" if c.endswith(".") else c for c in cells]
+
+
+def _float_cells(values: np.ndarray) -> list[str]:
+    """pandas' float column text: six decimals, trimmed, or scientific
+    where a number is small or a large one makes the column too wide;
+    NaN as ``NaN``."""
+    finite = values[~np.isnan(values)]
+    absv = np.abs(finite)
+    cells = _trim_zeros([f"{v:.6f}" for v in finite.tolist()])
+    width = max([0, *(len(c) for c in cells)]
+                + [3] * int(np.isnan(values).any()))
+    if ((absv < 1e-6) & (absv > 0)).any() or (width > 12
+                                              and (absv > 1e6).any()):
+        cells = [f"{v:.6e}" for v in finite.tolist()]
+    it = iter(cells)
+    return ["NaN" if math.isnan(v) else next(it) for v in values.tolist()]
 
 
 class Table:
@@ -168,7 +307,7 @@ class Table:
         names = (self.index_names if index else []) + self.columns
         cols = [self._formatted(v, float_format, na_rep)
                 for v in self.cols.values()]
-        with open(path, "w", newline="") as fh:
+        with _open_text(path, "w") as fh:
             w = csv.writer(fh, lineterminator="\n")
             if header:
                 w.writerow(names)
@@ -191,16 +330,25 @@ class Table:
             return [str(v) for v in values.tolist()]
         return [na_rep if _is_na(v) else str(v) for v in values.tolist()]
 
-    def to_string(self, digits: int = 1) -> str:
-        """A plain text view (index and columns), floats rounded."""
-        names = self.index_names + self.columns
-        rows = [names]
-        for i in range(len(self)):
-            label = self.index[i] if self.index is not None else i
-            rows.append([str(label)] + [
-                f"{v:.{digits}f}" if isinstance(v, float) else str(v)
-                for v in (c[i].item() if hasattr(c[i], "item") else c[i]
-                          for c in self.cols.values())])
-        widths = [max(len(r[j]) for r in rows) for j in range(len(names))]
-        return "\n".join("  ".join(s.rjust(w) for s, w in zip(r, widths))
-                         for r in rows)
+    def round(self, decimals: int = 0) -> "Table":
+        """``DataFrame.round``: float columns by ``np.round``."""
+        out = self.rows(np.arange(len(self)))
+        out.cols = {k: np.round(v, decimals) if v.dtype.kind == "f" else v
+                    for k, v in out.cols.items()}
+        return out
+
+    def to_string(self) -> str:
+        """The text of pandas' ``to_string(index=False)``: each column
+        right-justified to its widest cell, a numeric column's header
+        (bools included) one space wider, columns one space apart."""
+        out = []
+        for name, v in self.cols.items():
+            if v.dtype.kind == "f":
+                cells = _float_cells(v)
+            else:
+                cells = ["NaN" if _is_na(x) else str(x) for x in v.tolist()]
+            head = (" " if v.dtype.kind in "iufb" else "") + str(name)
+            width = max([len(head)] + [len(c) for c in cells])
+            out.append([head.rjust(width)] + [c.rjust(width) for c in cells])
+        return "\n".join(" ".join(col[i] for col in out)
+                         for i in range(len(self) + 1))

@@ -22,8 +22,10 @@ Port of ``xna_basecaller_tpu/infer/basecall.py`` (``basecall``,
   (``decode_beam``).
 * Stitching is frame-accurate by default; ``legacy_char_stitch=True``
   stitches left-packed label arrays, as the reference UB path does.
-* R-strand decoding reverse-complements the scores on the device and
-  stitches with reverse=True; ``ub_bias`` is added after the reverse
+* R-strand decoding reverse-complements the scores on the device,
+  through the model alphabet's complement map (JAX flips the base index,
+  which pairs A<->Y, C<->X, G<->T in NACGTXY; the two agree on NACGT),
+  and stitches with reverse=True; ``ub_bias`` is added after the reverse
   complement and before the decode.
 * ``quantize`` is the int8 path of ``--quantize``: the int8 upload, int8
   input projections and CRF head, and the int8 recurrence K7
@@ -79,10 +81,14 @@ def _apply_ub_bias(scores: torch.Tensor, n_base: int, ub_bias: float):
 
 
 def _score_and_decode(scores: torch.Tensor, n_base: int, state_len: int,
-                      reverse: bool = False, ub_bias: float = 0.0):
-    """CRF scores [T', N, C] -> per-frame label paths [N, T'] int8."""
+                      reverse: bool = False, ub_bias: float = 0.0,
+                      alphabet: str | None = None):
+    """CRF scores [T', N, C] -> per-frame label paths [N, T'] int8.
+    ``reverse`` complements through ``alphabet``'s complement map
+    (``ops/crf.py::reverse_complement``)."""
     if reverse:
-        scores = crf_ops.reverse_complement(scores, n_base, state_len)
+        scores = crf_ops.reverse_complement(scores, n_base, state_len,
+                                            alphabet)
     scores = _apply_ub_bias(scores, n_base, ub_bias)
     decode = decode_paths_cuda if scores.is_cuda else crf_ops.decode_paths
     return decode(scores, n_base, state_len)
@@ -90,11 +96,13 @@ def _score_and_decode(scores: torch.Tensor, n_base: int, state_len: int,
 
 def _score_and_decode_qual(scores: torch.Tensor, n_base: int,
                            state_len: int, reverse: bool = False,
-                           ub_bias: float = 0.0):
+                           ub_bias: float = 0.0,
+                           alphabet: str | None = None):
     """The decode with the posterior of each chosen transition: (paths
     [N, T'] int8, probs [N, T'] f16), as JAX's ``_score_and_decode_qual``."""
     if reverse:
-        scores = crf_ops.reverse_complement(scores, n_base, state_len)
+        scores = crf_ops.reverse_complement(scores, n_base, state_len,
+                                            alphabet)
     scores = _apply_ub_bias(scores, n_base, ub_bias)
     paths, probs = decode_paths_with_qual_cuda(scores, n_base, state_len)
     return paths, probs.half()
@@ -102,11 +110,13 @@ def _score_and_decode_qual(scores: torch.Tensor, n_base: int,
 
 def _score_and_decode_beam(scores: torch.Tensor, n_base: int,
                            state_len: int, beam_width: int,
-                           reverse: bool = False, ub_bias: float = 0.0):
+                           reverse: bool = False, ub_bias: float = 0.0,
+                           alphabet: str | None = None):
     """The path-collapsing beam decode: paths [N, T'] int8, as JAX's
     ``_score_and_decode_beam``."""
     if reverse:
-        scores = crf_ops.reverse_complement(scores, n_base, state_len)
+        scores = crf_ops.reverse_complement(scores, n_base, state_len,
+                                            alphabet)
     scores = _apply_ub_bias(scores, n_base, ub_bias)
     return decode_beam_cuda(scores, n_base, state_len, beam_width)[0]
 
@@ -248,6 +258,7 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
     up_dtype = np.int8 if quantize else (
         np.float32 if compute_dtype == torch.float32 else np.float16)
     n_base, state_len = model.seqdist.n_base, model.seqdist.state_len
+    alphabet = model.seqdist.alphabet
     G = max(1, int(superbatch))
     if G > 1 and (qscores or beam_width > 0):
         print(f"[basecall] --superbatch {superbatch} ignored (runs as 1): "
@@ -258,14 +269,14 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         scores = _forward(members, x, compute_dtype, quantize)
         if qscores:
             paths, probs = _score_and_decode_qual(
-                scores, n_base, state_len, reverse, float(ub_bias))
+                scores, n_base, state_len, reverse, float(ub_bias), alphabet)
             return {"path": paths, "prob": probs}
         if beam_width > 0:
             return {"path": _score_and_decode_beam(
                 scores, n_base, state_len, beam_width, reverse,
-                float(ub_bias))}
+                float(ub_bias), alphabet)}
         return {"path": _score_and_decode(
-            scores, n_base, state_len, reverse, float(ub_bias))}
+            scores, n_base, state_len, reverse, float(ub_bias), alphabet)}
 
     fetched = device_stages(
         read_batches(reads, chunksize, overlap, batchsize, cancel), device,

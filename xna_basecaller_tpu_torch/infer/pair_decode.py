@@ -289,7 +289,7 @@ def read_transition_probs(model, signal, chunksize: int = 3600,
         scores = model(torch.from_numpy(np.ascontiguousarray(chunks)).to(dev),
                        compute_dtype=torch.float32)
         if reverse:
-            scores = crf_ops.reverse_complement(scores, nb, sl)
+            scores = model.seqdist.reverse_complement(scores)
         trans, init = crf_ops.compute_transition_probs(scores, nb, sl)
         N, T = trans.shape[1], trans.shape[0]
         # the frames the stitch keeps, as flat indices into [N * T']
@@ -306,7 +306,7 @@ def read_transition_probs(model, signal, chunksize: int = 3600,
 
 def decode_pair(logt1, logi1, logt2, logi2, alphabet: str,
                 padding: int = 40, min_match: float = 0.80,
-                min_len: int = 10):
+                min_len: int = 10, min_coverage: float = 0.5):
     """Joint decode of a template/complement pair already expressed as
     log transition posteriors in the SAME orientation (the complement's
     scores reverse-complemented before `compute_transition_probs`, as at
@@ -325,7 +325,7 @@ def decode_pair(logt1, logi1, logt2, logi2, alphabet: str,
         return None
     seq1 = "".join(alphabet[c] for c in c1)
     seq2 = "".join(alphabet[c] for c in c2)
-    if accuracy(seq1, seq2) < min_match * 100:
+    if accuracy(seq1, seq2, min_coverage=min_coverage) < min_match * 100:
         return None
     env = build_envelope(logt1.shape[0], f1, logt2.shape[0], f2,
                          nw_columns(seq1, seq2), padding=padding)

@@ -42,6 +42,7 @@ def make_sharded_scorer(model, devices, reverse: bool = False,
             replicas[d] = model if d == home else copy.deepcopy(model).to(d)
     n_base = model.seqdist.n_base
     state_len = model.seqdist.state_len
+    alphabet = model.seqdist.alphabet
 
     def scorer(batch):
         padded, n = pad_to_multiple(torch.as_tensor(np.asarray(batch)),
@@ -60,10 +61,12 @@ def make_sharded_scorer(model, devices, reverse: bool = False,
                     scores = replicas[d](x, compute_dtype)
                     if qscores:
                         outs.append(_score_and_decode_qual(
-                            scores, n_base, state_len, reverse))
+                            scores, n_base, state_len, reverse,
+                            alphabet=alphabet))
                     else:
                         outs.append((_score_and_decode(
-                            scores, n_base, state_len, reverse),))
+                            scores, n_base, state_len, reverse,
+                            alphabet=alphabet),))
                     del scores
             paths = torch.cat([o[0].cpu() for o in outs]).numpy()[:n]
             if qscores:

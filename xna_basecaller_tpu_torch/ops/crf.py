@@ -38,9 +38,12 @@ K2a.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
+
+from xna_basecaller_tpu_torch.core.alphabet import BASES, COMPLEMENT
 
 LOG = "log"
 MAX = "max"
@@ -510,21 +513,64 @@ def ctc_loss(scores: torch.Tensor, targets: torch.Tensor,
     raise ValueError(f"Unknown reduction type {reduction}")
 
 
-def reverse_complement(scores: torch.Tensor, n_base: int, state_len: int):
+def complement_permutation(alphabet: str) -> list[int]:
+    """perm[i] = the base index (0-based, blank excluded) of the complement
+    of ``alphabet[i + 1]``, through ``core.alphabet.COMPLEMENT`` (A<->T,
+    C<->G, X<->Y).  Raises ``ValueError`` naming the base whose complement
+    the alphabet lacks (NACGTX: X, whose complement Y is missing)."""
+    bases = alphabet[1:]
+    perm = []
+    for b in bases:
+        c = COMPLEMENT.get(b)
+        if c is None or c not in bases:
+            raise ValueError(
+                f"alphabet {alphabet!r} is not closed under complement: "
+                f"base {b!r} has no complement ({c!r}) in it")
+        perm.append(bases.index(c))
+    return perm
+
+
+@lru_cache(maxsize=None)
+def _revcomp_columns(n_base: int, state_len: int,
+                     alphabet: str) -> torch.Tensor:
+    """The column gather of ``reverse_complement``: out[..., j] =
+    scores[..., cols[j]] on the time-reversed scores.  Built by running
+    the k-mer reversal of the JAX ``reverse_complement`` over column
+    indices, each base axis and the emission axis complemented through
+    ``complement_permutation`` where that function flips them."""
+    perm = torch.tensor(complement_permutation(alphabet))
+    if len(perm) != n_base:
+        raise ValueError(f"alphabet {alphabet!r} has {len(perm)} bases, "
+                         f"the scores {n_base}")
+    idx = torch.arange((n_base + 1) * n_base ** state_len).reshape(
+        (n_base,) * state_len + (n_base + 1,))
+    for axis in range(state_len):
+        idx = idx.index_select(axis, perm)
+    idx = idx.index_select(state_len, torch.cat([perm.new_zeros(1),
+                                                 perm + 1]))
+    blanks = idx[..., 0].permute(tuple(range(state_len - 1, -1, -1)))
+    emissions = idx[..., 1:].permute(
+        tuple(range(state_len - 2, -1, -1)) + (state_len, state_len - 1))
+    return torch.cat([blanks.reshape(-1, 1),
+                      emissions.reshape(-1, n_base)], -1).reshape(-1)
+
+
+def reverse_complement(scores: torch.Tensor, n_base: int, state_len: int,
+                       alphabet: str | None = None):
     """Reverse-complement a score tensor for R-strand decoding: reverses
-    time and the k-mer base order within each state, and complements by
-    index flips (the JAX ``reverse_complement``, reference
-    crf/model.py:78-90)."""
-    T, N, _ = scores.shape
-    s = scores.reshape((T, N) + (n_base,) * state_len + (n_base + 1,))
-    blanks = s[..., 0].permute(
-        (0, 1) + tuple(range(state_len + 1, 1, -1))
-    ).reshape(T, N, -1, 1).flip((0, 2))
-    emissions = s[..., 1:].permute(
-        (0, 1) + tuple(range(state_len, 1, -1))
-        + (state_len + 2, state_len + 1)
-    ).reshape(T, N, -1, n_base).flip((0, 2, 3))
-    return torch.cat([blanks, emissions], -1).reshape(T, N, -1)
+    time and the k-mer base order within each state (as the JAX
+    ``reverse_complement``, reference crf/model.py:78-90), and complements
+    each base through the alphabet's complement map.  ``alphabet``
+    defaults to the canonical one of ``n_base`` bases (``BASES``'s
+    prefix).
+
+    Deliberately not JAX's: JAX complements base i as n_base - 1 - i,
+    which is the complement for NACGT (so NACGT scores are bit-equal to
+    JAX's) and pairs A<->Y, C<->X, G<->T for NACGTXY."""
+    if alphabet is None:
+        alphabet = BASES[:n_base + 1]
+    cols = _revcomp_columns(n_base, state_len, alphabet)
+    return scores.flip(0).index_select(2, cols.to(scores.device))
 
 
 def ctc_viterbi_alignments(stay: torch.Tensor, move: torch.Tensor,
@@ -717,7 +763,8 @@ class CTCCRF:
                         self.state_len, **kw)
 
     def reverse_complement(self, scores):
-        return reverse_complement(scores, self.n_base, self.state_len)
+        return reverse_complement(scores, self.n_base, self.state_len,
+                                  self.alphabet)
 
     def ctc_viterbi_alignments(self, scores, targets, target_lengths):
         """Reference crf/model.py:133-135."""
