@@ -20,7 +20,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. hold each kernel against its plain PyTorch version on the card, on the
      tensors the main path gives it for one batch of simulated reads:
      K1 (LSTM recurrence) in bf16 and f32 (called twice: bit-equal or
-     the phase fails), K7 (the int8 recurrence, layer
+     the phase fails), and K1's f32 route at duplex's shapes
+     (DUPLEX_K1_ROWS rows of a read's chunks, both directions, twice
+     each), K7 (the int8 recurrence, layer
      0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode),
      the q-score variants of K2b and K2c (bp, v_final and labels
      bit-equal to the Viterbi kernels', edge_sel and probs against their
@@ -146,11 +148,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   9. time each kernel, its plain version and its library yardstick with
      CUDA events: K1, K3a and K3b beside the port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
-     taken in turns, with the card's clock and power sampled beside them,
+     taken in turns, and K1's f32 route at duplex's 8 rows beside the
+     port's f32 projection + K1 and cuDNN's f32 ``nn.LSTM`` (TF32 off),
+     with the card's clock and power sampled beside them,
      and the rows sweep of the LSTM kernels K1, K3a, K3b and K7 (per-step
-     time = a + b x rows, over N <= 64 and over 128-256 rows); K7 beside
+     time = a + b x rows, over N <= 64 and over 128-256 rows) and of K1's
+     f32 route at F32_SWEEP_ROWS; K7 beside
      K1 on K7's input (bf16 W_hh) as medians of 21 in turns; with
-     ``--baseline DIR``, the K1 and K7 of that tree in the same turns; the
+     ``--baseline DIR``, the K1 (bf16 and f32) and K7 of that tree in the
+     same turns; the
      CRF kernels K2a at the basecall batch, K5a, K4, the lattice's K6a and
      K6b at the training batch, K2b and K2c at the basecall batch and K2b,
      K2c and K6a at the validation batch's 16 rows, and the decode chain
@@ -233,6 +239,11 @@ K1_DIFFER_MAX = 0
 LIBRARIES = ("XNA_4Ds", "POC", "XNA16", "CPLX")
 CHUNK_CALL_BASES = 400
 SCAN_BURST = 10   # calls a timed sample of the CRF kernels
+# phase 2: K1's f32 route at duplex's shapes, the chunks of a read: 8 at
+# phase 8h's 22.5 k samples, 32 at ~100 k; phase 9 times it at the first
+DUPLEX_K1_ROWS = (8, 32)
+# phase 9: the rows swept for K1's f32 route
+F32_SWEEP_ROWS = (8, 16, 32, 64, 128, 256)
 # phase 8d: the north-star script's depth (its widths are the flagship's;
 # PERF.md section 4 lists each cut): phase A's simulated DNA chunks and
 # epochs, phase B's reads, phase C's epochs, two seeds (so that the
@@ -2209,13 +2220,17 @@ def time_augmentation(model, sim, tables, card):
           f"({gap / t_step[augmented]:.1%} of the augmented step) on {card}")
 
 
-def lstm_yardsticks(model, keep, k1_inputs, xb, card, baseline):
+def lstm_yardsticks(model, keep, k1_inputs, xb, xf, card, baseline):
     """Phase 9 (LSTM kernels): K1, K3a and K3b each beside the port's
     like-for-like layer and its cuDNN yardstick (``torch.nn.LSTM`` with
     flattened weights, layer 0's weights), as medians of 21 calls taken in
     turns in one stretch: K1 at the basecall batch (and the baseline
-    tree's K1, when given), K3a and K3b at the training batch; and each
-    plain version once.  Returns {kernel: (ms, plain ms, library ms)}."""
+    tree's K1, when given), K3a and K3b at the training batch; K1's f32
+    route on the first DUPLEX_K1_ROWS[0] rows of the f32 layer input
+    ``xf`` (duplex's chunks of a read) beside the port's f32 projection +
+    K1 and cuDNN's f32 ``nn.LSTM`` (TF32 off for cuDNN and for matrix
+    products; the baseline tree's f32 K1 when given); and each plain
+    version once.  Returns {kernel: (ms, plain ms, library ms)}."""
     from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
 
     xp3, w3, dys, ys3, cs3, rev = keep
@@ -2277,14 +2292,47 @@ def lstm_yardsticks(model, keep, k1_inputs, xb, card, baseline):
         "nn.LSTM backward": lambda: out_r.backward(dys, retain_graph=True)})
     del out_p, out_r
     model.zero_grad(set_to_none=True)
+    # K1's f32 route at duplex's shape, beside cuDNN's f32 LSTM
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p32 = model.rnn[0].params(torch.float32)
+    n32 = DUPLEX_K1_ROWS[0]
+    x32 = xf[:, :n32].float().contiguous()
+    ref32 = torch.nn.LSTM(H, H).to("cuda").eval()
+    with torch.no_grad():
+        ref32.weight_ih_l0.copy_(p32["w_ih"].T)
+        ref32.weight_hh_l0.copy_(p32["w_hh"].T)
+        ref32.bias_ih_l0.copy_(p32["bias"])
+        ref32.bias_hh_l0.zero_()
+    ref32.flatten_parameters()
+    with torch.inference_mode():
+        xp32 = lstm.input_projection(p32, x32)
+        fns = {"K1 f32": lambda: lstm_cuda.lstm_recurrence(xp32,
+                                                           p32["w_hh"]),
+               "projection + K1 f32": lambda: lstm_cuda.lstm_forward(p32,
+                                                                     x32),
+               "nn.LSTM f32 inference": lambda: ref32(x32)}
+        if baseline:
+            fns["K1 f32 of the baseline tree"] = lambda: baseline["K1"](
+                xp32, p32["w_hh"])
+        f32 = in_turns(fns)
+        k1f_plain = elapsed_ms(
+            lambda: lstm.lstm_recurrence(xp32, p32["w_hh"]), 1)
+    print(f"f32 yardstick: torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     for what, got in (("K1 at the basecall batch", inf),
                       ("K3a at the training batch", fwd),
-                      ("K3b at the training batch", bwd)):
+                      ("K3b at the training batch", bwd),
+                      (f"K1 f32 at duplex's {n32} rows", f32)):
         print(f"time {what}, medians of 21 in turns: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in got.items()) + f" on {card}")
     return {"K1": (inf["K1"], k1_plain, inf["nn.LSTM inference"]),
             "K3a": (fwd["K3a"], k3a_plain, fwd["nn.LSTM training forward"]),
-            "K3b": (bwd["K3b"], k3b_plain, bwd["nn.LSTM backward"])}
+            "K3b": (bwd["K3b"], k3b_plain, bwd["nn.LSTM backward"]),
+            "K1-f32": (f32["K1 f32"], k1f_plain,
+                       f32["nn.LSTM f32 inference"])}
 
 
 def rows_sweep(card):
@@ -2292,7 +2340,8 @@ def rows_sweep(card):
     H=768, bf16 (random inputs from the seed) for N in 16, 32, 64 (K1, K3a,
     K3b: the clustered launch of at most 64 rows) and 128 (K1 and K7 also
     192 and 256: one launch of the rows kernel, of one or two 128-row
-    tiles; two clustered launches for K3b), each the median of 5 calls.
+    tiles; two clustered launches for K3b), and K1's f32 route at the
+    F32_SWEEP_ROWS, each the median of 5 calls.
     The time per step and launch, fitted as a + b x rows over N <= 64 and,
     for K1 and K7, over 128-256 rows, splits a fixed cost per step from
     the cost of the rows."""
@@ -2302,17 +2351,20 @@ def rows_sweep(card):
     g = torch.Generator("cuda").manual_seed(SEED)
     w = (torch.randn(H, 4 * H, device="cuda", generator=g)
          / H ** 0.5).to(torch.bfloat16)
+    w32 = w.float()
     w_q, scale = lstm.quantize_w_hh(w)
     for name, wrapper, sizes in (
             ("K1", lstm_cuda.lstm_recurrence, (16, 32, 64, 128, 192, 256)),
             ("K3a", lstm_cuda.lstm_forward_with_cells, (16, 32, 64, 128)),
             ("K3b", lstm_cuda.lstm_backward_dxp, (16, 32, 64, 128)),
             ("K7", lstm_cuda.lstm_recurrence_int8,
-             (16, 32, 64, 128, 192, 256))):
+             (16, 32, 64, 128, 192, 256)),
+            ("K1 f32", lstm_cuda.lstm_recurrence, F32_SWEEP_ROWS)):
+        dtype = torch.float32 if name == "K1 f32" else torch.bfloat16
         points = []
         for N in sizes:
             xp = torch.randn(T, N, 4 * H, device="cuda", generator=g).to(
-                torch.bfloat16)
+                dtype)
             with torch.no_grad():
                 if name == "K3b":
                     ys, cs = lstm_cuda.lstm_forward_with_cells(xp, w)
@@ -2322,7 +2374,8 @@ def rows_sweep(card):
                 elif name == "K7":
                     fn = lambda: wrapper(xp, w_q, scale)  # noqa: E731
                 else:
-                    fn = lambda: wrapper(xp, w)  # noqa: E731
+                    fn = lambda: wrapper(  # noqa: E731
+                        xp, w32 if dtype == torch.float32 else w)
                 before = wrapper.launches
                 fn()
                 launches = wrapper.launches - before
@@ -2337,7 +2390,8 @@ def rows_sweep(card):
                 b, a = np.polyfit([q[1] for q in pts], [q[4] for q in pts], 1)
                 fits.append(f"fit per step at {what} = {a:.2f} us + "
                             f"{b * 1e3:.2f} ns x rows")
-        print(f"rows sweep {name} (T={T}, H={H}, bf16): " + "; ".join(
+        print(f"rows sweep {name} (T={T}, H={H}, "
+              f"{'f32' if dtype == torch.float32 else 'bf16'}): " + "; ".join(
             f"N={n}: {ms:.3f} ms, {launches} launch(es) of {rows} rows, "
             f"{us:.2f} us per step" for n, rows, launches, ms, us in points)
             + "; " + "; ".join(fits) + f" on {card}")
@@ -3286,6 +3340,7 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
                 "K2c-qual": crf_cuda.viterbi_traceback_qual}
     for w in wrappers.values():
         w.launches = 0
+    lstm_cuda.lstm_recurrence.launches_f32 = 0
     out, merged = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -3297,6 +3352,7 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
         wall = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()
                     if w.launches}
+        launches["K1-f32"] = lstm_cuda.lstm_recurrence.launches_f32
         # the same pairs through the consensus merge alone
         with contextlib.redirect_stdout(merged):
             cli(["duplex", boot_dir, "reads", "--pairs",
@@ -3746,6 +3802,28 @@ def main() -> int:
             results[f"K1_{name}_err"] = err.max().item()
             if name == "bf16":
                 k1_inputs = (xp, p["w_hh"])
+        # K1's f32 route at duplex's shapes (a read's chunks), both ways
+        p = layer0.params(torch.float32)
+        k1f_err = results["K1_f32_err"]
+        for n_rows in DUPLEX_K1_ROWS:
+            xp = lstm.input_projection(p, x[:, :n_rows].float().contiguous())
+            for rev in (False, True):
+                got = lstm_cuda.lstm_recurrence(xp, p["w_hh"], rev)
+                err = (got - lstm.lstm_recurrence(xp, p["w_hh"], rev)).abs()
+                again = lstm_cuda.lstm_recurrence(xp, p["w_hh"], rev)
+                print(f"K1 f32 {tuple(xp.shape)} reverse={rev}: max_abs "
+                      f"{err.max().item():.3e} (tolerance 1e-4); called "
+                      f"twice: elements differing "
+                      f"{(again != got).float().mean().item():.4f} "
+                      f"(tolerance 0)")
+                if not bool(torch.isfinite(got).all()) \
+                        or err.max().item() > 1e-4:
+                    fail(f"K1 f32 at {n_rows} rows disagrees with its plain "
+                         "version")
+                if not torch.equal(again, got):
+                    fail(f"K1 f32 at {n_rows} rows is not bit-repeatable")
+                k1f_err = max(k1f_err, err.max().item())
+        results["K1-f32_err"] = k1f_err
         k7_err, k7_inputs = check_int8_kernel(model, x)
 
         scores = model(batch)                                 # [720,256,1512]
@@ -3967,7 +4045,7 @@ def main() -> int:
     xb = x.to(torch.bfloat16)
     # the LSTM kernels, their yardsticks and the rows sweep in one window
     with CardSampler() as sampler:
-        timings = lstm_yardsticks(model, k3_inputs, k1_inputs, xb, card,
+        timings = lstm_yardsticks(model, k3_inputs, k1_inputs, xb, x, card,
                                   baseline)
         rows_sweep(card)
     print(f"card during the LSTM window: {sampler.summary}")
@@ -4083,6 +4161,10 @@ def main() -> int:
                   4.0 * Tt * Nt * H * 4 * H, PEAK_BF16)
     b_k1 = bound(2 * (xp.numel() + w_hh.numel() + T * N * H),
                  2.0 * T * N * H * 4 * H, PEAK_BF16)
+    # K1's f32 route at duplex's rows: xp, W_hh and ys in f32
+    n32 = DUPLEX_K1_ROWS[0]
+    b_k1f = bound(4 * (T * n32 * 4 * H + w_hh.numel() + T * n32 * H),
+                  2.0 * T * n32 * H * 4 * H, PEAK_F32)
     # K7: xp and ys in bf16, W_q int8, scale f32; the int8 product per step
     b_k7 = bound(2 * (xq.numel() + T * N * H) + w_q.numel()
                  + 4 * scale_q.numel(), 2.0 * T * N * H * 4 * H, PEAK_INT8)
@@ -4130,6 +4212,12 @@ def main() -> int:
         "K1": ("lstm_recurrence", "lstm_recurrence.cu",
                "xna_basecaller_tpu/ops/lstm_pallas.py:92", b_k1,
                results["K1_bf16_err"]),
+        # the same Pallas kernel in f32 (an f32 h scratch,
+        # lstm_pallas.py:145-147): its f32 route, at duplex's rows
+        "K1-f32": (f"lstm_f32_kernel (K1's f32 route, N={n32})",
+                   "lstm_recurrence.cu",
+                   "xna_basecaller_tpu/ops/lstm_pallas.py:92", b_k1f,
+                   results["K1-f32_err"]),
         "K2a": ("crf_backward", "crf_decode.cu",
                 "xna_basecaller_tpu/ops/crf_pallas.py:101", b_k2a,
                 results["K2a_err"]),
@@ -4182,6 +4270,10 @@ def main() -> int:
     launches["K2b-qual"] = dec_launches["qscores"]["K2b-qual"]
     launches["K2c-qual"] = dec_launches["qscores"]["K2c-qual"]
     launches["beam"] = dec_launches[f"beam {PIPELINE_BEAM}"]["beam"]
+    # K1's f32 route on its path: duplex --pair-decode (phase 8h)
+    launches["K1-f32"] = duplex_launches["K1-f32"]
+    if not launches["K1-f32"]:
+        fail("duplex --pair-decode did not launch K1's f32 route")
     kernels = []
     for k, (name, src, replaces, (b_ms, b_by), err) in meta.items():
         ms, plain_ms, lib_ms = timings[k]

@@ -59,16 +59,22 @@ def _lstm_inputs(T, N, H, seed, device, dtype):
     return xp.to(device, dtype), w.to(device, dtype)
 
 
-# Batch sizes and widths of the launch geometry: 1, 5, 16 and 64 rows take
-# the bf16 cluster path (N <= 64); 65 up to 256 one launch of the rows
-# kernel: 65, 127 and 128 one tile of 128 rows (65: one row in the last
-# 16-row block), 129 and 130 a second tile of 1 or 2 rows, 200 a second
-# tile of 72 rows, 255 and 256 two tiles; 257 and 300 two launches (at most
-# 256 rows each), the second of 1 or 44 rows on the cluster path.  H=96: a
-# part-width h chunk; H=768 the flagship width, at T=300 for N=64 and
-# N=256 (a lost flag or a missing fence shows as rare wrong values only over
-# many steps).
-_LSTM_N = [1, 5, 16, 64, 65, 127, 128, 129, 130, 200, 255, 256, 257, 300]
+# Batch sizes and widths of the launch geometry.  bf16: 1, 5, 8, 16, 32,
+# 33, 42, 43 and 64 rows take the cluster path (N <= 64); 65 up to 256 one
+# launch of the rows kernel: 65, 127 and 128 one tile of 128 rows (65: one
+# row in the last 16-row block), 129 and 130 a second tile of 1 or 2 rows,
+# 200 a second tile of 72 rows, 255 and 256 two tiles; 257 and 300 two
+# launches (at most 256 rows each), the second of 1 or 44 rows on the
+# cluster path.  f32: all N rows in one block up to 42 (6 units a CTA, H=96
+# and 768) or 32 (8 units, H=64), past that blocks of at most 41 rows (two
+# of 32 at N=64, seven of 37 and 34 at N=256, two of 22 and 21 at N=43, two
+# of 17 and 16 at N=33 and H=64) double buffered; 1, 5 and 33 rows a last
+# product of fewer than 4 rows.  H=96: a part-width h chunk (bf16), a
+# depth slice of 48 rows a CTA of which five warps hold none (f32); H=768
+# the flagship width, at T=300 for N=64 and N=256 (a lost flag or a
+# missing fence shows as rare wrong values only over many steps).
+_LSTM_N = [1, 5, 8, 16, 32, 33, 42, 43, 64, 65, 127, 128, 129, 130, 200, 255,
+           256, 257, 300]
 _LSTM_H = [64, 96, 768]
 
 
@@ -94,21 +100,27 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+# bf16: 65-256 one launch of the wgmma kernel (one or two row tiles); 257
+# two launches, the second on the cluster path; H=768: 3 chunks of 256
+# columns on 2 ring stages; H=1024: 8 chunks of 128 on 3 stages, fetched as
+# they finish within a window of 2.  f32: 1, 8 and 32 rows in one block; 64,
+# 65 and 256 in blocks double buffered, 257 two launches; H=768: 6 units
+# a CTA, H=1024: 8
+_REPEAT_CASES = ([(torch.bfloat16, n) for n in (65, 128, 200, 256, 257)]
+                 + [(torch.float32, n) for n in (1, 8, 32, 64, 65, 256, 257)])
+
+
 @pytest.mark.parametrize("cells", [False, True])
-# 65-256: one launch of the wgmma kernel (one or two row tiles); 257: two
-# launches, the second on the cluster path.  H=768: 3 chunks of 256
-# columns on 2 ring stages; H=1024: 8 chunks of 128 on 3 stages, fetched
-# as they finish within a window of 2
-@pytest.mark.parametrize("N", [65, 128, 200, 256, 257])
+@pytest.mark.parametrize("dtype,N", _REPEAT_CASES)
 @pytest.mark.parametrize("H", [768, 1024])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_bf16_lstm_kernels_are_bit_repeatable(cuda, cells, N, H, reverse):
-    """K1 and K3a in bf16 give the same bits over 6 calls: the chunks of h
-    finish in another order each call, and the kernel adds their products
-    in index order all the same; and the plain version's values (the
-    tolerances of the tests above)."""
-    xp, w = _lstm_inputs(300, N, H, seed=N + 7, device=cuda,
-                         dtype=torch.bfloat16)
+def test_lstm_kernels_are_bit_repeatable(cuda, cells, dtype, N, H, reverse):
+    """K1 and K3a give the same bits over 6 calls, in bf16 and in f32: the
+    chunks of h finish in another order each call, and the kernels add
+    their products in one fixed order all the same; and the plain
+    version's values (the tolerances of the tests above; f32 1e-4 for ys
+    and the cells)."""
+    xp, w = _lstm_inputs(300, N, H, seed=N + 7, device=cuda, dtype=dtype)
     fn = (lstm_cuda.lstm_forward_with_cells if cells
           else lambda x, w, r: (lstm_cuda.lstm_recurrence(x, w, r),))
     first = fn(xp, w, reverse)
@@ -117,7 +129,8 @@ def test_bf16_lstm_kernels_are_bit_repeatable(cuda, cells, N, H, reverse):
             assert torch.equal(got, want)
     plain = (lstm.lstm_recurrence_with_cells(xp, w, reverse) if cells
              else (lstm.lstm_recurrence(xp, w, reverse),))
-    for got, want, atol in zip(first, plain, (2e-2, 5e-2)):
+    tols = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 5e-2)
+    for got, want, atol in zip(first, plain, tols):
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=atol)
 

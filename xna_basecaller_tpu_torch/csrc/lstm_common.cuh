@@ -252,6 +252,18 @@ __device__ __forceinline__ float2 ld_cluster_f2(const float* p, unsigned rank) {
   return v;
 }
 
+// The float at `p` (this CTA's shared memory) in CTA `rank`'s copy.
+__device__ __forceinline__ float ld_cluster_f32(const float* p,
+                                               unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
 // Launch `ctas` CTAs of `fn` in clusters of `cluster`, all of which must be
 // resident at once (they wait on each other's flags): checked first with
 // cudaOccupancyMaxActiveClusters.  0, -3 (shared-memory request refused),

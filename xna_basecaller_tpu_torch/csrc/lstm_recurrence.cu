@@ -100,8 +100,42 @@
 // release; the product on mma.sync 32 x 32 warp tiles, 12.0-14.8 ms;
 // clusters of 2 or 4 CTAs receiving each chunk by multicast, 18.1-18.7.
 //
-// f32 (the parity mode): a block owns 8 units for all rows (up to 256), FMA
-// on the CUDA cores, a grid barrier.
+// f32 (K1 in f32 is what duplex's transition posteriors run, at N = a
+// read's chunks: 8 for 22.5 k samples, ~30 for 10 kb; K3a in f32 the f32
+// training step): lstm_f32_kernel.  Bound on the card at T=720, H=768: 2 T
+// N H 4H FMA operations over 67 TFLOP/s of f32 outside the tensor cores,
+// 0.406 ms at N=8 and 12.98 ms at N=256 (bytes, xp + W_hh + ys over 3.35
+// TB/s: 0.029 ms at N=8).  The kernel it replaced gave each thread a batch
+// row and ran the 768-deep chain of 32 gate columns for it (248 of 256
+// threads idle at N=8), staged h in 24 passes and ended each step on a
+// grid barrier: 82.2 ms at N=8 rising to 114.7 at N=256.  Here each CTA's
+// W_hh columns stay in registers, split by depth over every lane, so the
+// work of a step scales with N; clusters of 2 CTAs split the depth (each
+// reads half of h; their partial tiles are added through distributed
+// shared memory in rank order); ready flags replace the grid barrier;
+// each warp stages its slice of h by cp.async as soon as that slice's
+// producers are done (an item ahead where the rows come in blocks), xp an
+// item ahead.  Medians of 21 in turns with the kernel it replaced, H100
+// 80GB HBM3, 700 W, tools/k1_turns.py --dtype f32 (ms, forward; reverse
+// within 1 %):
+//   N         8      16     32     64     128     256
+//   this    3.779  5.482  7.112  13.09  23.44   48.27
+//   before  82.17  83.10  84.70  89.07  98.04   114.67
+//   cuDNN   10.41  15.49  25.70  25.97  34.91   53.54   (f32 nn.LSTM,
+//                                        TF32 off, projection included)
+// 5.2 us a step at N=8; the step grows ~0.25 us a row.  Each part
+// switched off in turn (same turns) saves, at N=8 / N=256: the product
+// 0.78 / 26.1 ms, the staging of h 0.46 / 4.3, the flag wait 0.72 / 0,
+// the cell update 0.44 / 1.1 (they overlap).  In the product's SASS one
+// issue slot in four goes to other work than FMA (per row pair and lane:
+// 12 LDS.128 for h, 144 FFMA, 6 SHFL); it runs at ~0.14 us a row-step at
+// N=256 (1980 MHz), about 70 % of the rate its instructions allow.  What holds the kernel at
+// N=256 to 3.7x its bound is that, and the ~4.4 us a row block of the
+// rest (7 blocks of 37 rows a step).  In an earlier run of the same
+// turns, without clusters: 0.5-2.5 % faster at N <= 16, 4-15 % slower at
+// N >= 32; clusters of 4 do not fit the card (it grants fewer than 32 of
+// them at ~220 KB a CTA); 1 or 2 batch rows a lane at once in place of
+// 4: 2-11 % slower.
 //
 // A launch takes at most kGroupRows batch rows; the wrapper launches once
 // per group of rows (rows are independent), with xp and ys strided by the
@@ -136,9 +170,11 @@ constexpr int kCLdW = kCCols + 8;
 constexpr int kCLdP = kCCols + 4;   // row stride of the partial gate tiles
 
 // f32 path
-constexpr int kUnitsF = 8;
-constexpr int kColsF = 4 * kUnitsF;
-constexpr int kChunkF = 32;         // h columns staged per pass
+constexpr int kFWarps = 8;          // warps of a CTA: one depth slice each
+constexpr int kFThreads = 32 * kFWarps;
+constexpr int kFMaxDepth = 32;      // rows of W_hh a lane holds, most
+constexpr int kFCluster = 2;        // CTAs of a cluster, splitting the depth
+constexpr int kFRows = 4;           // batch rows of a lane's product at once
 
 // One cell: the four gate pre-activations (xp + h @ W, added in f32) and
 // the cell state c (updated in place) -> h in f32.
@@ -147,19 +183,6 @@ __device__ __forceinline__ float lstm_cell(float gi, float gf, float gg,
   // no contraction into an FMA: the same roundings as the plain version
   c = __fadd_rn(__fmul_rn(sigmoid(gf), c), __fmul_rn(sigmoid(gi), tanhf(gg)));
   return __fmul_rn(sigmoid(go), tanhf(c));
-}
-
-// Gate columns of `units` hidden units from u0 into w_s [H][ld]: column
-// gate * units + u of row k is w_hh[k, gate * H + u0 + u].
-template <typename T>
-__device__ void load_w_slice(const T* w_hh, T* w_s, int H, int u0, int units,
-                             int ld) {
-  const int cols = 4 * units;
-  for (int idx = threadIdx.x; idx < H * cols; idx += kThreads) {
-    const int k = idx / cols, col = idx % cols;
-    const int gate = col / units, u = col % units;
-    w_s[(size_t)k * ld + col] = w_hh[(size_t)k * 4 * H + (size_t)gate * H + u0 + u];
-  }
 }
 
 // Four floats as four bf16 (8 bytes).
@@ -595,76 +618,335 @@ lstm_bf16_cluster_kernel(const bf16* __restrict__ xp,
   cluster_sync();   // no CTA leaves while its partials may still be read
 }
 
-template <bool kWriteCells>
-__global__ void __launch_bounds__(kThreads)
+// p[0] + p[stride] + ... + p[(n - 1) stride], n <= kFWarps, added in that
+// order; the loads issued together.
+__device__ __forceinline__ float warp_sum(const float* p, size_t stride,
+                                          int n) {
+  float v[kFWarps];
+#pragma unroll
+  for (int w = 0; w < kFWarps; ++w) v[w] = w < n ? p[w * stride] : 0.0f;
+  float acc = v[0];
+#pragma unroll
+  for (int w = 1; w < kFWarps; ++w)
+    if (w < n) acc += v[w];
+  return acc;
+}
+
+// The f32 path (K1 and K3a in f32; duplex's transition posteriors run
+// it).  CTA b updates the cells of U = 2 kG units [U b, U b + U) (U = 6
+// where H allows 128 CTAs or fewer, else 8) for all N rows.  The CTAs come
+// in clusters of kFCluster = 2 that share the 2 U units of the cluster, C
+// = 8 U gate columns: CTA `rank` keeps their W_hh rows of the depth slice
+// [rank D, rank D + D) (D = H / 2) in registers, split over every lane:
+// warp w holds KW = 2 kDepth rows of the slice from w KW, lane l the
+// kDepth rows from (l / 16) kDepth of the warp's and the kG columns
+// (l % 16) kG (column gate 2 U + unit of the cluster), kDepth = H / 32
+// rounded up to 8, 16, 24 or 32.  So every lane multiplies at every N, the
+// work of a step scales with N, and each CTA reads half of h.  The rows
+// come in blocks of rb (all N in one block where it fits, else as many as
+// fit with two staging buffers); item i = s nb + j is block j of step s.
+// Item (s, j) of warp w:
+//   (s > 0) wait for the ready flags of the CTAs that write its rows of
+//     h_s (their count of item (s - 1, j)), bring the block's rows of them
+//     into the warp's staging buffer by cp.async (an item ahead, double
+//     buffered, where there is more than one block);
+//     each lane's kG sums over its kDepth rows for kFRows batch rows at a
+//     time (f32 FMA, k ascending), added over the warp's two depth groups
+//     by a shuffle, written by the lanes of group 0 as the warp's partial
+//     tile [rb][C];
+//   barrier; the CTA's tile [rb][C] = the 8 warps' added in warp order;
+//   cluster barrier; thread r U + u updates cell (row j rb + r, unit u):
+//     xp (loaded an item ahead) + the two CTAs' tiles of its gate columns
+//     added in rank order (distributed shared memory); c in shared memory;
+//     h to hbuf[(s + 1) & 1]; each warp publishes its count of the item
+//     (the CTA's flag counts items x 8); ys (and cs).
+// Every sum takes one order at every call: bit-repeatable.
+// The warps' tiles are read before the cluster barrier of their item and
+// written again after it.  The CTAs' tiles are double buffered by item:
+// they are written for item i only after the cluster barrier of item
+// i - 1, which every reader passes after reading item i - 2's.
+// hbuf[(s + 1) & 1] (h_{s-1}) is overwritten in block j only after the
+// flags of block j of step s were seen for every depth slice, that is
+// after every CTA finished reading h_{s-1} there.  The prefetch of item
+// i + 1 waits for item i + 1 - nb <= i - 1 of the producers (nb >= 2): it
+// never waits for an item not begun.
+template <int kDepth, int kG, bool kWriteCells>
+__global__ void __launch_bounds__(kFThreads, 1)
 lstm_f32_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
                 float* __restrict__ ys, float* __restrict__ cs, float* hbuf,
-                unsigned int* counter, int T, int N, int ld_n, int H,
-                int reverse) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* w_s = reinterpret_cast<float*>(smem);        // [H][kColsF]
-  float* g_s = w_s + (size_t)H * kColsF;              // [N][kColsF]
-  float* c_s = g_s + (size_t)N * kColsF;              // [N][kUnitsF]
-  float* h_s = c_s + (size_t)N * kUnitsF;             // [kThreads][chunk+1]
+                unsigned int* flags, int T, int N, int ld_n, int H,
+                int reverse, int rb, int stages) {
+  constexpr int U = 2 * kG, KU = kFCluster * U, C = 4 * KU;
+  constexpr int KG = 4 / kFCluster;  // depth groups of a warp
+  constexpr int CG = 32 / KG;        // column groups of a warp
+  constexpr int KW = KG * kDepth;    // h columns of a warp
+  constexpr int KP = kDepth + 4;     // staged stride of a depth group
+  constexpr int RS = KG * KP;        // staged stride of a row
+  extern __shared__ __align__(16) float smem_f[];
+  // [stages][8 warps][rb][RS], [8 warps][rb][C], [2][rb][C], [N][U]
+  float* stage_s = smem_f;
+  float* part = stage_s + (size_t)stages * kFWarps * rb * RS;
+  float* sum_s = part + (size_t)kFWarps * rb * C;
+  float* c_s = sum_s + (size_t)2 * rb * C;
 
-  const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * kUnitsF;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cg = lane % CG, kq = lane / CG;
+  const unsigned rank = cluster_rank();
+  const int D = H / kFCluster, kend = (int)(rank + 1) * D;
+  const int u0 = blockIdx.x * U, uc0 = blockIdx.x / kFCluster * KU;
   const size_t H4 = 4 * (size_t)H;
+  const int k0w = (int)rank * D + warp * KW;
+  const bool active = k0w < kend;
+  const int n_active = min(kFWarps, (D + KW - 1) / KW);
+  const int p_lo = min(k0w / U, (int)gridDim.x);
+  const int p_hi = min((min(k0w + KW, kend) + U - 1) / U, (int)gridDim.x);
+  const int nb = (N + rb - 1) / rb, items = T * nb;
 
-  load_w_slice(w_hh, w_s, H, u0, kUnitsF, kColsF);
-  for (int idx = tid; idx < N * kUnitsF; idx += kThreads) c_s[idx] = 0.0f;
+  float w[kDepth][kG];
+#pragma unroll
+  for (int i = 0; i < kDepth; ++i)
+#pragma unroll
+    for (int c = 0; c < kG; ++c) {
+      const int k = k0w + kq * kDepth + i, col = cg * kG + c;
+      w[i][c] = k < kend ? w_hh[(size_t)k * H4 + (size_t)(col / KU) * H +
+                                uc0 + col % KU]
+                         : 0.0f;
+    }
+  for (int idx = tid; idx < N * U; idx += kFThreads) c_s[idx] = 0.0f;
+
+  // the cell this thread updates in each block: row j rb + cr, unit cu
+  const int cr = tid / U, cu = tid % U;
+  float x_next[4] = {};
+  auto load_x = [&](int it) {
+    const int s2 = it / nb, n = (it % nb) * rb + cr;
+    if (cr < rb && n < N) {
+      const int t2 = reverse ? T - 1 - s2 : s2;
+      const float* x = xp + ((size_t)t2 * ld_n + n) * H4 + u0 + cu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x_next[g] = __ldg(x + (size_t)g * H);
+    }
+  };
+  // the smallest count of the warp's producers seen so far
+  unsigned int seen = 0;
+  // item `it` (step >= 1) of the warp's rows of h into staging buffer buf
+  auto stage = [&](int it, int buf) {
+    const int s2 = it / nb, j2 = it % nb;
+    const unsigned int target = (unsigned)(it - nb + 1) * kFWarps;
+    while (seen < target) {
+      unsigned int m = 0xffffffffu;
+      for (int b = p_lo + lane; b < p_hi; b += 32)
+        m = min(m, ld_acquire(flags + b));
+      seen = __reduce_min_sync(0xffffffffu, m);
+    }
+    __syncwarp();
+    const float* h_cur = hbuf + (size_t)(s2 & 1) * N * H;
+    const int r0 = j2 * rb, rows = min(rb, N - r0);
+    float* dst = stage_s + ((size_t)buf * kFWarps + warp) * rb * RS;
+    for (int idx = lane; idx < rows * KW / 4; idx += 32) {
+      // row r of the block, column p of the warp's
+      const int r = idx / (KW / 4), p = 4 * (idx % (KW / 4));
+      const int k = k0w + p;
+      cp_async16_zfill(dst + r * RS + (p / kDepth) * KP + p % kDepth,
+                       h_cur + (size_t)(r0 + r) * H + min(k, kend - 4),
+                       k < kend ? 16 : 0);
+    }
+    cp_async_commit();
+  };
   __syncthreads();
+  load_x(0);
 
-  for (int s = 0; s < T; ++s) {
+  for (int it = 0; it < items; ++it) {
+    const int s = it / nb, j = it % nb;
     const int t = reverse ? T - 1 - s : s;
-    const float* h_cur = hbuf + (size_t)(s & 1) * N * H;
-    float* h_next = hbuf + (size_t)((s + 1) & 1) * N * H;
+    const int r0 = j * rb, rows = min(rb, N - r0);
+    float x[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = x_next[g];
+    if (it + 1 < items) load_x(it + 1);
+    float* sum = sum_s + (size_t)(it & 1) * rb * C;
 
-    // each thread owns one batch row and all kColsF columns
-    for (int r0 = 0; r0 < N; r0 += kThreads) {
-      float acc[kColsF];
-#pragma unroll
-      for (int c = 0; c < kColsF; ++c) acc[c] = 0.0f;
-      for (int k0 = 0; k0 < H; k0 += kChunkF) {
-        __syncthreads();
-        for (int idx = tid; idx < kThreads * kChunkF; idx += kThreads) {
-          const int rr = idx / kChunkF, kk = idx % kChunkF;
-          const int n = r0 + rr, k = k0 + kk;
-          h_s[rr * (kChunkF + 1) + kk] =
-              (n < N && k < H) ? __ldcg(h_cur + (size_t)n * H + k) : 0.0f;
-        }
-        __syncthreads();
-        const int kmax = min(kChunkF, H - k0);
-        for (int kk = 0; kk < kmax; ++kk) {
-          const float hv = h_s[tid * (kChunkF + 1) + kk];
-          const float* w = w_s + (size_t)(k0 + kk) * kColsF;
-#pragma unroll
-          for (int c = 0; c < kColsF; ++c) acc[c] = fmaf(hv, w[c], acc[c]);
+    if (s > 0 && active) {
+      int buf = 0;
+      if (stages == 1) {
+        stage(it, 0);
+        cp_async_wait<0>();
+      } else {
+        buf = it & 1;
+        if (it == nb) stage(it, buf);
+        if (it + 1 < items) {
+          __syncwarp();   // every lane is done with the buffer it reuses
+          stage(it + 1, buf ^ 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
         }
       }
-      if (r0 + tid < N) {
+      __syncwarp();
+      const float* hs = stage_s + ((size_t)buf * kFWarps + warp) * rb * RS +
+                        kq * KP;
+      float* pw = part + (size_t)warp * rb * C + cg * kG;
+      for (int r = 0; r < rows; r += kFRows) {
+        int rr[kFRows];
+        float a[kFRows][kG];
 #pragma unroll
-        for (int c = 0; c < kColsF; ++c)
-          g_s[(size_t)(r0 + tid) * kColsF + c] = acc[c];
+        for (int e = 0; e < kFRows; ++e) {
+          rr[e] = min(r + e, rows - 1);   // past the block: a row again
+#pragma unroll
+          for (int c = 0; c < kG; ++c) a[e][c] = 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < kDepth; i += 4) {
+          float4 h[kFRows];
+#pragma unroll
+          for (int e = 0; e < kFRows; ++e)
+            h[e] = *reinterpret_cast<const float4*>(hs + rr[e] * RS + i);
+#pragma unroll
+          for (int c = 0; c < kG; ++c)
+#pragma unroll
+            for (int e = 0; e < kFRows; ++e) {
+              a[e][c] = fmaf(h[e].x, w[i][c], a[e][c]);
+              a[e][c] = fmaf(h[e].y, w[i + 1][c], a[e][c]);
+              a[e][c] = fmaf(h[e].z, w[i + 2][c], a[e][c]);
+              a[e][c] = fmaf(h[e].w, w[i + 3][c], a[e][c]);
+            }
+        }
+#pragma unroll
+        for (int off = CG; off < 32; off *= 2)
+#pragma unroll
+          for (int c = 0; c < kG; ++c)
+#pragma unroll
+            for (int e = 0; e < kFRows; ++e)
+              a[e][c] += __shfl_xor_sync(0xffffffffu, a[e][c], off);
+        if (kq == 0) {
+#pragma unroll
+          for (int e = 0; e < kFRows; ++e)
+#pragma unroll
+            for (int c = 0; c < kG; ++c) pw[rr[e] * C + c] = a[e][c];
+        }
       }
     }
+    // every item, step 0's too: a warp's count of an item then means that
+    // every warp of the CTA published the item before
     __syncthreads();
+    if (s > 0)
+      for (int idx = tid; idx < rows * C; idx += kFThreads)
+        sum[idx] = warp_sum(part + idx, (size_t)rb * C, n_active);
+    cluster_sync();
 
-    const float* x_t = xp + (size_t)t * ld_n * H4 + u0;
-    float* y_t = ys + (size_t)t * ld_n * H + u0;
-    for (int idx = tid; idx < N * kUnitsF; idx += kThreads) {
-      const int n = idx / kUnitsF, u = idx % kUnitsF;
-      const float* x = x_t + (size_t)n * H4 + u;
-      const float* g = g_s + (size_t)n * kColsF + u;
-      const float hv = lstm_cell(
-          x[0] + g[0], x[H] + g[kUnitsF], x[2 * H] + g[2 * kUnitsF],
-          x[3 * H] + g[3 * kUnitsF], c_s[idx]);
-      h_next[(size_t)n * H + u0 + u] = hv;
-      y_t[(size_t)n * H + u] = hv;
-      if (kWriteCells) cs[((size_t)t * ld_n + n) * H + u0 + u] = c_s[idx];
+    float* h_next = hbuf + (size_t)((s + 1) & 1) * N * H;
+    const int n = r0 + cr;
+    const bool mine = cr < rows;
+    float hv = 0.0f, cv = 0.0f;
+    if (mine) {
+      float g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float acc = 0.0f;
+        if (s > 0) {
+          const float* pq = sum + (size_t)cr * C + q * KU + rank * U + cu;
+#pragma unroll
+          for (int r2 = 0; r2 < kFCluster; ++r2) {
+            const float v =
+                r2 == (int)rank ? *pq : ld_cluster_f32(pq, (unsigned)r2);
+            acc = r2 == 0 ? v : acc + v;
+          }
+        }
+        g[q] = x[q] + acc;
+      }
+      cv = c_s[n * U + cu];
+      hv = lstm_cell(g[0], g[1], g[2], g[3], cv);
+      c_s[n * U + cu] = cv;
+      h_next[(size_t)n * H + u0 + cu] = hv;
     }
-    grid_barrier(counter, (unsigned int)(s + 1) * gridDim.x);
+    // h is published before ys and cs are stored
+    publish(flags + blockIdx.x);
+    if (mine) {
+      const size_t o = ((size_t)t * ld_n + n) * H + u0 + cu;
+      ys[o] = hv;
+      if (kWriteCells) cs[o] = cv;
+    }
   }
+  cluster_sync();   // no CTA leaves while its tiles may be read
+}
+
+// The f32 kernel of depth slice kDepth and units 2 kG, with or without the
+// cells.
+template <int kDepth, int kG>
+const void* f32_instance(bool cells) {
+  return cells
+      ? reinterpret_cast<const void*>(&lstm_f32_kernel<kDepth, kG, true>)
+      : reinterpret_cast<const void*>(&lstm_f32_kernel<kDepth, kG, false>);
+}
+template <int kG>
+const void* f32_kernel(int depth, bool cells) {
+  switch (depth) {
+    case 8: return f32_instance<8, kG>(cells);
+    case 16: return f32_instance<16, kG>(cells);
+    case 24: return f32_instance<24, kG>(cells);
+    default: return f32_instance<32, kG>(cells);
+  }
+}
+
+// The geometry of lstm_f32_kernel for N rows of width H: 6 units a CTA
+// where H / 6 CTAs fit the card's SMs (128 at H=768), else 8; the depth
+// slice of a lane rounded up to 8, 16, 24 or 32 rows (H <= 1024); all N
+// rows in one block (one staging buffer) where that fits, else blocks of
+// rb rows, as many as fit with two staging buffers, evened out over the N
+// rows; rb U <= 256 (a thread a cell).
+struct F32Plan {
+  int units, depth, rb, stages;
+  size_t smem;
+};
+int f32_plan(int N, int H, F32Plan* p) {
+  if (H > 32 * kFMaxDepth) return -2;
+  int rc, dev = 0, sms = 0, max_smem = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev)) != cudaSuccess)
+    return rc;
+  if ((rc = cudaDeviceGetAttribute(
+           &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return rc;
+  p->units = H % 6 == 0 && H / 6 <= sms ? 6 : 8;
+  p->depth = ((H + 31) / 32 + 7) / 8 * 8;
+  // floats a row: a staging buffer, the warps' tiles and the CTA's two
+  const size_t buf = (size_t)kFWarps * (4 / kFCluster) * (p->depth + 4);
+  const size_t tiles = (size_t)(kFWarps + 2) * 4 * kFCluster * p->units;
+  const size_t fixed = (size_t)N * p->units * 4;
+  const int cells_max = kFThreads / p->units;
+  if (N <= cells_max && fixed + N * (buf + tiles) * 4 <= (size_t)max_smem) {
+    p->rb = N;
+    p->stages = 1;
+  } else {
+    const size_t row = (2 * buf + tiles) * 4;
+    if (fixed + 2 * row > (size_t)max_smem) return -3;
+    const int most = min(cells_max, (int)(((size_t)max_smem - fixed) / row));
+    const int nb = (N + most - 1) / most;
+    p->rb = (N + nb - 1) / nb;
+    p->stages = 2;
+  }
+  p->smem = fixed + (p->stages * buf + tiles) * p->rb * 4;
+  return 0;
+}
+
+int lstm_f32_launch(const void* xp, const void* w_hh, void* ys, void* cs,
+                    void* hbuf, unsigned int* flags, int T, int N, int ld_n,
+                    int H, int reverse, cudaStream_t st) {
+  F32Plan p;
+  int rc;
+  if ((rc = f32_plan(N, H, &p)) != 0) return rc;
+  const void* fn = p.units == 6 ? f32_kernel<3>(p.depth, cs != nullptr)
+                                : f32_kernel<4>(p.depth, cs != nullptr);
+  const float* a0 = static_cast<const float*>(xp);
+  const float* a1 = static_cast<const float*>(w_hh);
+  float* a2 = static_cast<float*>(ys);
+  float* a3 = static_cast<float*>(cs);
+  float* a4 = static_cast<float*>(hbuf);
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &flags, &T, &N, &ld_n, &H,
+                  &reverse, &p.rb, &p.stages};
+  return launch_clusters(fn, H / p.units, kFCluster, kFThreads, p.smem, args,
+                         st);
 }
 
 }  // namespace
@@ -676,10 +958,10 @@ extern "C" {
 // is_bf16, else f32), contiguous.  cs: null for K1; for K3a, [T, ld_n, H]
 // of that dtype like ys, which receives the cell states.  hbuf: zeros of
 // that dtype, xna_lstm_hbuf_elems(N, H) elements (h_0 and the exchange of
-// h).  flags: H zeroed uint32 (the ready flags of the bf16 paths, one per
-// CTA; the grid barrier's counter, the first, on the f32
-// path).  Returns 0, a cudaError_t, or -1 (grid cannot be co-resident),
-// -2 (unsupported shape), -3 (shared-memory request refused: H too large).
+// h).  flags: H zeroed uint32 (the ready flags, one per CTA).  Returns 0,
+// a cudaError_t, or -1 (grid cannot be co-resident), -2 (unsupported
+// shape: H past 1024 in f32), -3 (shared-memory request refused: H too
+// large).
 int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
                         void* hbuf, void* flags, int T, int N, int ld_n,
                         int H, int reverse, int is_bf16, void* stream) {
@@ -746,25 +1028,27 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
     rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kRThreads), args,
                                      smem, st);
   } else {
-    const int blocks = H / kUnitsF;
-    const size_t smem = (size_t)H * kColsF * 4 + (size_t)N * kColsF * 4 +
-                        (size_t)N * kUnitsF * 4 +
-                        (size_t)kThreads * (kChunkF + 1) * 4;
-    const void* fn = cs ? reinterpret_cast<const void*>(&lstm_f32_kernel<true>)
-                        : reinterpret_cast<const void*>(&lstm_f32_kernel<false>);
-    if ((rc = co_resident(fn, smem, blocks, kThreads)) != 0) return rc;
-    const float* a0 = static_cast<const float*>(xp);
-    const float* a1 = static_cast<const float*>(w_hh);
-    float* a2 = static_cast<float*>(ys);
-    float* a3 = static_cast<float*>(cs);
-    float* a4 = static_cast<float*>(hbuf);
-    void* args[] = {&a0, &a1, &a2, &a3, &a4, &ctr, &T, &N, &ld_n, &H,
-                    &reverse};
-    rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
-                                     smem, st);
+    if ((rc = lstm_f32_launch(xp, w_hh, ys, cs, hbuf, ctr, T, N, ld_n, H,
+                              reverse, st)) != 0)
+      return rc;
   }
   if (rc != cudaSuccess) return rc;
   return cudaGetLastError();
+}
+
+// The f32 route's geometry for a launch of N rows of width H on the
+// current card: out[0..3] = units a CTA, depth rows a lane, rows a block,
+// staging buffers.  0 or an error code as above.
+int xna_lstm_f32_geometry(int N, int H, int* out) {
+  if (N < 1 || N > kGroupRows || H < 16 || H % 16 != 0) return -2;
+  F32Plan p;
+  const int rc = f32_plan(N, H, &p);
+  if (rc != 0) return rc;
+  out[0] = p.units;
+  out[1] = p.depth;
+  out[2] = p.rb;
+  out[3] = p.stages;
+  return 0;
 }
 
 // Batch rows one launch takes; the wrapper splits larger batches.

@@ -27,7 +27,9 @@ on the validation batch) clusters of CTAs split W_hh's depth; at more
 than 64 (K1 at the basecall batch) each CTA brings the chunks of h by bulk
 copies (TMA) into an mbarrier ring and multiplies them on wgmma in index
 order, so that every call adds the gates' partial products in one order
-and gives the same bits.  K7 and the f32 parity paths keep a grid
+and gives the same bits.  K1 and K3a in f32 (duplex's transition
+posteriors) keep each CTA's W_hh columns in registers, split by depth over
+every lane, with the same ready flags.  K7 and K3b's f32 path keep a grid
 barrier.  The reverse direction is read in reverse time inside the
 kernels instead of flipping the tensors.
 
@@ -38,7 +40,8 @@ backward, then dW = sum_t h_p^T dgates as one ``torch.matmul``.
 Each wrapper takes the plain version (``ops/lstm.py``) for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
 ``<wrapper>.launches`` counts its launches (one per group of batch rows;
-K3b's group is one launch of its gate recompute and one of its recursion).
+K3b's group is one launch of its gate recompute and one of its recursion);
+``lstm_recurrence.launches_f32`` counts K1's launches in f32 once more.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ from xna_basecaller_tpu_torch.ops.lstm import (
 _MESSAGES = {
     -1: "the kernel's grid cannot be co-resident on this card",
     -2: "shape not supported by the kernel (H must be a multiple of 16, "
-        "at most 1024 in bf16 past 64 rows)",
+        "at most 1024 in f32 and in bf16 past 64 rows)",
     -3: "the kernel's shared-memory request was refused (H too large)",
 }
 _MESSAGES_INT8 = {**_MESSAGES, -2: "shape not supported by the kernel (H "
@@ -157,6 +160,8 @@ def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
             lstm_forward_with_cells.launches += 1
         else:
             lstm_recurrence.launches += 1
+            if xp.dtype == torch.float32:
+                lstm_recurrence.launches_f32 += 1
     return ys, cs
 
 
@@ -249,6 +254,7 @@ def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
 
 
 lstm_recurrence.launches = 0
+lstm_recurrence.launches_f32 = 0   # those of K1's f32 route, counted again
 lstm_forward_with_cells.launches = 0
 lstm_backward_dxp.launches = 0
 lstm_recurrence_int8.launches = 0

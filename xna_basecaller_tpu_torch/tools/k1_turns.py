@@ -1,24 +1,39 @@
-"""Time K1 (``csrc/lstm_recurrence.cu``, bf16 at the basecall batch) on one
-NVIDIA GPU against another tree's K1 and against variants of either
-tree's design, in turns, and hold each to bit-repeatability.
+"""Time K1 (``csrc/lstm_recurrence.cu``) on one NVIDIA GPU against
+another tree's K1 and against variants of either tree's design, in turns,
+and hold each to bit-repeatability.
 
-At the flagship basecall shape (xp [720, 256, 3072], H=768, both
-directions, random inputs from a seed):
+bf16 (the default), at the flagship basecall shape (xp [720, 256, 3072],
+H=768, both directions, random inputs from a seed):
 
   1. print the card's name and power limit; build this tree's K1, the
      variants of this tree's source in ``VARIANTS`` and, with
      ``--baseline DIR`` (another tree of this repository, e.g. the parent
-     commit unpacked by ``git archive``), DIR's K1 and the variants of
-     DIR's source in ``BASELINE_VARIANTS``, each with nvcc (a variant is
-     a list of text edits of the source);
+     commit unpacked by ``git archive``; may be given more than once),
+     DIR's K1 and the variants of the first DIR's source in
+     ``BASELINE_VARIANTS``, each with nvcc (a variant is a list of text
+     edits of the source);
   2. call each kernel 6 times on the same inputs and print the share of ys
      elements that differ from the first call (0 means bit-repeatable);
      fail if this tree's kernel is not bit-repeatable;
   3. time them in turns (a, b, c, c, b, a, ...): the median of 21 calls
      each, by CUDA events, in each direction.
 
+``--dtype f32`` (K1's f32 route, which duplex's transition posteriors
+run): for each N of ``--rows`` (default 8, 16, 32, 64, 128, 256) at T=720,
+H=768, in both directions, this tree's K1, the variants of its source in
+``F32_VARIANTS`` and, with ``--baseline DIR``, DIR's, each called 6 times (this tree's must be bit-repeatable) and held
+to the plain version (``ops/lstm.py::lstm_recurrence``, max-abs 1e-4),
+then timed in turns with this tree's input projection + K1 and cuDNN's
+``torch.nn.LSTM(768, 768)`` in f32 on the same layer's weights (the
+projection included; TF32 off for cuDNN and for matrix products, and
+stated), medians of 21; and the bound of the layer's recurrence at that
+N: 2 T N H 4H operations over the card's f32 peak outside the tensor
+cores (67 TFLOP/s), or its bytes (xp, W_hh read once, ys written once)
+over 3.35 TB/s, whichever is larger.
+
 Run from the repository root:
     python -m xna_basecaller_tpu_torch.tools.k1_turns [--baseline DIR]
+        [--dtype f32 [--rows 8,16,...]]
 """
 
 from __future__ import annotations
@@ -36,6 +51,9 @@ import torch
 from xna_basecaller_tpu_torch.ops import _build
 
 T, N, H, SEED, REPEATS, REPS = 720, 256, 768, 0, 6, 21
+F32_ROWS = (8, 16, 32, 64, 128, 256)
+F32_TOL = 1e-4               # max-abs against the plain version
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 FLOP/s, HBM bytes/s
 
 # Design (b) of the sum-order repair, as edits of the kernel it repaired
 # (the arrival-order fetch of the parent tree): each chunk's product in a
@@ -184,6 +202,22 @@ VARIANTS = {
 }
 # name -> edits of the --baseline tree's source
 BASELINE_VARIANTS = {"fixed-point sums": FIXED_POINT}
+# name -> edits of this tree's source, timed with --dtype f32: the f32
+# route with a lane's product over 1 or 2 batch rows at once (this tree's:
+# 4), and with each part switched off in turn (wrong results: timing only)
+_ROWS = "constexpr int kFRows = 4;"
+F32_VARIANTS = {
+    "1 row at once": [(_ROWS, _ROWS.replace("4", "1"))],
+    "2 rows at once": [(_ROWS, _ROWS.replace("4", "2"))],
+    "no product": [("for (int r = 0; r < rows; r += kFRows) {",
+                    "for (int r = 0; r < 0; r += kFRows) {")],
+    "no staging": [("for (int idx = lane; idx < rows * KW / 4; idx += 32) {",
+                    "for (int idx = lane; idx < 0; idx += 32) {")],
+    "no flag wait": [("    while (seen < target) {",
+                      "    while (seen < target && false) {")],
+    "no cell update": [("    if (mine) {\n      float g[4];",
+                        "    if (false) {\n      float g[4];")],
+}
 
 
 def build_all(builds: dict) -> dict:
@@ -221,7 +255,8 @@ def build_all(builds: dict) -> dict:
 
 def kernel(lib: ctypes.CDLL, tag: str):
     """fn(xp, w_hh, reverse) -> ys through ``lib``'s ``xna_lstm_recurrence``
-    (the C interface both trees share)."""
+    (the C interface both trees share), in xp's dtype (bf16 or f32), for
+    xp of at most 256 rows."""
     fn = lib.xna_lstm_recurrence
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
@@ -230,15 +265,34 @@ def kernel(lib: ctypes.CDLL, tag: str):
     elems.argtypes, elems.restype = [ctypes.c_int] * 2, ctypes.c_int
 
     def run(xp, w_hh, reverse):
-        ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
-        hbuf = torch.zeros(elems(N, H), dtype=xp.dtype, device=xp.device)
-        flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
+        t, n, h4 = xp.shape
+        h = h4 // 4
+        ys = torch.empty(t, n, h, dtype=xp.dtype, device=xp.device)
+        hbuf = torch.zeros(elems(n, h), dtype=xp.dtype, device=xp.device)
+        flags = torch.zeros(h, dtype=torch.int32, device=xp.device)
         rc = fn(xp.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), None,
-                hbuf.data_ptr(), flags.data_ptr(), T, N, N, H, int(reverse),
-                1, torch.cuda.current_stream().cuda_stream)
+                hbuf.data_ptr(), flags.data_ptr(), t, n, n, h, int(reverse),
+                int(xp.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
         if rc:
             raise SystemExit(f"k1_turns: {tag}'s kernel returned {rc}")
         return ys
+
+    geo = getattr(lib, "xna_lstm_f32_geometry", None)
+    if geo is not None:
+        geo.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        geo.restype = ctypes.c_int
+
+    def geometry(n, h):
+        """The f32 route's (units, depth, rows a block, staging buffers)
+        for n rows of width h, where the library tells."""
+        if geo is None:
+            return "not exported"
+        out = (ctypes.c_int * 4)()
+        rc = geo(n, h, out)
+        return dict(zip(("units", "depth", "rows a block",
+                         "staging buffers"), out)) if rc == 0 else rc
+    run.geometry = geometry
     return run
 
 
@@ -277,30 +331,137 @@ def in_turns(fns: dict, reps: int = REPS) -> dict:
     return {n: statistics.median(v) for n, v in times.items()}
 
 
+def repeatable(fn, xp, w_hh, reverse, name) -> tuple:
+    """Call ``fn`` REPEATS times; -> (its first ys, the largest share of
+    ys elements that differed from the first call in any later one)."""
+    first = fn(xp, w_hh, reverse)
+    wait(name)
+    worst = 0.0
+    for _ in range(REPEATS - 1):
+        again = fn(xp, w_hh, reverse)
+        wait(name)
+        worst = max(worst, (again != first).float().mean().item())
+    return first, worst
+
+
+def f32_turns(kernels: dict, rows, card: str) -> None:
+    """``--dtype f32``: the rows sweep of K1's f32 route beside the port's
+    projection + K1, cuDNN's f32 LSTM and the bound (module docstring)."""
+    from xna_basecaller_tpu_torch.ops import lstm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"f32: torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    this = kernels["this tree"]
+    gen = torch.Generator().manual_seed(SEED)
+    w_ih = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / H ** 0.5).cuda()
+    w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / H ** 0.5).cuda()
+    bias = (torch.randn(4 * H, generator=gen) * 0.5).cuda()
+    summary = []
+    for n in rows:
+        for name, fn in kernels.items():
+            print(f"K1 f32 N={n}, {name}: geometry {fn.geometry(n, H)}")
+        x = torch.randn(T, n, H, generator=gen).cuda()
+        xp = torch.addmm(bias, x.reshape(T * n, H), w_ih).reshape(T, n, -1)
+        for reverse in (False, True):
+            ref = torch.nn.LSTM(H, H).cuda().eval()
+            with torch.no_grad():
+                ref.weight_ih_l0.copy_(w_ih.T)
+                ref.weight_hh_l0.copy_(w_hh.T)
+                ref.bias_ih_l0.copy_(bias)
+                ref.bias_hh_l0.zero_()
+            ref.flatten_parameters()
+            x_in = x.flip(0) if reverse else x
+            with torch.inference_mode():
+                plain = lstm.lstm_recurrence(xp, w_hh, reverse)
+                for name, fn in kernels.items():
+                    got, worst = repeatable(fn, xp, w_hh, reverse, name)
+                    err = (got - plain).abs().max().item()
+                    print(f"K1 f32 [{T}, {n}, {4 * H}] reverse={reverse}, "
+                          f"{name}: {REPEATS} calls, at most "
+                          f"{100 * worst:.3f} % of ys differ from the first;"
+                          f" max_abs against the plain version {err:.3e} "
+                          f"(tolerance {F32_TOL})")
+                    if name == "this tree" and (worst or err > F32_TOL):
+                        raise SystemExit("k1_turns: this tree's f32 K1 is "
+                                         "not bit-repeatable or disagrees "
+                                         "with its plain version")
+                cud = ref(x_in)[0]
+                cud = cud.flip(0) if reverse else cud
+                print(f"nn.LSTM f32 against the plain version: max_abs "
+                      f"{(cud - plain).abs().max().item():.3e}")
+                fns = {f"K1, {k}": (lambda fn=fn: fn(xp, w_hh, reverse))
+                       for k, fn in kernels.items()}
+                fns["projection + K1, this tree"] = lambda: this(
+                    torch.addmm(bias, x.reshape(T * n, H), w_ih).reshape(
+                        T, n, -1), w_hh, reverse)
+                fns["nn.LSTM f32 (cuDNN, projection included)"] = \
+                    lambda: ref(x_in)
+                times = in_turns(fns)
+            t_ops = 2.0 * T * n * H * 4 * H / PEAK_F32
+            t_bytes = 4.0 * (xp.numel() + w_hh.numel() + T * n * H) \
+                / PEAK_BYTES
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            for name, ms in times.items():
+                print(f"K1 f32 [{T}, {n}, {4 * H}] reverse={reverse}, "
+                      f"{name}: median {ms:.3f} ms of {REPS} in turns "
+                      f"({card})")
+            print(f"K1 f32 [{T}, {n}, {4 * H}] bound {bound_ms:.4f} ms "
+                  f"({by})")
+            summary.append((n, reverse, times, bound_ms))
+            del ref
+        del x, xp
+    print(f"summary, K1 f32 at T={T}, H={H}, medians of {REPS} in turns "
+          f"(ms; {card}):")
+    for n, reverse, times, bound_ms in summary:
+        print(f"  N={n} reverse={reverse}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items())
+            + f", bound {bound_ms:.4f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", default=None, metavar="DIR")
+    ap.add_argument("--baseline", action="append", default=[],
+                    metavar="DIR", help="another tree (may be repeated)")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--rows", default=",".join(map(str, F32_ROWS)),
+                    help="f32: the batch rows N timed (at most 256)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_turns: no CUDA device")
+    rows = [int(v) for v in args.rows.split(",")]
+    if args.dtype == "f32" and not all(1 <= n <= 256 for n in rows):
+        raise SystemExit("k1_turns: --rows takes 1 to 256 rows")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card)
 
+    # the variants are edits of the bf16 kernels: f32 times the trees alone
+    f32 = args.dtype == "f32"
     this_src = os.path.join(_build.CSRC, "lstm_recurrence.cu")
-    builds = {"this tree": (this_src, ()),
-              **{f"this tree, {n}": (this_src, e)
-                 for n, e in VARIANTS.items()}}
-    if args.baseline:
-        base_src = os.path.join(args.baseline, "xna_basecaller_tpu_torch",
-                                "csrc", "lstm_recurrence.cu")
-        builds["baseline"] = (base_src, ())
-        builds.update({f"baseline, {n}": (base_src, e)
-                       for n, e in BASELINE_VARIANTS.items()})
+    builds = {"this tree": (this_src, ())}
+    builds.update({f"this tree, {n}": (this_src, e) for n, e in (
+        F32_VARIANTS if f32 else VARIANTS).items()})
+    for i, root in enumerate(args.baseline):
+        tag = "baseline" if len(args.baseline) == 1 else f"baseline {root}"
+        base_src = os.path.join(root, "xna_basecaller_tpu_torch", "csrc",
+                                "lstm_recurrence.cu")
+        builds[tag] = (base_src, ())
+        if not f32 and i == 0:
+            builds.update({f"{tag}, {n}": (base_src, e)
+                           for n, e in BASELINE_VARIANTS.items()})
     kernels = {name: kernel(lib, name)
                for name, lib in build_all(builds).items()}
+    if f32:
+        f32_turns(kernels, rows, card)
+        torch.cuda.synchronize()
+        return 0
 
     gen = torch.Generator().manual_seed(SEED)
     xp = (torch.randn(T, N, 4 * H, generator=gen) * 0.5).to(
@@ -309,13 +470,7 @@ def main(argv=None) -> int:
         "cuda", torch.bfloat16)
     for reverse in (False, True):
         for name, fn in kernels.items():
-            first = fn(xp, w_hh, reverse)
-            wait(name)
-            worst = 0.0
-            for _ in range(REPEATS - 1):
-                again = fn(xp, w_hh, reverse)
-                wait(name)
-                worst = max(worst, (again != first).float().mean().item())
+            _, worst = repeatable(fn, xp, w_hh, reverse, name)
             print(f"{name}, reverse={reverse}: {REPEATS} calls, at most "
                   f"{100 * worst:.3f} % of ys differ from the first call")
             if name == "this tree" and worst:
