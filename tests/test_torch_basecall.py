@@ -8,7 +8,7 @@ must the FASTQ of the q-score and the beam decodes (``qscores=True``,
 ``beam_width=4``, both strands; ``--qscores``, ``--beam 4``), and the SAM
 and summary of ``--reference --sam --qscores``; ``--qscores --superbatch
 2`` warns as JAX does and writes what ``--qscores`` writes; ``--profile``
-writes a trace."""
+writes a trace of every stage's thread."""
 
 import functools
 import io
@@ -371,7 +371,18 @@ def test_cli_profile_writes_a_trace(model_dir, fast5_dir, tmp_path, capsys):
     assert out.count("\n") == 8
     trace = trace_dir / "trace.json"
     assert f"> profile trace: {trace}" in err
-    assert json.loads(trace.read_text())["traceEvents"]
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    names = {e["name"] for e in events}
+    # every thread is recorded: each stage's work and its queue's waits
+    work = {"basecall.chunk", "basecall.upload", "basecall.enqueue",
+            "basecall.fetch", "basecall.stitch"}
+    assert work <= names
+    assert len({e["tid"] for e in events if e["name"] in work}) >= 5
+    assert {f"{stage}.{end}_wait"
+            for stage in ("chunk", "batch", "upload", "compute", "fetch",
+                          "stitch")
+            for end in ("get", "put")} <= names
 
 
 @pytest.fixture()

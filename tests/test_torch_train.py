@@ -584,3 +584,21 @@ def test_cli_profile_writes_a_trace(tmp_path, cli_data):
         events = json.load(fh)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "train_steps" in names and "aten::cumsum" in names
+    spans = [e for e in events if e.get("ph") == "X"]
+
+    def within(name, outer):
+        """Each ``name`` span lies inside an ``outer`` span of its thread."""
+        outs = [o for o in spans if o["name"] == outer]
+        inner = [e for e in spans if e["name"] == name]
+        return inner and all(any(
+            o["tid"] == e["tid"] and o["ts"] <= e["ts"]
+            and e["ts"] + e["dur"] <= o["ts"] + o["dur"] for o in outs)
+            for e in inner)
+
+    assert within("train.step", "train_steps")
+    for child in ("forward", "loss", "backward", "optimizer"):
+        assert within(f"train.{child}", "train.step")
+    # the feed: its queue's waits, and the copies of the steps' and the
+    # validation's batches
+    assert within("pipeline.get_wait", "train_steps")
+    assert "feed.to_device" in names

@@ -164,26 +164,27 @@ def call_reads(args, model, cfg, reads, out=None, cancel=None) -> dict:
     header_written = False
     t0 = perf_counter()
     n_reads = n_samples = 0
-    if cfg.is_ctc:
-        # the legacy QuartzNet family: score-level stitch, host decode
-        called = basecall_ctc(
-            model, reads, chunksize=chunksize,
-            overlap=cfg.basecaller.overlap,
-            batchsize=cfg.basecaller.batchsize, beamsize=args.beamsize,
-            qscores=args.qscores, cancel=cancel)
-    else:
-        called = basecall(
-            model, reads, chunksize=chunksize,
-            overlap=cfg.basecaller.overlap,
-            batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
-            qscores=args.qscores, cancel=cancel,
-            quantize=args.quantize or cfg.basecaller.quantize,
-            beam_width=args.beam, superbatch=args.superbatch,
-            ub_bias=args.ub_bias)
     try:
         with profiled(args.profile, device,
                       lambda trace: sys.stderr.write(
                           f"> profile trace: {trace}\n")):
+            # the pipeline's threads start inside the trace
+            if cfg.is_ctc:
+                # the legacy QuartzNet family: score-level stitch, host decode
+                called = basecall_ctc(
+                    model, reads, chunksize=chunksize,
+                    overlap=cfg.basecaller.overlap,
+                    batchsize=cfg.basecaller.batchsize, beamsize=args.beamsize,
+                    qscores=args.qscores, cancel=cancel)
+            else:
+                called = basecall(
+                    model, reads, chunksize=chunksize,
+                    overlap=cfg.basecaller.overlap,
+                    batchsize=cfg.basecaller.batchsize, reverse=args.revcomp,
+                    qscores=args.qscores, cancel=cancel,
+                    quantize=args.quantize or cfg.basecaller.quantize,
+                    beam_width=args.beam, superbatch=args.superbatch,
+                    ub_bias=args.ub_bias)
             for read, attrs in called:
                 n_reads += 1
                 n_samples += len(read.signal)

@@ -66,6 +66,7 @@ from xna_basecaller_tpu_torch.utils.device import on_device
 from xna_basecaller_tpu_torch.utils.pipeline import (
     ordered_thread_map, thread_iter,
 )
+from xna_basecaller_tpu_torch.utils.trace import span
 
 
 def _apply_ub_bias(scores: torch.Tensor, n_base: int, ub_bias: float):
@@ -150,60 +151,74 @@ def _quantize_signal(batch: np.ndarray) -> np.ndarray:
 
 def read_batches(reads: Iterable, chunksize: int, overlap: int,
                  batchsize: int, cancel=None):
-    """The host stages: each read's chunks, packed into batches of at most
-    ``batchsize`` (``chunkops.batchify``), on background threads.
-    ``cancel`` (a threading.Event) stops the read producer early."""
+    """The host stages ``chunk`` and ``batch``: each read's chunks, packed
+    into batches of at most ``batchsize`` (``chunkops.batchify``), on
+    background threads.  ``cancel`` (a threading.Event) stops the read
+    producer early."""
     def gen_chunks():
         for read in reads:
             if cancel is not None and cancel.is_set():
                 return
-            sig = np.asarray(read.signal, dtype=np.float32)
-            yield ((read, 0, len(sig)),
-                   chunkops.chunk(sig, chunksize, overlap))
+            with span("basecall.chunk"):
+                sig = np.asarray(read.signal, dtype=np.float32)
+                item = ((read, 0, len(sig)),
+                        chunkops.chunk(sig, chunksize, overlap))
+            yield item
 
-    chunks = thread_iter(gen_chunks())
-    return thread_iter(chunkops.batchify(iter(chunks), batchsize))
+    chunks = thread_iter(gen_chunks(), name="chunk")
+    return thread_iter(chunkops.batchify(iter(chunks), batchsize),
+                       name="batch")
 
 
 def device_stages(batches, device: torch.device, batchsize: int, up_dtype,
                   run, superbatch: int = 1, host_transform=None):
-    """The device stages of a pipeline, on background threads: upload,
-    compute, fetch.  Each batch of ``batches`` ((keys, chunks) pairs) is
-    padded to ``batchsize`` rows, passed through ``host_transform`` if
-    given, cast to ``up_dtype`` and sent from pinned memory, ``superbatch``
-    G batches as one [G, N, T] upload (the trailing group padded with empty
-    batches, which are not computed).  The compute thread runs ``run(x)``
-    -> {name: device tensor [N, ...]} on each batch, under inference mode
-    with ``device`` current, and only enqueues the work; the fetch thread
-    brings back each output's first n rows with ``.cpu()`` (f16 as f32).
-    Yields (keys, {name: numpy array})."""
+    """The device stages of a pipeline, on background threads: ``upload``,
+    ``compute``, ``fetch``.  Each batch of ``batches`` ((keys, chunks)
+    pairs) is padded to ``batchsize`` rows, passed through
+    ``host_transform`` if given, cast to ``up_dtype`` and sent from pinned
+    memory, ``superbatch`` G batches as one [G, N, T] upload.  The compute
+    thread runs ``run(x)`` -> {name: device tensor [N, ...]} on each batch,
+    under inference mode with ``device`` current, and only enqueues the
+    work; the fetch thread brings back each output's first n rows with
+    ``.cpu()`` (f16 as f32).  Yields (keys, {name: numpy array})."""
     G = max(1, int(superbatch))
 
     def upload(group):
-        """One [G, N, T] upload of a group of padded batches."""
-        host = torch.from_numpy(np.stack([a for _, _, a in group]))
-        if device.type == "cuda":
-            host = host.pin_memory()
-        return ([k for k, _, _ in group], [n for _, n, _ in group],
-                host.to(device, non_blocking=True))
+        """One [G, N, T] upload of a group of batches, each padded and
+        cast; the trailing group is padded with empty batches (n = 0): one
+        upload shape, and they are not computed."""
+        with span("basecall.upload"):
+            keys, ns, arrays = [], [], []
+            for k, batch in group:
+                padded, n = _pad_batch(np.asarray(batch), batchsize)
+                if host_transform is not None:
+                    padded = host_transform(padded)
+                keys.append(k)
+                ns.append(n)
+                arrays.append(np.asarray(padded, up_dtype))
+            empty = G - len(group)
+            host = torch.from_numpy(np.stack(
+                arrays + [np.zeros_like(arrays[0])] * empty))
+            if device.type == "cuda":
+                host = host.pin_memory()
+            return (keys + [()] * empty, ns + [0] * empty,
+                    host.to(device, non_blocking=True))
 
     def gen_uploads():
         group = []
-        for keys, batch in batches:
-            padded, n = _pad_batch(np.asarray(batch), batchsize)
-            if host_transform is not None:
-                padded = host_transform(padded)
-            group.append((keys, n, np.asarray(padded, up_dtype)))
+        for item in batches:
+            group.append(item)
             if len(group) == G:
                 yield upload(group)
                 group = []
         if group:
-            # the trailing group padded with empty batches (n = 0): one
-            # upload shape; they are not computed
-            empty = np.zeros_like(group[0][2])
-            yield upload(group + [((), 0, empty)] * (G - len(group)))
+            yield upload(group)
 
-    uploads = thread_iter(gen_uploads(), maxsize=3)
+    uploads = thread_iter(gen_uploads(), maxsize=3, name="upload")
+
+    def enqueue(x):
+        with span("basecall.enqueue"):
+            return run(x)
 
     def gen_compute():
         # enqueues the device work without waiting for it; the fetch
@@ -212,22 +227,23 @@ def device_stages(batches, device: torch.device, batchsize: int, up_dtype,
         # time.  The kernels launch on this thread's current device.
         with torch.inference_mode(), on_device(device):
             for keys_g, n_g, dev in uploads:
-                yield [(keys, n, run(x))
+                yield [(keys, n, enqueue(x))
                        for keys, n, x in zip(keys_g, n_g, dev) if keys]
 
-    computed = thread_iter(gen_compute(), maxsize=3)
+    computed = thread_iter(gen_compute(), maxsize=3, name="compute")
 
     def gen_fetch():
         for outs in computed:
             for keys, n, out in outs:
                 host = {}
-                for name, t in out.items():
-                    a = t[:n].cpu().numpy()
-                    host[name] = (a.astype(np.float32)
-                                  if a.dtype == np.float16 else a)
+                with span("basecall.fetch"):
+                    for name, t in out.items():
+                        a = t[:n].cpu().numpy()
+                        host[name] = (a.astype(np.float32)
+                                      if a.dtype == np.float16 else a)
                 yield keys, host
 
-    return thread_iter(gen_fetch())
+    return thread_iter(gen_fetch(), name="fetch")
 
 
 def basecall(model, reads: Iterable, chunksize: int = 3600,
@@ -310,8 +326,16 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
         }
 
     return ordered_thread_map(
-        finish, chunkops.unbatchify(fetched), n_workers=stitch_workers,
-        maxsize=4)
+        spanned_stitch(finish), chunkops.unbatchify(fetched),
+        n_workers=stitch_workers, maxsize=4, name="stitch")
+
+
+def spanned_stitch(finish):
+    """``finish`` of one read inside the span ``basecall.stitch``."""
+    def call(item):
+        with span("basecall.stitch"):
+            return finish(item)
+    return call
 
 
 def _left_pack(paths: np.ndarray) -> np.ndarray:

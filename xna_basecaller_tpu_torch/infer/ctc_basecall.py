@@ -26,7 +26,7 @@ import torch
 
 from xna_basecaller_tpu_torch.data import chunkops
 from xna_basecaller_tpu_torch.infer.basecall import (
-    device_stages, read_batches,
+    device_stages, read_batches, spanned_stitch,
 )
 from xna_basecaller_tpu_torch.ops import ctc as ctc_ops
 from xna_basecaller_tpu_torch.utils.pipeline import ordered_thread_map
@@ -90,8 +90,8 @@ def basecall_ctc(model, reads: Iterable, chunksize: int = 3600,
         }
 
     return ordered_thread_map(
-        finish, chunkops.unbatchify(scores), n_workers=decode_workers,
-        maxsize=4)
+        spanned_stitch(finish), chunkops.unbatchify(scores),
+        n_workers=decode_workers, maxsize=4, name="stitch")
 
 
 def run_ctc_basecaller(model, reads, fastq_out, beamsize: int = 5,

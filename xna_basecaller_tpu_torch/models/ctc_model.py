@@ -39,6 +39,7 @@ from xna_basecaller_tpu_torch.models.crf_model import (
 from xna_basecaller_tpu_torch.ops import ctc as ctc_ops
 from xna_basecaller_tpu_torch.ops.conv import ACTIVATIONS
 from xna_basecaller_tpu_torch.utils.device import resolve_device
+from xna_basecaller_tpu_torch.utils.trace import span
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.1
@@ -306,19 +307,25 @@ def train_step(model: CtcModel, optimizer, chunks: torch.Tensor,
     """One CTC optimisation step (forward in training mode, the masked CTC
     + label-smoothing loss, backward, the optimizer's clip and AdamW, then
     the batchnorm running stats written); returns (loss, grad_norm) as 0-d
-    f32 tensors.  ``optimizer`` is ``train/loop.py::Optimizer``."""
+    f32 tensors.  ``optimizer`` is ``train/loop.py::Optimizer``.  The
+    spans are ``train/loop.py::train_step``'s."""
     from xna_basecaller_tpu_torch.train.loop import global_norm
 
-    for p in model.parameters():
-        p.grad = None
-    log_probs, stats = model(chunks, train=True, dropout=dropout)
-    loss = masked_ctc_loss(log_probs, targets, lengths)
-    loss.backward()
-    grad_norm = global_norm([p.grad if p.grad is not None
-                             else torch.zeros_like(p)
-                             for p in model.parameters()])
-    optimizer.step()
-    merge_bn_stats(stats)
+    with span("train.step"):
+        for p in model.parameters():
+            p.grad = None
+        with span("train.forward"):
+            log_probs, stats = model(chunks, train=True, dropout=dropout)
+        with span("train.loss"):
+            loss = masked_ctc_loss(log_probs, targets, lengths)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            grad_norm = global_norm([p.grad if p.grad is not None
+                                     else torch.zeros_like(p)
+                                     for p in model.parameters()])
+            optimizer.step()
+        merge_bn_stats(stats)
     return loss.detach(), grad_norm
 
 

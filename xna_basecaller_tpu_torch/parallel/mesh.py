@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from xna_basecaller_tpu_torch.utils.device import resolve_device
+from xna_basecaller_tpu_torch.utils.trace import span
 
 
 @dataclass(frozen=True)
@@ -84,9 +85,11 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
 
 def shard_batch(mesh: Mesh, *arrays):
     """This rank's contiguous slice of global host arrays [B, ...] on its
-    device (B a multiple of the world size)."""
-    out = tuple(_to_device(a[_rows(mesh, a.shape[0])], mesh.device)
-                for a in arrays)
+    device (B a multiple of the world size), in the span
+    ``feed.to_device``."""
+    with span("feed.to_device"):
+        out = tuple(_to_device(a[_rows(mesh, a.shape[0])], mesh.device)
+                    for a in arrays)
     return out if len(out) > 1 else out[0]
 
 

@@ -73,7 +73,6 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from xna_basecaller_tpu_torch.core.alphabet import decode as decode_codes
 from xna_basecaller_tpu_torch.eval.accuracy import accuracy
@@ -89,6 +88,7 @@ from xna_basecaller_tpu_torch.train import checkpoint as ckpt
 from xna_basecaller_tpu_torch.train.schedule import linear_warmup_cosine_decay
 from xna_basecaller_tpu_torch.utils.device import on_device
 from xna_basecaller_tpu_torch.utils.pipeline import thread_iter
+from xna_basecaller_tpu_torch.utils.trace import span
 from xna_basecaller_tpu_torch.utils.weights import (
     jax_key, params_from_jax, params_to_jax, swap_layout,
 )
@@ -234,7 +234,11 @@ def train_step(model: Model, optimizer: Optimizer, chunks: torch.Tensor,
     r B .. r B + B - 1): the valid counts of the global micro-batches are
     all-reduced, each rank runs the micro-batches' parts it holds, and the
     gradients and the loss are summed over the ranks in one all-reduce
-    before the clip."""
+    before the clip.
+
+    The step is the span ``train.step``, with ``train.forward``,
+    ``train.loss`` and ``train.backward`` a micro-batch and
+    ``train.optimizer`` (the gradient norm, the clip and AdamW) inside."""
     reduce = mesh is not None and dist.is_initialized()
     if model.cfg.is_ctc:
         if reduce and mesh.world_size > 1:
@@ -243,54 +247,60 @@ def train_step(model: Model, optimizer: Optimizer, chunks: torch.Tensor,
                              "ranks)")
         return ctc_model.train_step(model, optimizer, chunks, targets,
                                     lengths, dropout)
-    state_len = model.cfg.state_len
-    world, rank = (mesh.world_size, mesh.rank) if reduce else (1, 0)
-    b = chunks.shape[0]
-    k = max(grad_accum_split, 1)
-    mb = world * b // k
-    if mb == 0:
-        raise ValueError(f"a batch of {world * b} rows does not split into "
-                         f"{k} micro-batches")
-    # the local rows of each global micro-batch (rows past k * mb are
-    # dropped, as JAX drops them), and its valid count over all ranks
-    spans = [(max(j * mb - rank * b, 0), min((j + 1) * mb - rank * b, b))
-             for j in range(k)]
-    valid = (lengths > 0).float()
-    counts = torch.stack([valid[lo:hi].sum() if hi > lo
-                          else valid.new_zeros(()) for lo, hi in spans])
-    if reduce:
-        counts = all_reduce_sum(mesh, counts)
+    with span("train.step"):
+        state_len = model.cfg.state_len
+        world, rank = (mesh.world_size, mesh.rank) if reduce else (1, 0)
+        b = chunks.shape[0]
+        k = max(grad_accum_split, 1)
+        mb = world * b // k
+        if mb == 0:
+            raise ValueError(f"a batch of {world * b} rows does not split "
+                             f"into {k} micro-batches")
+        # the local rows of each global micro-batch (rows past k * mb are
+        # dropped, as JAX drops them), and its valid count over all ranks
+        spans = [(max(j * mb - rank * b, 0), min((j + 1) * mb - rank * b, b))
+                 for j in range(k)]
+        valid = (lengths > 0).float()
+        counts = torch.stack([valid[lo:hi].sum() if hi > lo
+                              else valid.new_zeros(()) for lo, hi in spans])
+        if reduce:
+            counts = all_reduce_sum(mesh, counts)
 
-    for p in model.parameters():
-        p.grad = None
-    loss = torch.zeros((), device=chunks.device)
-    for (lo, hi), count in zip(spans, counts):
-        if hi <= lo:
-            continue
-        scores = model(chunks[lo:hi], compute_dtype, inference=False,
-                       dropout=dropout)
-        per_sample = model.loss(scores.float(), targets[lo:hi],
-                                lengths[lo:hi].clamp(min=state_len + 1),
-                                reduction="none")
-        loss_j = (per_sample * valid[lo:hi]).sum() \
-            / count.clamp(min=1.0) / k
-        loss_j.backward()
-        loss = loss + loss_j.detach()
-    params = list(model.parameters())
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params]
-    if reduce:
-        flat = all_reduce_sum(mesh, torch.cat(
-            [g.reshape(-1) for g in grads] + [loss.reshape(1)]))
-        offset = 0
-        for p in params:
-            p.grad = flat[offset:offset + p.numel()].view_as(p)
-            offset += p.numel()
-        grads = [p.grad for p in params]
-        loss = flat[-1]
-    grad_norm = global_norm(grads)
-    optimizer.step()
-    return loss, grad_norm
+        for p in model.parameters():
+            p.grad = None
+        loss = torch.zeros((), device=chunks.device)
+        for (lo, hi), count in zip(spans, counts):
+            if hi <= lo:
+                continue
+            with span("train.forward"):
+                scores = model(chunks[lo:hi], compute_dtype, inference=False,
+                               dropout=dropout)
+            with span("train.loss"):
+                per_sample = model.loss(
+                    scores.float(), targets[lo:hi],
+                    lengths[lo:hi].clamp(min=state_len + 1),
+                    reduction="none")
+                loss_j = (per_sample * valid[lo:hi]).sum() \
+                    / count.clamp(min=1.0) / k
+            with span("train.backward"):
+                loss_j.backward()
+            loss = loss + loss_j.detach()
+        params = list(model.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if reduce:
+            flat = all_reduce_sum(mesh, torch.cat(
+                [g.reshape(-1) for g in grads] + [loss.reshape(1)]))
+            offset = 0
+            for p in params:
+                p.grad = flat[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+            grads = [p.grad for p in params]
+            loss = flat[-1]
+        with span("train.optimizer"):
+            grad_norm = global_norm(grads)
+            optimizer.step()
+        return loss, grad_norm
 
 
 def eval_scores(model, chunks: torch.Tensor,
@@ -451,7 +461,7 @@ class Trainer:
 
         # one profiler span over the epoch's steps, their batches and
         # augmentation included: a trace's busy share is read over it
-        with record_function("train_steps"):
+        with span("train_steps"):
             for batch in thread_iter(prefetched(), maxsize=2):
                 (c, t, l), _ = self._shard(batch)
                 loss, grad_norm = train_step(

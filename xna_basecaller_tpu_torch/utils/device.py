@@ -30,21 +30,24 @@ def on_device(device: torch.device):
 
 @contextlib.contextmanager
 def profiled(directory: str | None, device: torch.device, report):
-    """A ``torch.profiler`` trace of the ``with`` block (CPU activity and,
-    on the card, CUDA's; the card's queued work waited for) written to
+    """A ``torch.profiler`` trace of the ``with`` block (CPU activity of
+    every thread, the pipeline's stages and their spans included, and, on
+    the card, CUDA's; the card's queued work waited for) written to
     ``directory/trace.json``, whose path goes to ``report``; nothing
     without ``directory``.  The JAX package writes a ``jax.profiler`` trace
     where the CLIs take ``--profile``."""
     if not directory:
         yield
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     on_card = device.type == "cuda"
     activities = [ProfilerActivity.CPU]
     if on_card:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True))) as prof:
         yield
         if on_card:
             torch.cuda.synchronize()

@@ -1,5 +1,5 @@
-"""Copied from ``xna_basecaller_tpu/utils/pipeline.py``;
-only the package imports differ.
+"""Port of ``xna_basecaller_tpu/utils/pipeline.py``; the stages' names and
+their spans are the port's.
 
 Host-side pipeline concurrency: background iterators over bounded queues.
 
@@ -9,6 +9,14 @@ thread, handing items over a bounded queue with a sentinel for termination,
 so host preprocessing, device compute, and host postprocessing overlap.
 Safety is by construction: single producer/consumer per queue, one writer
 thread owning each output stream.
+
+Each stage has a name, and its thread is named after it.  Every hand-off
+over a stage's queue (the end-of-stream sentinel included) opens two spans
+(``utils/trace.py``): ``<stage>.put_wait`` on the stage's thread around the
+put (long when downstream is slower) and ``<stage>.get_wait`` on the
+consumer's thread around the get (long when the stage is slower than its
+consumer).  A hand-off that does not block shows as a span of
+microseconds, so a stage that never waits reads a share near 0.
 """
 
 from __future__ import annotations
@@ -17,33 +25,42 @@ import queue
 import threading
 from typing import Iterable, Iterator
 
+from xna_basecaller_tpu_torch.utils.trace import span
+
 _SENTINEL = object()
 
 
 class BackgroundIterator:
-    """Runs an iterator in a background thread with a bounded queue."""
+    """Runs an iterator in a background thread with a bounded queue: the
+    stage ``name``."""
 
     def __init__(self, iterable: Iterable, maxsize: int = 2,
                  name: str = "pipeline"):
         self._iterable = iterable
         self._queue: queue.Queue = queue.Queue(maxsize)
         self._exc: BaseException | None = None
+        self._put_wait, self._get_wait = f"{name}.put_wait", f"{name}.get_wait"
         self._thread = threading.Thread(
             target=self._run, name=name, daemon=True)
         self._thread.start()
 
+    def _put(self, item):
+        with span(self._put_wait):
+            self._queue.put(item)
+
     def _run(self):
         try:
             for item in self._iterable:
-                self._queue.put(item)
+                self._put(item)
         except BaseException as e:  # propagate to consumer
             self._exc = e
         finally:
-            self._queue.put(_SENTINEL)
+            self._put(_SENTINEL)
 
     def __iter__(self) -> Iterator:
         while True:
-            item = self._queue.get()
+            with span(self._get_wait):
+                item = self._queue.get()
             if item is _SENTINEL:
                 if self._exc is not None:
                     raise self._exc
@@ -54,9 +71,11 @@ class BackgroundIterator:
         self._thread.join()
 
 
-def thread_iter(iterable: Iterable, maxsize: int = 2) -> BackgroundIterator:
-    """Begin consuming ``iterable`` in a background thread."""
-    return BackgroundIterator(iterable, maxsize)
+def thread_iter(iterable: Iterable, maxsize: int = 2,
+                name: str = "pipeline") -> BackgroundIterator:
+    """Begin consuming ``iterable`` in a background thread, the stage
+    ``name``."""
+    return BackgroundIterator(iterable, maxsize, name)
 
 
 def cancel_on_sigint():
@@ -85,11 +104,14 @@ class OrderedThreadMap:
     worker i % n, and the consumer reads worker queues round-robin — the
     same rotation, so outputs appear exactly in input order (the invariant
     behind the reference's ThreadMap, multiprocessing.py:231-266; this
-    implementation adds exception propagation and cancellation).
+    implementation adds exception propagation and cancellation).  The
+    workers' output queues are the stage ``name``'s: ``put_wait`` on the
+    workers, ``get_wait`` on the consumer.
     """
 
     def __init__(self, func, iterable: Iterable, n_workers: int = 4,
-                 maxsize: int = 2, cancel: threading.Event | None = None):
+                 maxsize: int = 2, cancel: threading.Event | None = None,
+                 name: str = "omap"):
         self._func = func
         self._iterable = iterable
         self._n = max(1, n_workers)
@@ -97,11 +119,12 @@ class OrderedThreadMap:
         self._in = [queue.Queue(maxsize) for _ in range(self._n)]
         self._out = [queue.Queue(maxsize) for _ in range(self._n)]
         self._exc: BaseException | None = None
+        self._put_wait, self._get_wait = f"{name}.put_wait", f"{name}.get_wait"
         self._threads = [threading.Thread(
-            target=self._dispatch, name="omap-dispatch", daemon=True)]
+            target=self._dispatch, name=f"{name}-dispatch", daemon=True)]
         self._threads += [
             threading.Thread(target=self._work, args=(i,),
-                             name=f"omap-{i}", daemon=True)
+                             name=f"{name}-{i}", daemon=True)
             for i in range(self._n)
         ]
         for t in self._threads:
@@ -136,8 +159,10 @@ class OrderedThreadMap:
                 self._exc = e
                 failed = True
                 continue
-            self._out[i].put(result)
-        self._out[i].put(_SENTINEL)
+            with span(self._put_wait):
+                self._out[i].put(result)
+        with span(self._put_wait):
+            self._out[i].put(_SENTINEL)
 
     def __iter__(self) -> Iterator:
         active = [True] * self._n
@@ -147,7 +172,8 @@ class OrderedThreadMap:
             i += 1
             if not active[w]:
                 continue
-            item = self._out[w].get()
+            with span(self._get_wait):
+                item = self._out[w].get()
             if item is _SENTINEL:
                 active[w] = False
                 if self._exc is not None:
@@ -159,12 +185,14 @@ class OrderedThreadMap:
 
 
 def ordered_thread_map(func, iterable: Iterable, n_workers: int = 4,
-                       maxsize: int = 2, cancel=None) -> Iterator:
-    """Order-preserving parallel map over threads; n_workers=0 runs
-    inline (reference thread_map:59-66 semantics)."""
+                       maxsize: int = 2, cancel=None,
+                       name: str = "omap") -> Iterator:
+    """Order-preserving parallel map over threads, the stage ``name``;
+    n_workers=0 runs inline (reference thread_map:59-66 semantics)."""
     if n_workers == 0:
         return (func(item) for item in iterable)
-    return iter(OrderedThreadMap(func, iterable, n_workers, maxsize, cancel))
+    return iter(OrderedThreadMap(func, iterable, n_workers, maxsize, cancel,
+                                 name))
 
 
 def _proc_worker(func, in_q, out_q):
