@@ -20,7 +20,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. hold each kernel against its plain PyTorch version on the card, on the
      tensors the main path gives it for one batch of simulated reads:
      K1 (LSTM recurrence) in bf16 and f32 (called twice: bit-equal or
-     the phase fails), and K1's f32 route at duplex's shapes
+     the phase fails), K1 in bf16 at the XNA model's batch of
+     XNA_K1_ROWS rows (one launch on the wide geometry, twice, and
+     bit-equal to its first 256 and last 128 rows run apart), and K1's
+     f32 route at duplex's shapes
      (DUPLEX_K1_ROWS rows of a read's chunks, both directions, twice
      each), K7 (the int8 recurrence, layer
      0 of the quantized path) in bf16 and f32, K2a/K2b/K2c (CRF decode),
@@ -242,6 +245,9 @@ SCAN_BURST = 10   # calls a timed sample of the CRF kernels
 # phase 2: K1's f32 route at duplex's shapes, the chunks of a read: 8 at
 # phase 8h's 22.5 k samples, 32 at ~100 k; phase 9 times it at the first
 DUPLEX_K1_ROWS = (8, 32)
+# phase 2: K1 in bf16 at the XNA model's batch (its basecaller.batchsize),
+# one launch on the wide geometry at H=768
+XNA_K1_ROWS = 384
 # phase 9: the rows swept for K1's f32 route
 F32_SWEEP_ROWS = (8, 16, 32, 64, 128, 256)
 # phase 8d: the north-star script's depth (its widths are the flagship's;
@@ -3802,6 +3808,44 @@ def main() -> int:
             results[f"K1_{name}_err"] = err.max().item()
             if name == "bf16":
                 k1_inputs = (xp, p["w_hh"])
+        # K1 bf16 at the XNA batch: one launch (the wide geometry), bit-equal
+        # to the launches of 256 and 128 rows it replaced
+        p = layer0.params(torch.bfloat16)
+        x_xna = conv_stack_forward(
+            model.conv, torch.from_numpy(
+                chunks[:XNA_K1_ROWS].astype(np.float16)).to(dev).float()[
+                    :, None, :], enc.activation)
+        xp = lstm.input_projection(
+            p, x_xna.permute(2, 0, 1).contiguous().to(torch.bfloat16))
+        k1 = lstm_cuda.lstm_recurrence
+        before = (k1.launches, k1.launches_wide)
+        got = k1(xp, p["w_hh"], rev0)
+        counted = (k1.launches - before[0], k1.launches_wide - before[1])
+        err = (got.float() - lstm.lstm_recurrence(
+            xp, p["w_hh"], rev0).float()).abs().max().item()
+        again = k1(xp, p["w_hh"], rev0)
+        parts = torch.cat([k1(xp[:, a:b].contiguous(), p["w_hh"], rev0)
+                           for a, b in ((0, 256), (256, XNA_K1_ROWS))], 1)
+        print(f"K1 bf16 {tuple(xp.shape)} reverse={rev0}: launches "
+              f"{counted[0]}, on the wide geometry {counted[1]} (expected "
+              f"1, 1); max_abs {err:.3e} (tolerance max_abs 5e-2); called "
+              f"twice: elements differing "
+              f"{(again != got).float().mean().item():.4f}; against rows "
+              f"0-256 and 256-{XNA_K1_ROWS} run apart: elements differing "
+              f"{(parts != got).float().mean().item():.4f} (tolerance 0)")
+        if counted != (1, 1):
+            fail(f"K1 bf16 at {XNA_K1_ROWS} rows took {counted[0]} "
+                 f"launches, {counted[1]} on the wide geometry")
+        if not bool(torch.isfinite(got.float()).all()) or err > 5e-2:
+            fail(f"K1 bf16 at {XNA_K1_ROWS} rows disagrees with its plain "
+                 "version")
+        if not torch.equal(again, got):
+            fail(f"K1 bf16 at {XNA_K1_ROWS} rows is not bit-repeatable")
+        if not torch.equal(parts, got):
+            fail(f"K1 bf16 at {XNA_K1_ROWS} rows differs from its rows run "
+                 "apart")
+        results["K1_bf16_err"] = max(results["K1_bf16_err"], err)
+        del x_xna, xp, got, again, parts
         # K1's f32 route at duplex's shapes (a read's chunks), both ways
         p = layer0.params(torch.float32)
         k1f_err = results["K1_f32_err"]

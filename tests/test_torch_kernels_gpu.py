@@ -60,26 +60,42 @@ def _lstm_inputs(T, N, H, seed, device, dtype):
 
 
 # Batch sizes and widths of the launch geometry.  bf16: 1, 5, 8, 16, 32,
-# 33, 42, 43 and 64 rows take the cluster path (N <= 64); 65 up to 256 one
+# 33, 42, 43 and 64 rows take the cluster path (N <= 64); 65 up to 384 one
 # launch of the rows kernel: 65, 127 and 128 one tile of 128 rows (65: one
 # row in the last 16-row block), 129 and 130 a second tile of 1 or 2 rows,
-# 200 a second tile of 72 rows, 255 and 256 two tiles; 257 and 300 two
-# launches (at most 256 rows each), the second of 1 or 44 rows on the
-# cluster path.  f32: all N rows in one block up to 42 (6 units a CTA, H=96
-# and 768) or 32 (8 units, H=64), past that blocks of at most 41 rows (two
-# of 32 at N=64, seven of 37 and 34 at N=256, two of 22 and 21 at N=43, two
-# of 17 and 16 at N=33 and H=64) double buffered; 1, 5 and 33 rows a last
-# product of fewer than 4 rows.  H=96: a part-width h chunk (bf16), a
+# 200 a second tile of 72 rows, 255 and 256 two tiles; 257, 300 and 384
+# three tiles of 128 rows at H=64 and 96, and at H=768 (where 144 CTAs of
+# 128 rows do not fit the card) the wide geometry: two tiles of 192 rows,
+# the second of 65, 108 or 192; 385 two launches (at most 384 rows each),
+# the second of 1 row on the cluster path.  f32: at most 256 rows a
+# launch (257-385 two); all N rows in one block up to 42 (6 units a CTA,
+# H=96 and 768) or 32 (8 units, H=64), past that blocks of at most 41 rows
+# (two of 32 at N=64, seven of 37 and 34 at N=256, two of 22 and 21 at
+# N=43, two of 17 and 16 at N=33 and H=64) double buffered; 1, 5 and 33
+# rows a last product of fewer than 4 rows.  H=96: a part-width h chunk (bf16), a
 # depth slice of 48 rows a CTA of which five warps hold none (f32); H=768
 # the flagship width, at T=300 for N=64 and N=256 (a lost flag or a
 # missing fence shows as rare wrong values only over many steps).
 _LSTM_N = [1, 5, 8, 16, 32, 33, 42, 43, 64, 65, 127, 128, 129, 130, 200, 255,
-           256, 257, 300]
+           256, 257, 300, 384, 385]
 _LSTM_H = [64, 96, 768]
 
 
 def _steps(N, H, T):
     return 300 if (N, H) in ((64, 768), (256, 768)) else T
+
+
+def _k1_launches(N, H, dtype):
+    """K1's launches over N rows of width H, and those of them on the wide
+    geometry: a bf16 launch of more than 64 rows takes it where one CTA
+    an SM of 16 units and 128 rows would need more CTAs than the card has
+    SMs."""
+    group = lstm_cuda.group_rows("lstm_recurrence", dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = [min(group, N - n0) for n0 in range(0, N, group)]
+    wide = sum(dtype == torch.bfloat16 and r > 64
+               and -(-r // 128) * (H // 16) > sms for r in rows)
+    return len(rows), wide
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -90,23 +106,30 @@ def _steps(N, H, T):
 def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     xp, w = _lstm_inputs(_steps(N, H, 40), N, H, seed=N, device=cuda,
                          dtype=dtype)
-    before = lstm_cuda.lstm_recurrence.launches
+    k1 = lstm_cuda.lstm_recurrence
+    before = (k1.launches, k1.launches_wide)
     got = lstm_cuda.lstm_recurrence(xp, w, reverse)
     torch.cuda.synchronize()
-    group = lstm_cuda.group_rows("lstm_recurrence")
-    assert lstm_cuda.lstm_recurrence.launches == before + -(-N // group)
+    launches, wide = _k1_launches(N, H, dtype)
+    assert (k1.launches, k1.launches_wide) == (before[0] + launches,
+                                               before[1] + wide)
+    if dtype == torch.bfloat16 and H == 768:
+        assert wide == (N > 256)   # one launch of 257-384 rows
     want = lstm.lstm_recurrence(xp, w, reverse)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
-# bf16: 65-256 one launch of the wgmma kernel (one or two row tiles); 257
-# two launches, the second on the cluster path; H=768: 3 chunks of 256
-# columns on 2 ring stages; H=1024: 8 chunks of 128 on 3 stages, fetched as
-# they finish within a window of 2.  f32: 1, 8 and 32 rows in one block; 64,
-# 65 and 256 in blocks double buffered, 257 two launches; H=768: 6 units
-# a CTA, H=1024: 8
-_REPEAT_CASES = ([(torch.bfloat16, n) for n in (65, 128, 200, 256, 257)]
+# bf16: 65-256 one launch of the wgmma kernel (one or two row tiles of
+# 128): at H=768 3 chunks of 256 columns on 2 ring stages, at H=1024 8
+# chunks of 128 on 3 stages, fetched as they finish within a window of 2;
+# 257, 300 and 384 one launch on the wide geometry (two tiles of 192 rows,
+# 6 or 8 chunks of 128 columns on 2 stages); 385 two launches, the second
+# on the cluster path.  f32: 1, 8 and 32 rows in one block; 64, 65 and 256
+# in blocks double buffered, 257 two launches; H=768: 6 units a CTA,
+# H=1024: 8
+_REPEAT_CASES = ([(torch.bfloat16, n)
+                  for n in (65, 128, 200, 256, 257, 300, 384, 385)]
                  + [(torch.float32, n) for n in (1, 8, 32, 64, 65, 256, 257)])
 
 
@@ -135,6 +158,28 @@ def test_lstm_kernels_are_bit_repeatable(cuda, cells, dtype, N, H, reverse):
                                    atol=atol)
 
 
+@pytest.mark.parametrize("cells", [False, True])
+@pytest.mark.parametrize("H", [768, 1024])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_384_rows_equal_two_launches(cuda, cells, H, reverse):
+    """K1 (and K3a) over 384 bf16 rows, one launch (on the wide geometry at
+    H=768 and 1024), equals bit for bit the same kernel run apart on the
+    first 256 rows and on the last 128 (the two launches it replaces): a
+    row's gates sum the same k16 products in the same order whatever its
+    tile."""
+    xp, w = _lstm_inputs(300, 384, H, seed=H + 384, device=cuda,
+                         dtype=torch.bfloat16)
+    fn = (lstm_cuda.lstm_forward_with_cells if cells
+          else lambda x, w, r: (lstm_cuda.lstm_recurrence(x, w, r),))
+    assert lstm_cuda.bf16_geometry(384, H)["wide"]
+    whole = fn(xp, w, reverse)
+    parts = [fn(xp[:, a:b].contiguous(), w, reverse)
+             for a, b in ((0, 256), (256, 384))]
+    torch.cuda.synchronize()
+    for i, got in enumerate(whole):
+        assert torch.equal(got, torch.cat([p[i] for p in parts], dim=1))
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
 # the rows of the launch geometry as for K1 (the cluster path excepted:
@@ -153,7 +198,7 @@ def test_int8_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     before = lstm_cuda.lstm_recurrence_int8.launches
     got = lstm_cuda.lstm_recurrence_int8(xp, w_q, scale, reverse)
     torch.cuda.synchronize()
-    group = lstm_cuda.group_rows("lstm_int8")
+    group = lstm_cuda.group_rows("lstm_int8", dtype)
     assert lstm_cuda.lstm_recurrence_int8.launches == before + -(-N // group)
     want = lstm.lstm_recurrence_int8(xp, w_q, scale, reverse)
     assert got.dtype == dtype and got.shape == want.shape
@@ -429,7 +474,7 @@ def test_trainable_lstm_kernels_match_plain(cuda, dtype, atol, rtol_dxp, N,
     assert bool(torch.isfinite(dxp.float()).all())
     assert _max_rel(dxp, dxp_p) <= rtol_dxp
     group = 64 if dtype == torch.bfloat16 else 256
-    rows = lstm_cuda.group_rows("lstm_recurrence")
+    rows = lstm_cuda.group_rows("lstm_recurrence", dtype)
     assert (lstm_cuda.lstm_forward_with_cells.launches,
             lstm_cuda.lstm_backward_dxp.launches) == (
         before[0] + -(-N // rows), before[1] + -(-N // group))

@@ -54,9 +54,11 @@
 // CTA a step).
 //
 // N > 64 (K1 at the basecall batch, K3a's launches past 64 rows):
-// lstm_bf16_wg_kernel, one launch of up to 256 rows.  CTA b owns 16 units
-// (their 64 gate columns of W_hh, 96 KB) for one tile of 128 batch rows:
-// 96 CTAs at N=256, the two tiles independent of each other.
+// lstm_bf16_wg_kernel, one launch of up to 384 rows, in the geometry
+// Narrow wherever its grid fits the card, else Wide (below).  In Narrow,
+// CTA b owns 16 units (their 64 gate columns of W_hh, 96 KB) for one tile
+// of 128 batch rows: 96 CTAs at N=256, the two tiles independent of each
+// other.
 //   - h is exchanged in global memory in chunks of 256 columns (3 at
 //     H=768; 128 or 64 where two stages of 256 do not fit beside W), each
 //     made of 64-column sub-chunks whose rows are contiguous (128 B a
@@ -100,6 +102,32 @@
 // release; the product on mma.sync 32 x 32 warp tiles, 12.0-14.8 ms;
 // clusters of 2 or 4 CTAs receiving each chunk by multicast, 18.1-18.7.
 //
+// The wide geometry (the XNA model's batch of 384 at H=768).  Narrow needs
+// H / 16 CTAs a 128-row tile, 144 for three tiles at H=768, and one CTA
+// fits an SM (132): until it, 384 rows ran as two launches, 256 rows on 96
+// SMs and then 128 on 48, and since a launch's time is its chain of 720
+// steps, not its work, the second cost as much as the first (20.95-21.12
+// ms a layer for both, forward and reverse).  Wide keeps 16 units a CTA
+// and takes 192-row tiles: three consumer warpgroups and the producer
+// warp (416 threads: 13 warps, 4 on one scheduler, so 128 registers a
+// thread; 8 bytes spill), 128-column chunks of 192 rows (48 KB) on 2
+// stages beside W's 96 KB: 96 CTAs at N=384 (two tiles), 128 at H=1024.
+// 13.57, 13.50 ms a layer at N=384 (forward, reverse) against its bound
+// of 1.32 ms and the two launches' 21.12, 20.97, 1.27x Narrow's time at
+// N=256 (10.72, 10.61; before it 10.69, 10.66) for 1.5x the rows;
+// bit-equal to the two launches it replaces (the same k16 products of
+// each row, added in the same order); 64-column chunks on 5 stages,
+// fetched as they finish within a window of 4, 14.48, 14.36
+// (12.79, 12.67 at N=256 on 8 stages).  In an earlier run of the same
+// turns (Wide 13.41, 13.42; the two launches 20.95, 20.96): 24 units a CTA
+// in 128-row tiles (wgmma m64n96k16, 12 cells a thread, 168 registers, W's
+// slice 144 KB, 128-column chunks on 2 stages, 32 flags a tile), 15.54,
+// 15.38, and removed.  The producer's poll is on the critical path six
+// times a step: with each chunk's writers found as ranges of flags (which
+// 24 units a CTA needs) in place of `per` flags a chunk, Wide took 14.17,
+// 14.25.  Medians of 21 in turns, H100 80GB HBM3, 700 W,
+// tools/k1_turns.py.  N <= 256 keeps Narrow, its launch and its code.
+//
 // f32 (K1 in f32 is what duplex's transition posteriors run, at N = a
 // read's chunks: 8 for 22.5 k samples, ~30 for 10 kb; K3a in f32 the f32
 // training step): lstm_f32_kernel.  Bound on the card at T=720, H=768: 2 T
@@ -137,9 +165,11 @@
 // them at ~220 KB a CTA); 1 or 2 batch rows a lane at once in place of
 // 4: 2-11 % slower.
 //
-// A launch takes at most kGroupRows batch rows; the wrapper launches once
-// per group of rows (rows are independent), with xp and ys strided by the
-// full batch.
+// A launch takes at most kGroupRowsBf16 (384) batch rows in bf16 and
+// kGroupRowsF32 (256) in f32; the wrapper launches once per group of rows
+// (rows are independent), with xp and ys strided by the full batch.
+
+#include <type_traits>
 
 #include "lstm_common.cuh"
 
@@ -148,17 +178,27 @@ namespace {
 using namespace xna;
 
 constexpr int kThreads = 256;
-constexpr int kGroupRows = 256;     // batch rows per launch
+constexpr int kGroupRowsBf16 = 384; // batch rows per launch, bf16
+constexpr int kGroupRowsF32 = 256;  // and f32
 
-// bf16 path at kCRows < N <= kGroupRows: the wgmma kernel
+// bf16 path at kCRows < N <= kGroupRowsBf16: the wgmma kernel, in one of
+// two geometries (WgGeo)
 constexpr int kUnits = 16;          // hidden units of one CTA
 constexpr int kCols = 4 * kUnits;   // their gate columns, unit-major
-constexpr int kRRows = 128;         // batch rows of one CTA (a row tile)
 constexpr int kHChunk = 64;         // h columns per sub-chunk (128 B)
 constexpr int kMaxSubs = 4;         // sub-chunks per exchanged chunk, most
-constexpr int kCWarps = 8;          // consumer warps: two warpgroups
-constexpr int kRThreads = 32 * (kCWarps + 1);   // and a producer warp
 constexpr int kMaxStages = 8;       // ring stages of h chunks
+
+// The geometry of lstm_bf16_wg_kernel: kWG consumer warpgroups of 64 batch
+// rows each (a row tile of 64 kWG rows) and a producer warp.
+template <int kWG>
+struct WgGeo {
+  static constexpr int kRows = 64 * kWG;   // batch rows of one CTA
+  static constexpr int kCWarps = 4 * kWG;  // consumer warps
+  static constexpr int kThreads = 32 * (kCWarps + 1);
+};
+using Narrow = WgGeo<2>;   // wherever its grid is co-resident
+using Wide = WgGeo<3>;     // where Narrow's is not (257-384 rows, H=768)
 
 // bf16 path at N <= kCRows: clusters of two CTAs
 constexpr int kCUnits = 16;         // hidden units of one cluster
@@ -208,25 +248,28 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// Position of h[n, k] in one buffer of the bf16 h exchange at N > 64:
-// [row tile n / 128][sub-chunk k / 64 of n_sub][row n % 128][64 columns],
-// 16-byte piece p of row n stored at p ^ (n % 8), so that the sub-chunks
-// of one exchanged chunk are contiguous for a row tile.
+// Position of h[n, k] in one buffer of the bf16 h exchange at N > 64, in
+// row tiles of kRows rows: [row tile n / kRows][sub-chunk k / 64 of
+// n_sub][row n % kRows][64 columns], 16-byte piece p of row n stored at
+// p ^ (n % 8), so that the sub-chunks of one exchanged chunk are
+// contiguous for a row tile.
+template <int kRows>
 __device__ __forceinline__ size_t hpos(int n, int k, int n_sub) {
   const int kk = k % kHChunk;
-  return ((size_t)((n / kRRows) * n_sub + k / kHChunk) * kRRows + n % kRRows) *
+  return ((size_t)((n / kRows) * n_sub + k / kHChunk) * kRows + n % kRows) *
              kHChunk +
          ((((kk / 8) ^ (n % 8)) * 8) | (kk % 8));
 }
 
-// The bf16 path for kCRows < N <= kGroupRows rows (the basecall batch; K3a
-// past 64 rows): CTA b owns units [16 (b % S), + 16) of row tile b / S
-// (S = H / 16 slices).  Warpgroup g (warps 4 g .. 4 g + 3) computes rows
-// [64 g, 64 g + 64) of the CTA's [128, 64] gate tile; warp 8 produces.
+// The bf16 path for kCRows < N <= kGroupRowsBf16 rows (the basecall batch;
+// K3a past 64 rows), in geometry G (kR = G::kRows rows a tile): CTA b owns
+// units [16 (b % S), + 16) of row tile b / S (S = H / 16 slices).
+// Warpgroup g (warps 4 g .. 4 g + 3) computes rows [64 g, 64 g + 64) of
+// the CTA's [kR, 64] gate tile; the warp after the consumers produces.
 // Step s:
 //   producer (s > 0): poll the tile's flags for step s; each chunk c of
 //     h_s whose writers are done, among the first stages - 1 chunks not
-//     brought yet: one bulk copy of the tile's 128 rows of it into stage
+//     brought yet: one bulk copy of the tile's kR rows of it into stage
 //     (s - 1) n_chunks + c of the ring (mod stages);
 //   consumers: take the cells' xp[t] (loaded a step ahead), load xp[t + 1];
 //     (s > 0) for each chunk in index order (the stages in ring order),
@@ -236,24 +279,27 @@ __device__ __forceinline__ size_t hpos(int n, int k, int n_sub) {
 //     a CTA); ys (and cs).
 // The gate sums are f32 sums of the chunks' products in index order, the
 // same order at every call: the result does not depend on which chunk's
-// writers finish first, and two calls give the same bits.
+// writers finish first, and two calls give the same bits.  Nor does it
+// depend on the geometry: a row's gates are the same k16 products added
+// in the same order whatever its tile and warpgroup.
 // The double buffer of h is safe without a barrier: a CTA writes h_{s+1}
 // only after it has read all of h_s, that is after every CTA of its tile
 // has published step s - 1, hence finished reading h_{s-1}.
-template <bool kWriteCells>
-__global__ void __launch_bounds__(kRThreads, 1)
+template <class G, bool kWriteCells>
+__global__ void __launch_bounds__(G::kThreads, 1)
 lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
                     const bf16* __restrict__ w_hh, bf16* __restrict__ ys,
                     bf16* __restrict__ cs, bf16* hbuf, unsigned int* flags,
                     int T, int N, int ld_n, int H, int reverse, int subs,
                     int stages) {
+  constexpr int kR = G::kRows, kCWarps = G::kCWarps;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int n_sub = (H + kHChunk - 1) / kHChunk;
   const int n_chunks = (n_sub + subs - 1) / subs;
-  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stages][subs][kRRows][kHChunk]
-  bf16* w_s = ring + (size_t)stages * subs * kRRows * kHChunk;
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stages][subs][kR][kHChunk]
+  bf16* w_s = ring + (size_t)stages * subs * kR * kHChunk;
   uint64_t* full = reinterpret_cast<uint64_t*>(
       w_s + (size_t)n_sub * kCols * kHChunk);
   uint64_t* empty = full + stages;
@@ -261,15 +307,15 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_slices = H / kUnits;
   const int slice = blockIdx.x % n_slices, tile = blockIdx.x / n_slices;
-  const int u0 = slice * kUnits, r0 = tile * kRRows;
-  const int rows = min(kRRows, N - r0);
-  const int Np = (N + kRRows - 1) / kRRows * kRRows;
+  const int u0 = slice * kUnits, r0 = tile * kR;
+  const int rows = min(kR, N - r0);
+  const int Np = (N + kR - 1) / kR * kR;
   const size_t H4 = 4 * (size_t)H, hb = (size_t)n_sub * Np * kHChunk;
   unsigned int* tile_flags = flags + tile * n_slices;
 
   // W's slice as the B operand: column n is gate (n % 8) / 2 of unit
   // 2 (n / 8) + n % 2
-  for (int idx = tid; idx < H * kCols; idx += kRThreads) {
+  for (int idx = tid; idx < H * kCols; idx += G::kThreads) {
     const int k = idx / kCols, n = idx % kCols, kk = k % kHChunk;
     const int unit = n / 8 * 2 + n % 2, gate = n % 8 / 2;
     w_s[((size_t)(k / kHChunk) * kCols + n) * kHChunk +
@@ -288,7 +334,7 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
   __syncthreads();
 
   if (warp == kCWarps) {   // the producer
-    const unsigned sub_bytes = kRRows * kHChunk * 2;
+    const unsigned sub_bytes = kR * kHChunk * 2;
     for (int s = 1; s < T; ++s) {
       const bf16* h_cur = hbuf + (size_t)(s & 1) * hb;
       const unsigned base = (unsigned)(s - 1) * n_chunks;   // chunk 0's use
@@ -318,8 +364,8 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
           if (lane == 0) {
             const unsigned bytes = min(subs, n_sub - subs * c) * sub_bytes;
             mbar_expect_tx(full + st, bytes);
-            bulk_copy(ring + (size_t)st * subs * kRRows * kHChunk,
-                      h_cur + (size_t)(tile * n_sub + subs * c) * kRRows *
+            bulk_copy(ring + (size_t)st * subs * kR * kHChunk,
+                      h_cur + (size_t)(tile * n_sub + subs * c) * kR *
                                   kHChunk,
                       bytes, full + st);
           }
@@ -379,8 +425,7 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
         if (has_tile) {
           for (int j = 0; j < subs && subs * c + j < n_sub; ++j) {
             const int sub = subs * c + j;
-            const bf16* a_st =
-                a_base + ((size_t)st * subs + j) * kRRows * kHChunk;
+            const bf16* a_st = a_base + ((size_t)st * subs + j) * kR * kHChunk;
             const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;
             const int kc = min(kHChunk, H - sub * kHChunk);
             for (int kk = 0; kk < kc; kk += 16)
@@ -429,9 +474,9 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
         cv[hf] = pack_bf16x4(cp);
       }
       if (row_q < rows)
-        *reinterpret_cast<uint2*>(h_next + hpos(r0 + row_q,
-                                                u0 + 8 * hf + 4 * (q % 2),
-                                                n_sub)) = hv[hf];
+        *reinterpret_cast<uint2*>(
+            h_next + hpos<kR>(r0 + row_q, u0 + 8 * hf + 4 * (q % 2), n_sub)) =
+            hv[hf];
     }
     // h is published before ys and cs are stored
     publish_cta(tile_flags + slice, kCWarps * 32);
@@ -949,27 +994,82 @@ int lstm_f32_launch(const void* xp, const void* w_hh, void* ys, void* cs,
                          st);
 }
 
+// A launch of lstm_bf16_wg_kernel in geometry G for N rows of width H on
+// the current card: 1 KB to align the swizzled tiles, W's slice and the
+// barriers; the rest for as many ring stages as fit, of the widest chunks
+// of which two stages fit (Narrow at H=768: 256 columns, 3 chunks on 2
+// stages; Wide: 128 columns, 6 chunks on 2 stages).  0, or -2 (the
+// producer polls at most 64 flags), -3, -1 (the grid cannot be
+// co-resident) or a cudaError_t.
+struct WgPlan {
+  const void* fn;
+  int wide, threads, rows, blocks, subs, stages;
+  size_t smem;
+};
+template <class G>
+int wg_plan(int N, int H, bool cells, WgPlan* p) {
+  if (H / kUnits > 64) return -2;   // the producer polls <= 64 flags
+  int rc, dev = 0, max_smem = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(
+           &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return rc;
+  const size_t fixed = 1024 +
+                       (size_t)(H + kHChunk - 1) / kHChunk * kCols *
+                           kHChunk * 2 +
+                       16 * kMaxStages;
+  size_t stage = 0;
+  p->stages = 0;
+  for (p->subs = kMaxSubs; p->subs >= 1; p->subs /= 2) {
+    stage = (size_t)p->subs * G::kRows * kHChunk * 2;
+    p->stages = (max_smem - (int)fixed) / (int)stage;
+    if (p->stages >= 2) break;
+  }
+  if (p->stages > kMaxStages) p->stages = kMaxStages;
+  if (p->stages < 2) return -3;
+  p->smem = fixed + p->stages * stage;
+  p->fn = cells ? reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<G, true>)
+                : reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<G, false>);
+  p->wide = std::is_same<G, Wide>::value;
+  p->threads = G::kThreads;
+  p->rows = G::kRows;
+  p->blocks = H / kUnits * ((N + G::kRows - 1) / G::kRows);
+  return co_resident(p->fn, p->smem, p->blocks, p->threads);
+}
+
+// The geometry of a bf16 launch of kCRows < N <= kGroupRowsBf16 rows:
+// Narrow wherever its grid is co-resident, else Wide.
+int wg_choose(int N, int H, bool cells, WgPlan* p) {
+  const int rc = wg_plan<Narrow>(N, H, cells, p);
+  return rc == -1 ? wg_plan<Wide>(N, H, cells, p) : rc;
+}
+
 }  // namespace
 
 extern "C" {
 
 // xp [T, ld_n, 4H] and ys [T, ld_n, H] point at the first of this launch's
-// N <= kGroupRows batch rows; w_hh [H, 4H]; all of one dtype (bf16 when
-// is_bf16, else f32), contiguous.  cs: null for K1; for K3a, [T, ld_n, H]
-// of that dtype like ys, which receives the cell states.  hbuf: zeros of
-// that dtype, xna_lstm_hbuf_elems(N, H) elements (h_0 and the exchange of
-// h).  flags: H zeroed uint32 (the ready flags, one per CTA).  Returns 0,
-// a cudaError_t, or -1 (grid cannot be co-resident), -2 (unsupported
-// shape: H past 1024 in f32), -3 (shared-memory request refused: H too
-// large).
+// N <= xna_lstm_group_rows(is_bf16) batch rows; w_hh [H, 4H]; all of one
+// dtype (bf16 when is_bf16, else f32), contiguous.  cs: null for K1; for
+// K3a, [T, ld_n, H] of that dtype like ys, which receives the cell states.
+// hbuf: zeros of that dtype, xna_lstm_hbuf_elems(N, H) elements (h_0 and
+// the exchange of h).  flags: H zeroed uint32 (the ready flags, one per
+// CTA).  wide: null, or receives 1 where the launch took the wide
+// geometry, else 0.  Returns 0, a cudaError_t, or -1 (grid cannot be
+// co-resident), -2 (unsupported shape: H past 1024 in f32), -3
+// (shared-memory request refused: H too large).
 int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
                         void* hbuf, void* flags, int T, int N, int ld_n,
-                        int H, int reverse, int is_bf16, void* stream) {
-  if (T < 1 || N < 1 || N > kGroupRows || ld_n < N || H < 16 || H % 16 != 0)
+                        int H, int reverse, int is_bf16, void* stream,
+                        int* wide) {
+  if (T < 1 || N < 1 || N > (is_bf16 ? kGroupRowsBf16 : kGroupRowsF32) ||
+      ld_n < N || H < 16 || H % 16 != 0)
     return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned int* ctr = static_cast<unsigned int*>(flags);
   int rc;
+  if (wide) *wide = 0;
   if (is_bf16 && N <= kCRows && H % (2 * kCUnits) == 0) {
     const size_t smem = (size_t)H / kCCluster * kCLdW * 2 +
                         (size_t)kCRows * (H / kCCluster + 8) * 2 +
@@ -987,46 +1087,20 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
     return launch_clusters(fn, H / kCOwn, kCCluster, kThreads, smem, args, st);
   }
   if (is_bf16) {
-    const int blocks = H / kUnits * ((N + kRRows - 1) / kRRows);
-    int dev = 0, max_smem = 0;
-    if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
-    if ((rc = cudaDeviceGetAttribute(
-             &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-        cudaSuccess)
-      return rc;
-    if (H / kUnits > 64) return -2;   // the producer polls <= 64 flags
-    // 1 KB to align the swizzled tiles, W's slice and the barriers; the
-    // rest for as many ring stages as fit, of the widest chunks of which
-    // two stages fit (256 columns at H=768: 3 chunks on 2 stages)
-    const size_t fixed = 1024 +
-                         (size_t)(H + kHChunk - 1) / kHChunk * kCols *
-                             kHChunk * 2 +
-                         16 * kMaxStages;
-    int subs = kMaxSubs, stages = 0;
-    size_t stage = 0;
-    for (; subs >= 1; subs /= 2) {
-      stage = (size_t)subs * kRRows * kHChunk * 2;
-      stages = (max_smem - (int)fixed) / (int)stage;
-      if (stages >= 2) break;
-    }
-    if (stages > kMaxStages) stages = kMaxStages;
-    if (stages < 2) return -3;
-    const size_t smem = fixed + stages * stage;
-    const void* fn =
-        cs ? reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<true>)
-           : reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<false>);
-    if ((rc = co_resident(fn, smem, blocks, kRThreads)) != 0) return rc;
+    WgPlan p;
+    if ((rc = wg_choose(N, H, cs != nullptr, &p)) != 0) return rc;
+    if (wide) *wide = p.wide;
     const bf16* a0 = static_cast<const bf16*>(xp);
     const bf16* a1 = static_cast<const bf16*>(w_hh);
     bf16* a2 = static_cast<bf16*>(ys);
     bf16* a3 = static_cast<bf16*>(cs);
     bf16* a4 = static_cast<bf16*>(hbuf);
     void* args[] = {&a0, &a1, &a2, &a3, &a4, &ctr, &T, &N, &ld_n, &H,
-                    &reverse, &subs, &stages};
+                    &reverse, &p.subs, &p.stages};
     // cooperative: the whole grid is resident (the CTAs wait on each
     // other's flags)
-    rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kRThreads), args,
-                                     smem, st);
+    rc = cudaLaunchCooperativeKernel(p.fn, dim3(p.blocks), dim3(p.threads),
+                                     args, p.smem, st);
   } else {
     if ((rc = lstm_f32_launch(xp, w_hh, ys, cs, hbuf, ctr, T, N, ld_n, H,
                               reverse, st)) != 0)
@@ -1040,7 +1114,7 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
 // current card: out[0..3] = units a CTA, depth rows a lane, rows a block,
 // staging buffers.  0 or an error code as above.
 int xna_lstm_f32_geometry(int N, int H, int* out) {
-  if (N < 1 || N > kGroupRows || H < 16 || H % 16 != 0) return -2;
+  if (N < 1 || N > kGroupRowsF32 || H < 16 || H % 16 != 0) return -2;
   F32Plan p;
   const int rc = f32_plan(N, H, &p);
   if (rc != 0) return rc;
@@ -1051,15 +1125,37 @@ int xna_lstm_f32_geometry(int N, int H, int* out) {
   return 0;
 }
 
-// Batch rows one launch takes; the wrapper splits larger batches.
-int xna_lstm_group_rows() { return kGroupRows; }
+// The bf16 route's geometry for a launch of kCRows < N <=
+// kGroupRowsBf16 rows of width H on the current card (K1; K3a's is the
+// same): out[0..4] = 1 for the wide geometry (else 0), rows a tile, CTAs,
+// columns a chunk of h, ring stages.  0 or an error code as above.
+int xna_lstm_bf16_geometry(int N, int H, int* out) {
+  if (N <= kCRows || N > kGroupRowsBf16 || H < 16 || H % 16 != 0) return -2;
+  WgPlan p;
+  const int rc = wg_choose(N, H, false, &p);
+  if (rc != 0) return rc;
+  out[0] = p.wide;
+  out[1] = p.rows;
+  out[2] = p.blocks;
+  out[3] = p.subs * kHChunk;
+  out[4] = p.stages;
+  return 0;
+}
+
+// Batch rows one launch takes (bf16 when is_bf16, else f32); the wrapper
+// splits larger batches.
+int xna_lstm_group_rows(int is_bf16) {
+  return is_bf16 ? kGroupRowsBf16 : kGroupRowsF32;
+}
 
 // Elements of the h exchange buffer of a launch of N rows: two buffers of
-// the N > 64 path's padded layout (Np = N rounded up to kRRows rows, H
-// rounded up to kHChunk columns), which hold the other paths' [2, N, H].
+// the N > 64 path's padded layout (Np = N rounded up to the rows of a tile
+// of either geometry, H rounded up to kHChunk columns), which hold the
+// other paths' [2, N, H].
 int xna_lstm_hbuf_elems(int N, int H) {
-  return 2 * ((N + kRRows - 1) / kRRows * kRRows) *
-         ((H + kHChunk - 1) / kHChunk * kHChunk);
+  const int np = max((N + Narrow::kRows - 1) / Narrow::kRows * Narrow::kRows,
+                     (N + Wide::kRows - 1) / Wide::kRows * Wide::kRows);
+  return 2 * np * ((H + kHChunk - 1) / kHChunk * kHChunk);
 }
 
 const char* xna_error_string(int code) {

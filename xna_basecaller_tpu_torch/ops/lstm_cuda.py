@@ -27,7 +27,9 @@ on the validation batch) clusters of CTAs split W_hh's depth; at more
 than 64 (K1 at the basecall batch) each CTA brings the chunks of h by bulk
 copies (TMA) into an mbarrier ring and multiplies them on wgmma in index
 order, so that every call adds the gates' partial products in one order
-and gives the same bits.  K1 and K3a in f32 (duplex's transition
+and gives the same bits; its CTAs take 128-row tiles wherever that grid
+fits the card, else 192-row tiles (257-384 rows at H=768), so that a bf16
+batch of up to 384 rows is one launch.  K1 and K3a in f32 (duplex's transition
 posteriors) keep each CTA's W_hh columns in registers, split by depth over
 every lane, with the same ready flags.  K7 and K3b's f32 path keep a grid
 barrier.  The reverse direction is read in reverse time inside the
@@ -41,7 +43,8 @@ Each wrapper takes the plain version (``ops/lstm.py``) for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
 ``<wrapper>.launches`` counts its launches (one per group of batch rows;
 K3b's group is one launch of its gate recompute and one of its recursion);
-``lstm_recurrence.launches_f32`` counts K1's launches in f32 once more.
+``lstm_recurrence.launches_f32`` counts K1's launches in f32 once more, and
+``lstm_recurrence.launches_wide`` those on the 192-row tiles.
 """
 
 from __future__ import annotations
@@ -87,13 +90,28 @@ def _call(lib, name: str, *ints: int) -> int:
     return fn(*ints)
 
 
-def group_rows(source: str) -> int:
+def group_rows(source: str, dtype: torch.dtype) -> int:
     """Batch rows one launch of the recurrence of ``csrc/<source>.cu``
-    (``lstm_recurrence``: K1 and K3a; ``lstm_int8``: K7) takes; the
+    (``lstm_recurrence``: K1 and K3a, 384 in bf16 and 256 in f32;
+    ``lstm_int8``: K7, 256 in either) takes for xp of ``dtype``; the
     wrappers launch once per group of that many rows."""
-    name = {"lstm_recurrence": "xna_lstm_group_rows",
-            "lstm_int8": "xna_lstm_int8_group_rows"}[source]
-    return _call(_build.load(source), name)
+    lib = _build.load(source)
+    if source == "lstm_int8":
+        return _call(lib, "xna_lstm_int8_group_rows")
+    return _call(lib, "xna_lstm_group_rows", int(dtype == torch.bfloat16))
+
+
+def bf16_geometry(rows: int, H: int) -> dict:
+    """The geometry of a bf16 launch of K1 over 65-384 ``rows`` of width
+    ``H`` on the current card: whether it takes the wide geometry, rows a
+    tile, CTAs, columns a chunk of h, ring stages (for tests and tools;
+    the launch itself reports whether it took the wide geometry)."""
+    lib, fn = _lib("lstm_recurrence", "xna_lstm_bf16_geometry",
+                   [_I, _I, _P])
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, fn(rows, H, out), "lstm_recurrence geometry",
+                 _MESSAGES)
+    return dict(zip(("wide", "rows", "ctas", "chunk_cols", "stages"), out))
 
 
 def _check(what: str, shapes: dict[str, tuple],
@@ -141,8 +159,10 @@ def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
     ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
     cs = torch.empty_like(ys) if cells else None
     lib, fn = _lib("lstm_recurrence", "xna_lstm_recurrence",
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    group = group_rows("lstm_recurrence")
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                    _P])
+    group = group_rows("lstm_recurrence", xp.dtype)
+    wide = ctypes.c_int(0)
     size = xp.element_size()
     stream = torch.cuda.current_stream().cuda_stream
     for n0 in range(0, N, group):
@@ -154,7 +174,8 @@ def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
                 ys.data_ptr() + n0 * H * size,
                 cs.data_ptr() + n0 * H * size if cells else None,
                 hbuf.data_ptr(), flags.data_ptr(), T, rows, N, H,
-                int(reverse), int(xp.dtype == torch.bfloat16), stream)
+                int(reverse), int(xp.dtype == torch.bfloat16), stream,
+                ctypes.byref(wide))
         _build.check(lib, rc, f"{what} kernel", _MESSAGES)
         if cells:
             lstm_forward_with_cells.launches += 1
@@ -162,6 +183,7 @@ def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
             lstm_recurrence.launches += 1
             if xp.dtype == torch.float32:
                 lstm_recurrence.launches_f32 += 1
+            lstm_recurrence.launches_wide += wide.value
     return ys, cs
 
 
@@ -169,7 +191,8 @@ def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
                     reverse: bool = False) -> torch.Tensor:
     """K1: xp [T, N, 4H] (input projections + bias), w_hh [H, 4H], both f32
     or both bf16 -> ys [T, N, H] in that dtype.  On the card, one launch per
-    group of at most 256 batch rows (rows are independent)."""
+    group of at most 384 batch rows in bf16, 256 in f32 (rows are
+    independent)."""
     if xp.device.type == "cpu":
         return lstm_recurrence_plain(xp, w_hh, reverse)
     return _recurrence(xp, w_hh, reverse, cells=False)[0]
@@ -237,7 +260,7 @@ def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
     ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
     lib, fn = _lib("lstm_int8", "xna_lstm_int8",
                    [_P] * 6 + [_I] * 6 + [_P])
-    group = group_rows("lstm_int8")
+    group = group_rows("lstm_int8", xp.dtype)
     size = xp.element_size()
     stream = torch.cuda.current_stream().cuda_stream
     for n0 in range(0, N, group):
@@ -255,6 +278,7 @@ def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
 
 lstm_recurrence.launches = 0
 lstm_recurrence.launches_f32 = 0   # those of K1's f32 route, counted again
+lstm_recurrence.launches_wide = 0  # those on the wide geometry, again
 lstm_forward_with_cells.launches = 0
 lstm_backward_dxp.launches = 0
 lstm_recurrence_int8.launches = 0

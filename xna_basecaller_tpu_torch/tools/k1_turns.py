@@ -2,21 +2,25 @@
 another tree's K1 and against variants of either tree's design, in turns,
 and hold each to bit-repeatability.
 
-bf16 (the default), at the flagship basecall shape (xp [720, 256, 3072],
-H=768, both directions, random inputs from a seed):
+bf16 (the default), at the basecall batches of ``--rows`` (default 256,
+ONT's and the port's, and 384, the XNA model's: xp [720, N, 3072], H=768),
+both directions, random inputs from a seed:
 
   1. print the card's name and power limit; build this tree's K1, the
      variants of this tree's source in ``VARIANTS`` and, with
      ``--baseline DIR`` (another tree of this repository, e.g. the parent
      commit unpacked by ``git archive``; may be given more than once),
-     DIR's K1 and the variants of the first DIR's source in
-     ``BASELINE_VARIANTS``, each with nvcc (a variant is a list of text
-     edits of the source);
+     DIR's K1, each with nvcc (a variant is a list of text edits of the
+     source); each tree's K1 is called as its wrapper calls it, once per
+     group of the rows a launch of that tree takes (256 before the wide
+     geometry: 256 + 128 at N=384), and this tree's geometry is printed;
   2. call each kernel 6 times on the same inputs and print the share of ys
      elements that differ from the first call (0 means bit-repeatable);
-     fail if this tree's kernel is not bit-repeatable;
+     fail if this tree's kernel is not bit-repeatable; print each one's
+     largest difference from this tree's ys;
   3. time them in turns (a, b, c, c, b, a, ...): the median of 21 calls
-     each, by CUDA events, in each direction.
+     each, by CUDA events, in each direction, beside the bound of the
+     layer's recurrence (2 T N H 4H operations over 989 TFLOP/s).
 
 ``--dtype f32`` (K1's f32 route, which duplex's transition posteriors
 run): for each N of ``--rows`` (default 8, 16, 32, 64, 128, 256) at T=720,
@@ -33,7 +37,7 @@ over 3.35 TB/s, whichever is larger.
 
 Run from the repository root:
     python -m xna_basecaller_tpu_torch.tools.k1_turns [--baseline DIR]
-        [--dtype f32 [--rows 8,16,...]]
+        [--rows 256,384] [--dtype f32 [--rows 8,16,...]]
 """
 
 from __future__ import annotations
@@ -50,158 +54,20 @@ import torch
 
 from xna_basecaller_tpu_torch.ops import _build
 
-T, N, H, SEED, REPEATS, REPS = 720, 256, 768, 0, 6, 21
+T, H, SEED, REPEATS, REPS = 720, 768, 0, 6, 21
+BF16_ROWS = (256, 384)
 F32_ROWS = (8, 16, 32, 64, 128, 256)
 F32_TOL = 1e-4               # max-abs against the plain version
-PEAK_F32, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 FLOP/s, HBM bytes/s
+# H100 SXM: bf16 and f32 FLOP/s, HBM bytes/s
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
-# Design (b) of the sum-order repair, as edits of the kernel it repaired
-# (the arrival-order fetch of the parent tree): each chunk's product in a
-# fresh tile (wgmma with scale-d 0), two tiles in turns, added into 64-bit
-# fixed-point gate sums at 2^-40, converted to f32 once a step.
-_FP_CONSUMER_OLD = (
-    '  const bf16* a_base = ring + (size_t)64 * wg * kHChunk;\n'
-    '\n'
-    '  for (int s = 0; s < T; ++s) {\n'
-    '    const int t = reverse ? T - 1 - s : s;\n'
-    '#pragma unroll\n'
-    '    for (int e = 0; e < 2; ++e)\n'
-    '#pragma unroll\n'
-    '      for (int hf = 0; hf < 2; ++hf) x_raw[e][hf] = x_next[e][hf];\n'
-    '    load_x(min(s + 1, T - 1));\n'
-    '\n'
-    '    float acc[32];\n'
-    '#pragma unroll\n'
-    '    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;\n'
-    '    if (s > 0) {\n'
-    '      if (has_tile) wgmma_fence();\n'
-    '      int prev = -1;\n'
-    '      for (int c = 0; c < n_chunks; ++c, ++it) {\n'
-    '        const int st = it % stages;\n'
-    '        mbar_wait(full + st, (it / stages) & 1);\n'
-    '        const int cc = *(volatile int*)(chunk_of + st);\n'
-    '        if (has_tile) {\n'
-    '          for (int j = 0; j < kSubs && kSubs * cc + j < n_sub; ++j) {\n'
-    '            const int sub = kSubs * cc + j;\n'
-    '            const bf16* a_st =\n'
-    '                a_base + ((size_t)st * kSubs + j) * kRRows * kHChunk;\n'
-    '            const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;\n'
-    '            const int kc = min(kHChunk, H - sub * kHChunk);\n'
-    '            for (int kk = 0; kk < kc; kk += 16)\n'
-    '              wgmma_64x64(acc, sw128_desc(a_st + kk), sw128_desc(b_t + kk));\n'
-    '          }\n'
-    '          wgmma_commit();\n'
-    "          wgmma_wait<1>();   // the previous chunk's products are done\n"
-    '        }\n'
-    '        if (prev >= 0) {\n'
-    '          __syncwarp();\n'
-    '          if (lane == 0) mbar_arrive(empty + prev);\n'
-    '        }\n'
-    '        prev = st;\n'
-    '      }\n'
-    '      if (has_tile) wgmma_wait<0>();\n'
-    '      fence_acc(acc);\n'
-    '      __syncwarp();\n'
-    '      if (lane == 0) mbar_arrive(empty + prev);\n'
-    '    }\n')
-_FP_CONSUMER_NEW = (
-    '  const bf16* a_base = ring + (size_t)64 * wg * kHChunk;\n'
-    '  float part[2][32];\n'
-    '  long long fixed[32];\n'
-    '  auto product = [&](float (&d)[32], int st, int cc) {\n'
-    "    int scale_d = 0;   // the chunk's first k-step starts a fresh tile\n"
-    '    for (int j = 0; j < kSubs && kSubs * cc + j < n_sub; ++j) {\n'
-    '      const int sub = kSubs * cc + j;\n'
-    '      const bf16* a_st = a_base + ((size_t)st * kSubs + j) * kRRows * kHChunk;\n'
-    '      const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;\n'
-    '      const int kc = min(kHChunk, H - sub * kHChunk);\n'
-    '      for (int kk = 0; kk < kc; kk += 16, scale_d = 1)\n'
-    '        wgmma_64x64(d, sw128_desc(a_st + kk), sw128_desc(b_t + kk), scale_d);\n'
-    '    }\n'
-    '  };\n'
-    '  auto absorb = [&](float (&d)[32]) {\n'
-    '    fence_acc(d);\n'
-    '#pragma unroll\n'
-    '    for (int i = 0; i < 32; ++i)\n'
-    '      fixed[i] += __float2ll_rn(d[i] * kFixedScale);\n'
-    '  };\n'
-    '\n'
-    '  for (int s = 0; s < T; ++s) {\n'
-    '    const int t = reverse ? T - 1 - s : s;\n'
-    '#pragma unroll\n'
-    '    for (int e = 0; e < 2; ++e)\n'
-    '#pragma unroll\n'
-    '      for (int hf = 0; hf < 2; ++hf) x_raw[e][hf] = x_next[e][hf];\n'
-    '    load_x(min(s + 1, T - 1));\n'
-    '\n'
-    '#pragma unroll\n'
-    '    for (int i = 0; i < 32; ++i) fixed[i] = 0;\n'
-    '    if (s > 0) {\n'
-    '      int prev = -1;\n'
-    '      for (int c = 0; c < n_chunks; ++c, ++it) {\n'
-    '        const int st = it % stages;\n'
-    '        mbar_wait(full + st, (it / stages) & 1);\n'
-    '        const int cc = *(volatile int*)(chunk_of + st);\n'
-    '        if (has_tile) {\n'
-    '          wgmma_fence();\n'
-    '          if (c & 1)\n'
-    '            product(part[1], st, cc);\n'
-    '          else\n'
-    '            product(part[0], st, cc);\n'
-    '          wgmma_commit();\n'
-    "          wgmma_wait<1>();   // the previous chunk's products are done\n"
-    '          if (c > 0) {\n'
-    '            if (c & 1)\n'
-    '              absorb(part[0]);\n'
-    '            else\n'
-    '              absorb(part[1]);\n'
-    '          }\n'
-    '        }\n'
-    '        if (prev >= 0) {\n'
-    '          __syncwarp();\n'
-    '          if (lane == 0) mbar_arrive(empty + prev);\n'
-    '        }\n'
-    '        prev = st;\n'
-    '      }\n'
-    '      if (has_tile) {\n'
-    '        wgmma_wait<0>();\n'
-    '        if ((n_chunks - 1) & 1)\n'
-    '          absorb(part[1]);\n'
-    '        else\n'
-    '          absorb(part[0]);\n'
-    '      }\n'
-    '      __syncwarp();\n'
-    '      if (lane == 0) mbar_arrive(empty + prev);\n'
-    '    }\n'
-    '    float acc[32];\n'
-    '#pragma unroll\n'
-    '    for (int i = 0; i < 32; ++i)\n'
-    '      acc[i] = __ll2float_rn(fixed[i]) * (1.0f / kFixedScale);\n')
-
-FIXED_POINT = [
-    ("uint64_t db) {", "uint64_t db, int scale_d = 1) {"),
-    (': "l"(da), "l"(db), "r"(1));', ': "l"(da), "l"(db), "r"(scale_d));'),
-    ("constexpr int kMaxStages = 8;       // ring stages of h chunks\n",
-     "constexpr int kMaxStages = 8;       // ring stages of h chunks\n"
-     "constexpr float kFixedScale = 0x1p40f;\n"),
-    (_FP_CONSUMER_OLD, _FP_CONSUMER_NEW),
-]
-# name -> edits of this tree's source
-_SUBS = "constexpr int kMaxSubs = 4;"
+# name -> edits of this tree's source, timed with bf16
 VARIANTS = {
-    # 128-column chunks (6 at H=768) on 4 ring stages, fetched as their
-    # writers finish within a window of 3
-    "128-column chunks": [(_SUBS, _SUBS.replace("4", "2"))],
-    # 64-column chunks (12) on 8 stages, a window of 7
-    "64-column chunks": [(_SUBS, _SUBS.replace("4", "1"))],
-    # 128-column chunks fetched in index order (a window of 1)
-    "128-column chunks in index order": [
-        (_SUBS, _SUBS.replace("4", "2")),
-        ("left & (((1ull << (stages - 1)) - 1) << lo);",
-         "left & (1ull << lo);")],
+    # 64-column chunks: the wide geometry on 5 stages, fetched as their
+    # writers finish within a window of 4 (the narrow one on 8, window 7)
+    "64-column chunks": [("constexpr int kMaxSubs = 4;",
+                          "constexpr int kMaxSubs = 1;")],
 }
-# name -> edits of the --baseline tree's source
-BASELINE_VARIANTS = {"fixed-point sums": FIXED_POINT}
 # name -> edits of this tree's source, timed with --dtype f32: the f32
 # route with a lane's product over 1 or 2 batch rows at once (this tree's:
 # 4), and with each part switched off in turn (wrong results: timing only)
@@ -254,29 +120,60 @@ def build_all(builds: dict) -> dict:
 
 
 def kernel(lib: ctypes.CDLL, tag: str):
-    """fn(xp, w_hh, reverse) -> ys through ``lib``'s ``xna_lstm_recurrence``
-    (the C interface both trees share), in xp's dtype (bf16 or f32), for
-    xp of at most 256 rows."""
+    """fn(xp, w_hh, reverse) -> ys through ``lib``'s ``xna_lstm_recurrence``,
+    in xp's dtype (bf16 or f32): one launch per group of the rows a launch
+    of ``lib`` takes.  A tree without ``xna_lstm_bf16_geometry`` takes 256
+    rows in either dtype, its ``xna_lstm_group_rows`` no argument and its
+    ``xna_lstm_recurrence`` no pointer for the geometry it took."""
+    bf16_geo = getattr(lib, "xna_lstm_bf16_geometry", None)
     fn = lib.xna_lstm_recurrence
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p] * (1 if bf16_geo is None else 2)
     fn.restype = ctypes.c_int
+    wide = () if bf16_geo is None else (None,)
     elems = lib.xna_lstm_hbuf_elems
     elems.argtypes, elems.restype = [ctypes.c_int] * 2, ctypes.c_int
+    group_rows = lib.xna_lstm_group_rows
+    group_rows.restype = ctypes.c_int
+    if bf16_geo is not None:
+        bf16_geo.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        bf16_geo.restype = ctypes.c_int
+        group_rows.argtypes = [ctypes.c_int]
+    else:
+        group_rows.argtypes = []
 
     def run(xp, w_hh, reverse):
         t, n, h4 = xp.shape
         h = h4 // 4
+        bf16 = xp.dtype == torch.bfloat16
+        group = group_rows(int(bf16)) if bf16_geo is not None \
+            else group_rows()
         ys = torch.empty(t, n, h, dtype=xp.dtype, device=xp.device)
-        hbuf = torch.zeros(elems(n, h), dtype=xp.dtype, device=xp.device)
-        flags = torch.zeros(h, dtype=torch.int32, device=xp.device)
-        rc = fn(xp.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), None,
-                hbuf.data_ptr(), flags.data_ptr(), t, n, n, h, int(reverse),
-                int(xp.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise SystemExit(f"k1_turns: {tag}'s kernel returned {rc}")
+        size = xp.element_size()
+        for n0 in range(0, n, group):
+            rows = min(group, n - n0)
+            hbuf = torch.zeros(elems(rows, h), dtype=xp.dtype,
+                               device=xp.device)
+            flags = torch.zeros(h, dtype=torch.int32, device=xp.device)
+            rc = fn(xp.data_ptr() + n0 * h4 * size, w_hh.data_ptr(),
+                    ys.data_ptr() + n0 * h * size, None, hbuf.data_ptr(),
+                    flags.data_ptr(), t, rows, n, h, int(reverse), int(bf16),
+                    torch.cuda.current_stream().cuda_stream, *wide)
+            if rc:
+                raise SystemExit(f"k1_turns: {tag}'s kernel returned {rc}")
         return ys
+
+    def bf16_geometry(n, h):
+        """This tree's bf16 geometry of a launch of n rows, where the
+        library tells."""
+        if bf16_geo is None:
+            return "not exported"
+        out = (ctypes.c_int * 5)()
+        rc = bf16_geo(n, h, out)
+        return dict(zip(("wide", "rows a tile", "CTAs", "columns a chunk",
+                         "ring stages"), out)) \
+            if rc == 0 else rc
+    run.bf16_geometry = bf16_geometry
 
     geo = getattr(lib, "xna_lstm_f32_geometry", None)
     if geo is not None:
@@ -428,13 +325,18 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", action="append", default=[],
                     metavar="DIR", help="another tree (may be repeated)")
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
-    ap.add_argument("--rows", default=",".join(map(str, F32_ROWS)),
-                    help="f32: the batch rows N timed (at most 256)")
+    ap.add_argument("--rows", default=None,
+                    help="the batch rows N timed, comma-separated (default "
+                         f"{','.join(map(str, BF16_ROWS))} in bf16, "
+                         f"{','.join(map(str, F32_ROWS))} in f32; f32 at "
+                         "most 256)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_turns: no CUDA device")
-    rows = [int(v) for v in args.rows.split(",")]
-    if args.dtype == "f32" and not all(1 <= n <= 256 for n in rows):
+    f32 = args.dtype == "f32"
+    rows = [int(v) for v in args.rows.split(",")] if args.rows else list(
+        F32_ROWS if f32 else BF16_ROWS)
+    if f32 and not all(1 <= n <= 256 for n in rows):
         raise SystemExit("k1_turns: --rows takes 1 to 256 rows")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -442,20 +344,14 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     print(card)
 
-    # the variants are edits of the bf16 kernels: f32 times the trees alone
-    f32 = args.dtype == "f32"
     this_src = os.path.join(_build.CSRC, "lstm_recurrence.cu")
     builds = {"this tree": (this_src, ())}
     builds.update({f"this tree, {n}": (this_src, e) for n, e in (
         F32_VARIANTS if f32 else VARIANTS).items()})
-    for i, root in enumerate(args.baseline):
+    for root in args.baseline:
         tag = "baseline" if len(args.baseline) == 1 else f"baseline {root}"
-        base_src = os.path.join(root, "xna_basecaller_tpu_torch", "csrc",
-                                "lstm_recurrence.cu")
-        builds[tag] = (base_src, ())
-        if not f32 and i == 0:
-            builds.update({f"{tag}, {n}": (base_src, e)
-                           for n, e in BASELINE_VARIANTS.items()})
+        builds[tag] = (os.path.join(root, "xna_basecaller_tpu_torch", "csrc",
+                                    "lstm_recurrence.cu"), ())
     kernels = {name: kernel(lib, name)
                for name, lib in build_all(builds).items()}
     if f32:
@@ -464,23 +360,41 @@ def main(argv=None) -> int:
         return 0
 
     gen = torch.Generator().manual_seed(SEED)
-    xp = (torch.randn(T, N, 4 * H, generator=gen) * 0.5).to(
-        "cuda", torch.bfloat16)
     w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / H ** 0.5).to(
         "cuda", torch.bfloat16)
-    for reverse in (False, True):
+    summary = []
+    for n in rows:
         for name, fn in kernels.items():
-            _, worst = repeatable(fn, xp, w_hh, reverse, name)
-            print(f"{name}, reverse={reverse}: {REPEATS} calls, at most "
-                  f"{100 * worst:.3f} % of ys differ from the first call")
-            if name == "this tree" and worst:
-                raise SystemExit("k1_turns: this tree's K1 is not "
-                                 "bit-repeatable")
-        times = in_turns({n: (lambda fn=fn: fn(xp, w_hh, reverse))
-                          for n, fn in kernels.items()})
-        for name, ms in times.items():
-            print(f"K1 [{T}, {N}, {4 * H}] reverse={reverse}, {name}: "
-                  f"median {ms:.3f} ms of {REPS} in turns ({card})")
+            print(f"K1 N={n}, {name}: geometry {fn.bf16_geometry(n, H)}")
+        xp = (torch.randn(T, n, 4 * H, generator=gen) * 0.5).to(
+            "cuda", torch.bfloat16)
+        bound_ms = 2.0 * T * n * H * 4 * H / PEAK_BF16 * 1e3
+        for reverse in (False, True):
+            ys = {}
+            for name, fn in kernels.items():
+                ys[name], worst = repeatable(fn, xp, w_hh, reverse, name)
+                diff = (ys[name].float() - ys["this tree"].float()).abs()
+                print(f"K1 [{T}, {n}, {4 * H}] reverse={reverse}, {name}: "
+                      f"{REPEATS} calls, at most {100 * worst:.3f} % of ys "
+                      f"differ from the first call; max_abs against this "
+                      f"tree's {diff.max().item():.3e}")
+                if name == "this tree" and worst:
+                    raise SystemExit("k1_turns: this tree's K1 is not "
+                                     "bit-repeatable")
+            del ys
+            times = in_turns({k: (lambda fn=fn: fn(xp, w_hh, reverse))
+                              for k, fn in kernels.items()})
+            for name, ms in times.items():
+                print(f"K1 [{T}, {n}, {4 * H}] reverse={reverse}, {name}: "
+                      f"median {ms:.3f} ms of {REPS} in turns ({card})")
+            summary.append((n, reverse, times, bound_ms))
+        del xp
+    print(f"summary, K1 bf16 at T={T}, H={H}, medians of {REPS} in turns "
+          f"(ms; {card}):")
+    for n, reverse, times, bound_ms in summary:
+        print(f"  N={n} reverse={reverse}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items())
+            + f", bound {bound_ms:.4f}")
     torch.cuda.synchronize()
     return 0
 
