@@ -30,7 +30,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      the q-score variants of K2b and K2c (bp, v_final and labels
      bit-equal to the Viterbi kernels', edge_sel and probs against their
      plain versions) and the beam kernel at the widths BEAM_WIDTHS on the
-     partials of K4 and K2a;
+     partials of K4 and K2a; then, at the shapes of ONT's R10.4.1 sup
+     model (R10_CONFIG: 1024 CRF states, T=2000, N=256, H=1024), K2a, K2b
+     and K2c on their wide path on its forward's scores (the wide-path
+     counter reading 3) and K1 in bf16 (twice, bit-equal);
   3. check the model's scores and labels against the plain CPU path on a
      small input, in f32 and quantized; the quantized model's scores
      against the bf16 model's on one batch; ``int8_matmul`` (cuBLASLt)
@@ -424,13 +427,15 @@ def scan_kernels(libs: dict, tag: str) -> dict:
 
     P, I = ctypes.c_void_p, ctypes.c_int
     backward = libs["crf_decode"].xna_crf_backward
-    backward.argtypes = [P, P, I, I, I, I, P]
+    # the trailing pointer: this tree's `wide` out-parameter, null (an
+    # older tree's entry points ignore it)
+    backward.argtypes = [P, P, I, I, I, I, P, P]
     forward = libs["crf_loss"].xna_crf_forward
     forward.argtypes = [P, P, P, I, I, I, I, P]
     viterbi = libs["crf_decode"].xna_crf_fwd_viterbi
-    viterbi.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    viterbi.argtypes = [P, P, P, P, P, I, I, I, I, P, P]
     traceback = libs["crf_decode"].xna_crf_traceback
-    traceback.argtypes = [P, P, P, I, I, I, I, P]
+    traceback.argtypes = [P, P, P, I, I, I, I, P, P]
     for fn in (backward, forward, viterbi, traceback):
         fn.restype = ctypes.c_int
 
@@ -445,7 +450,7 @@ def scan_kernels(libs: dict, tag: str) -> dict:
                          T, N, n_base, ns, stream)
         else:
             rc = backward(scores.data_ptr(), out.data_ptr(), T, N, n_base,
-                          ns, stream)
+                          ns, stream, None)
         if rc:
             fail(f"{tag}: a CRF scan returned {rc}")
         return (out, logz) if is_forward else out
@@ -457,7 +462,7 @@ def scan_kernels(libs: dict, tag: str) -> dict:
         v_final = torch.empty(N, ns, device=scores.device)
         rc = viterbi(scores.data_ptr(), betas.data_ptr(), logz.data_ptr(),
                      bp.data_ptr(), v_final.data_ptr(), T, N, n_base, ns,
-                     torch.cuda.current_stream().cuda_stream)
+                     torch.cuda.current_stream().cuda_stream, None)
         if rc:
             fail(f"{tag}: its K2b returned {rc}")
         return bp, v_final
@@ -467,7 +472,7 @@ def scan_kernels(libs: dict, tag: str) -> dict:
         labels = torch.empty(N, T, dtype=torch.int8, device=bp.device)
         rc = traceback(bp.data_ptr(), v_final.data_ptr(), labels.data_ptr(),
                        T, N, n_base, ns,
-                       torch.cuda.current_stream().cuda_stream)
+                       torch.cuda.current_stream().cuda_stream, None)
         if rc:
             fail(f"{tag}: its K2c returned {rc}")
         return labels
@@ -777,6 +782,111 @@ def check_quantized_model(model, cpu_model, codes, scores):
             or mean >= 0.05 or q99 >= 0.5:
         fail("the quantized model's scores are not within the JAX bounds "
              "of the bf16 model's")
+
+
+# phase 2: the decode's wide path and K1 at H=1024 at the shapes of ONT's
+# R10.4.1 sup model (portbench's configuration of it): NACGT at state_len
+# 5, 1024 CRF states x 5 columns, chunks of 10,000 samples (2000 frames),
+# its batch of 256
+R10_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "portbench", "configs",
+                          "dna_r10.4.1_sup_v4.0.0.json")
+
+
+@torch.inference_mode()
+def check_r10_wide_path(dev) -> dict:
+    """K2a, K2b and K2c on their wide path (past 256 states) through their
+    wrappers, on the scores of the R10.4.1 sup model's forward (the port's
+    initial weights from SEED) over a batch of the chunks of simulated
+    reads, against their plain versions (ops/crf.py), at the tolerances of
+    tests/test_torch_kernels_gpu.py's wide-path test: betas rtol 1e-5,
+    backpointers and the chain's labels equal but for f32 near-ties (at
+    most 1e-3), v_final within T x 1e-7 relative, K2c's labels of the same
+    backpointers exact; ``crf_decode.launches_wide`` reads 3 after the
+    three launches.  Then K1 in bf16 at the model's [2000, 256, 1024]
+    against its plain version (max_abs 5e-2) and bit-equal over two
+    calls."""
+    from xna_basecaller_tpu_torch.core.config import from_dict
+    from xna_basecaller_tpu_torch.data import chunkops
+    from xna_basecaller_tpu_torch.data.simulate import simulate_reads
+    from xna_basecaller_tpu_torch.models.crf_model import Model
+    from xna_basecaller_tpu_torch.ops import crf, crf_cuda, lstm, lstm_cuda
+    from xna_basecaller_tpu_torch.ops.conv import conv_stack_forward
+
+    with open(R10_CONFIG) as fh:
+        cfg = from_dict(json.load(fh)["model"])
+    bc = cfg.basecaller
+    nb, sl, T = cfg.n_base, cfg.state_len, bc.chunksize // cfg.encoder.stride
+    chunks = np.concatenate([chunkops.chunk(r.signal, bc.chunksize,
+                                            bc.overlap)
+                             for r in simulate_reads(2 * N_READS,
+                                                     mean_len=MEAN_LEN,
+                                                     seed=SEED + 1)])
+    if len(chunks) < bc.batchsize:
+        fail(f"R10 wide path: {len(chunks)} chunks, fewer than a batch")
+    batch = torch.from_numpy(chunks[:bc.batchsize]).to(dev)
+    model = Model(cfg, device=dev, seed=SEED).eval()
+    scores = model(batch)
+    if scores.shape != (T, bc.batchsize, cfg.n_score) \
+            or not bool(torch.isfinite(scores).all()):
+        fail(f"R10 scores {tuple(scores.shape)} not finite/expected")
+    wide = crf_cuda.crf_decode
+    wide.launches_wide = 0
+    betas = crf_cuda.backward_scan(scores, nb, sl)
+    betas_p = crf.backward_scores(scores, nb, sl)
+    rel = ((betas - betas_p).abs() / (1 + betas_p.abs())).max().item()
+    logz = crf.logz_from_betas(betas)
+    bp, v_final = crf_cuda.forward_viterbi(scores, betas, logz, nb, sl)
+    bp_p, v_p = crf.forward_viterbi(scores, betas, logz, nb, sl)
+    bp_share = (bp != bp_p).float().mean().item()
+    v_err = (v_final - v_p).abs()
+    v_ok = bool((v_err <= 1e-4 + 1e-7 * T * v_p.abs()).all())
+    labels = crf_cuda.viterbi_traceback(bp, v_final, nb, sl)
+    tb_diff = int((labels != crf.viterbi_traceback(bp, v_final, nb, sl)
+                   ).sum().item())
+    torch.cuda.synchronize()
+    launches = wide.launches_wide
+    lab_share = (labels != crf.viterbi_traceback(bp_p, v_p, nb, sl)
+                 ).float().mean().item()
+    print(f"R10 wide path {tuple(scores.shape)} ({cfg.n_state} states): "
+          f"K2a betas max_rel {rel:.3e} (tolerance 1e-5); K2b "
+          f"backpointers differing {bp_share:.3e}, chain's label frames "
+          f"differing {lab_share:.3e} (tolerance 1e-3), v_final max_abs "
+          f"{v_err.max().item():.3e} (tolerance 1e-4 + {1e-7 * T:.1e} "
+          f"|plain|); K2c labels "
+          f"differing {tb_diff} (tolerance 0); crf_decode.launches_wide "
+          f"{launches} (expected 3)")
+    if rel > 1e-5:
+        fail("K2a on the wide path disagrees with its plain version")
+    if bp_share > 1e-3 or lab_share > 1e-3 or not v_ok:
+        fail("K2b on the wide path disagrees with its plain version")
+    if tb_diff:
+        fail("K2c on the wide path disagrees with its plain version")
+    if launches != 3:
+        fail(f"the wide path counted {launches} launches, expected 3")
+    out = {"K2a-wide_err": rel, "K2b-wide_label_share": lab_share}
+    del betas, betas_p, bp, bp_p, scores
+
+    layer0 = model.rnn[0]
+    rev0 = model.directions[0]
+    p = layer0.params(torch.bfloat16)
+    x = conv_stack_forward(model.conv, batch.float()[:, None, :],
+                           cfg.encoder.activation)
+    xp = lstm.input_projection(
+        p, x.permute(2, 0, 1).contiguous().to(torch.bfloat16))
+    got = lstm_cuda.lstm_recurrence(xp, p["w_hh"], rev0)
+    err = (got.float() - lstm.lstm_recurrence(xp, p["w_hh"], rev0).float()
+           ).abs().max().item()
+    again = lstm_cuda.lstm_recurrence(xp, p["w_hh"], rev0)
+    print(f"K1 bf16 {tuple(xp.shape)} reverse={rev0}: max_abs {err:.3e} "
+          f"(tolerance max_abs 5e-2); called twice: elements differing "
+          f"{(again != got).float().mean().item():.4f} (tolerance 0)")
+    if not bool(torch.isfinite(got.float()).all()) or err > 5e-2:
+        fail("K1 bf16 at H=1024 disagrees with its plain version")
+    if not torch.equal(again, got):
+        fail("K1 bf16 at H=1024 is not bit-repeatable")
+    out["K1-1024_err"] = err
+    return out
 
 
 BEAM_WIDTHS = (1, 8, 32)      # phase 2: the beam kernel against its plain
@@ -3910,6 +4020,7 @@ def main() -> int:
         results["K2c_err"] = float(n_diff)
         dec_errs, dec_inputs = check_decoders(scores, betas, logz, bp,
                                               v_final, labels, nb, sl)
+        results.update(check_r10_wide_path(dev))
 
         # -- 3. the model against the plain CPU path, small input --------
         small = batch[:2].float()

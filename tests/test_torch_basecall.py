@@ -379,6 +379,15 @@ def test_cli_profile_writes_a_trace(model_dir, fast5_dir, tmp_path, capsys):
             "basecall.fetch", "basecall.stitch"}
     assert work <= names
     assert len({e["tid"] for e in events if e["name"] in work}) >= 5
+    # the decode's launches, a span of their own inside each batch's
+    # enqueue, on the compute thread
+    enqueues = [e for e in events if e["name"] == "basecall.enqueue"]
+    decodes = [e for e in events if e["name"] == "basecall.decode"]
+    assert len(decodes) == len(enqueues) >= 1
+    for e in decodes:
+        assert any(o["tid"] == e["tid"] and o["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+                   for o in enqueues)
     assert {f"{stage}.{end}_wait"
             for stage in ("chunk", "batch", "upload", "compute", "fetch",
                           "stitch")

@@ -27,7 +27,7 @@ from xna_basecaller_tpu.ops import crf_pallas
 from xna_basecaller_tpu_torch.infer import basecall as tbasecall
 from xna_basecaller_tpu_torch.ops import crf, crf_cuda
 
-CASES = [(6, 3), (4, 2)]
+CASES = [(6, 3), (4, 2), (4, 5)]
 
 
 def complement_perm(alphabet: str) -> np.ndarray:

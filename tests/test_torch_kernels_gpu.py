@@ -253,6 +253,121 @@ def test_decode_kernels_match_plain(cuda, n_base, state_len):
     assert (full.cpu() != want).float().mean().item() <= 1e-3
 
 
+
+# The decode's wide path (csrc/crf_decode.cu, past 256 states): NACGT at
+# state_len 5, 1024 states x 5 columns, at the R10.4.1 sup model's 2000
+# frames a chunk, N=16 and its basecall batch of 256 (rows of 20 KB by
+# bulk copy); NACGTX at state_len 4, 625 states x 6 (rows of 3750 f32, not
+# a multiple of 16 bytes: cp.async of 8 bytes, betas read a step ahead).
+@pytest.mark.parametrize("nb,sl,T,N", [(4, 5, 2000, 16), (4, 5, 2000, 256),
+                                       (5, 4, 300, 16)])
+def test_decode_kernels_match_plain_on_the_wide_path(cuda, nb, sl, T, N):
+    """K2a, K2b and K2c on the wide path against their plain versions:
+    betas rtol 1e-5, backpointers and the chain's labels equal but for f32
+    near-ties (at most 1e-3), K2c's labels of the same backpointers exact;
+    v_final, a best path's sum of T terms, within T x 1e-7 relative (the
+    plain version's exp() and log() differ from the kernel's by an ulp here
+    and there: 7.1e-5 at most read at T=2000 on an H100); one launch each,
+    each counted by ``crf_decode.launches_wide``."""
+    s = _card_scores(nb, sl, T, N, seed=N)
+    wide = crf_cuda.crf_decode.launches_wide
+    betas = crf_cuda.backward_scan(s, nb, sl)
+    torch.testing.assert_close(betas, crf.backward_scores(s, nb, sl),
+                               rtol=1e-5, atol=1e-5)
+    logz = crf.logz_from_betas(betas)
+    bp, v = crf_cuda.forward_viterbi(s, betas, logz, nb, sl)
+    bp_p, v_p = crf.forward_viterbi(s, betas, logz, nb, sl)
+    assert bp.dtype == torch.uint8
+    assert (bp != bp_p).float().mean().item() <= 1e-3
+    torch.testing.assert_close(v, v_p, rtol=1e-7 * T, atol=1e-4)
+    labels = crf_cuda.viterbi_traceback(bp, v, nb, sl)
+    assert torch.equal(labels, crf.viterbi_traceback(bp, v, nb, sl))
+    assert crf_cuda.crf_decode.launches_wide == wide + 3
+    full = crf_cuda.decode_paths_cuda(s, nb, sl)
+    want = crf.decode_paths(s, nb, sl)
+    assert (full != want).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("n_base,state_len,wide", [
+    (4, 5, 1), (6, 3, 0), (4, 4, 0)])
+def test_crf_decode_launches_wide_counts_the_wide_path(cuda, n_base,
+                                                       state_len, wide):
+    """``crf_decode.launches_wide`` counts 1 for each launch of K2a, K2b
+    and K2c that took the wide path (1024 states) and 0 for the others
+    (216 and 256 states); every launch counts in ``launches``."""
+    s = _card_scores(n_base, state_len, 40, 8, seed=3)
+    before = (crf_cuda.crf_decode.launches_wide,
+              crf_cuda.backward_scan.launches,
+              crf_cuda.forward_viterbi.launches,
+              crf_cuda.viterbi_traceback.launches)
+    crf_cuda.decode_paths_cuda(s, n_base, state_len)
+    torch.cuda.synchronize()
+    after = (crf_cuda.crf_decode.launches_wide,
+             crf_cuda.backward_scan.launches,
+             crf_cuda.forward_viterbi.launches,
+             crf_cuda.viterbi_traceback.launches)
+    assert [a - b for a, b in zip(after, before)] == [3 * wide, 1, 1, 1]
+
+
+def test_the_wide_path_refuses_what_it_does_not_take(cuda):
+    """Past 1024 states (NACGTX at state_len 4: 1296) the decode raises
+    with the wide rule; the q-score variant of K2b, the loss's forward
+    scan and the beam keep the first path's rule."""
+    s = _card_scores(5, 4, 8, 2, seed=5)
+    with pytest.raises(RuntimeError, match="n_state <= 1024"):
+        crf_cuda.decode_paths_cuda(_card_scores(6, 4, 8, 2, seed=5), 6, 4)
+    betas = crf_cuda.backward_scan(s, 5, 4)        # 625 states: wide
+    logz = crf.logz_from_betas(betas)
+    with pytest.raises(RuntimeError, match="n_state <= 256"):
+        crf_cuda.forward_viterbi_qual(s, betas, logz, 5, 4)
+    with pytest.raises(RuntimeError, match="n_state <= 256"):
+        crf_cuda.forward_scan(s, 5, 4)
+
+
+# sha256 of betas, v_final, backpointers and labels of K2a, K2b and K2c at
+# the first path's shapes, on scores of integer thousandths drawn on the
+# host (``tools/k2_turns.py::first_path_inputs``), as the kernels before
+# the wide path gave them on an H100 80GB HBM3 (``k2_turns --baseline``)
+_FIRST_PATH_SHA256 = {
+    (6, 3): "4be8347276b89522352c869260d974779e3eff90a75a8aca3f775d5efa63f185",
+    (4, 4): "b6f75ea38c752becfb2692c9a471b24a3fc0333a04f4b1097b43978eaf86f592",
+}
+
+
+@pytest.mark.parametrize("n_base,state_len", sorted(_FIRST_PATH_SHA256))
+def test_decode_kernels_of_the_first_path_keep_their_bits(cuda, n_base,
+                                                          state_len):
+    """At 216 and 256 states the decode runs the kernels it ran before the
+    wide path, bit for bit: the digests of their outputs are those the
+    kernels before it gave."""
+    from xna_basecaller_tpu_torch.tools import k2_turns
+    s = k2_turns.first_path_inputs(n_base, state_len).to(cuda)
+    betas = crf_cuda.backward_scan(s, n_base, state_len)
+    bp, v = crf_cuda.forward_viterbi(s, betas, crf.logz_from_betas(betas),
+                                     n_base, state_len)
+    labels = crf_cuda.viterbi_traceback(bp, v, n_base, state_len)
+    assert k2_turns.digest(betas, v, bp, labels) == \
+        _FIRST_PATH_SHA256[(n_base, state_len)]
+
+
+def test_k1_at_1024_takes_narrow_and_is_bit_repeatable(cuda):
+    """K1 at the R10.4.1 sup model's width and batch (H=1024, N=256) over
+    its 2000-step chain: Narrow's geometry (two tiles of 128 rows, 128
+    CTAs, co-resident), one launch a call on it, the same bits twice, and
+    the plain version's values within bf16's 2e-2."""
+    geo = lstm_cuda.bf16_geometry(256, 1024)
+    assert (geo["wide"], geo["rows"], geo["ctas"]) == (0, 128, 128)
+    xp, w = _lstm_inputs(2000, 256, 1024, seed=11, device=cuda,
+                         dtype=torch.bfloat16)
+    k1 = lstm_cuda.lstm_recurrence
+    before = (k1.launches, k1.launches_wide)
+    first = k1(xp, w, True)
+    assert torch.equal(k1(xp, w, True), first)
+    assert (k1.launches, k1.launches_wide) == (before[0] + 2, before[1])
+    torch.testing.assert_close(first.float(),
+                               lstm.lstm_recurrence(xp, w, True).float(),
+                               rtol=0, atol=2e-2)
+
 # The CRF scans' ring of score rows (csrc/crf_ring.cuh) is _RING_D stages
 # deep: T at its edges (below, at and one past the depth), and
 # T=300.  N: one row; 75, the last basecall batch of chip_smoke.py's reads;

@@ -54,6 +54,14 @@
 // states (96 independent loads at a time, off the walk's chain) and write
 // probs[n, t] = expf(edge) in f32.  Without QUAL both kernels compile as
 // before, their outputs bit for bit the same.
+//
+// The wide path (past supported()'s 256 states: up to 1024 states and 5120
+// scores a frame, NACGT at state_len 5): K2a and K2b as the same kernels
+// on another block shape (ScanShape: WideShape, several states a thread on
+// a shallower ring); K2c as crf_traceback_kernel, whose chunks of bp rows
+// are sized by n_state.  At T=2000, N=256 (the R10.4.1 sup model's batch)
+// the scores are 10.5 GB: K2a and K2b each must read them once, 3.1 ms at
+// 3.35 TB/s.  The q-score variants keep supported()'s shapes.
 
 #include <cuda_runtime.h>
 
@@ -69,33 +77,53 @@ namespace {
 constexpr int kTbThreads = 128;              // K2c: a walker warp, 3 copiers
 constexpr int kTbChunkBytes = 48 * 1024;     // K2c: a chunk of bp rows
 
+// The shape of a block of K2a and K2b: Threads threads a sequence, each
+// of Spt states (j = threadIdx.x + k Threads), on a ring of Stages stages,
+// with Blocks blocks an SM in the launch bounds.  supported()'s shapes
+// take FirstShape, a thread a state on kRingStages stages; the wide path
+// takes WideShape (below).
+template <int Threads, int Spt, int Stages, int Blocks>
+struct ScanShape {
+  static constexpr int threads = Threads, spt = Spt, stages = Stages,
+                       blocks = Blocks;
+};
+using FirstShape = ScanShape<kThreads, 1, kRingStages, 1>;
+
 // K2a: betas [T+1, N, ns] with betas[t] = beta_t and betas[T] = 0.
 //   beta_t[k] = lse(stay: Ms[t,k,0] + beta_{t+1}[k],
 //                   move: lse_b(Ms[t, m*nb+b, 1+i] + beta_{t+1}[m*nb+b]))
-// with k = i*nsd + m (crf.py::_bwd_step).  Step s reads the row of t =
-// T-1-s from the ring (crf_ring.cuh) of D stages, by route R; n_base is NB,
-// or nb_arg when NB is 0.
-template <int R, int NB>
-__global__ void __launch_bounds__(kThreads)
+// with k = i*nsd + m (crf.py::_bwd_step), for each of a thread's states.
+// Step s reads the row of t = T-1-s from the ring (crf_ring.cuh) of D
+// stages, by route R; n_base is NB, or nb_arg when NB is 0.
+template <class S, int R, int NB>
+__global__ void __launch_bounds__(S::threads, S::blocks)
 crf_backward_kernel(const float* __restrict__ scores,
                     float* __restrict__ betas, int T, int N, int nb_arg,
                     int ns) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = NB ? NB : nb_arg;
   const int nb1 = nb + 1, C = ns * nb1, nsd = ns / nb;
-  RowRing<R> ring(smem, C);
-  constexpr int D = kRingStages;
+  RowRing<R, S::stages> ring(smem, C);
+  constexpr int D = S::stages;
   float* beta_s = ring.end();    // [2][ns]
-  const int n = blockIdx.x, j = threadIdx.x;
-  const int i = j / nsd, m = j % nsd;   // outside the loop, or it is redone
+  const int n = blockIdx.x;
+  int js[S::spt], is[S::spt], ms_[S::spt];   // outside the loop, or redone
+#pragma unroll
+  for (int k = 0; k < S::spt; ++k) {
+    js[k] = threadIdx.x + k * S::threads;
+    is[k] = js[k] / nsd;
+    ms_[k] = js[k] % nsd;
+  }
   const size_t row_stride = (size_t)N * C;
   const float* last = scores + ((size_t)(T - 1) * N + n) * C;
 
   ring.init();
-  if (j < ns) {
-    beta_s[j] = 0.0f;
-    betas[((size_t)T * N + n) * ns + j] = 0.0f;
-  }
+#pragma unroll
+  for (int k = 0; k < S::spt; ++k)
+    if (js[k] < ns) {
+      beta_s[js[k]] = 0.0f;
+      betas[((size_t)T * N + n) * ns + js[k]] = 0.0f;
+    }
   __syncthreads();
   for (int s = 0; s < D - 1; ++s) {
     if (s < T)
@@ -113,19 +141,23 @@ crf_backward_kernel(const float* __restrict__ scores,
     else
       ring.skip();
     const float* ms = ring.row(s);
-    if (j < ns) {
-      const float* beta = beta_s + cur * ns;
-      float vals[kMaxCols];
+    const float* beta = beta_s + cur * ns;
 #pragma unroll
-      for (int b = 0; b < kMaxCols; ++b)
-        if (b < nb)
-          vals[b] = ms[(m * nb + b) * nb1 + 1 + i] + beta[m * nb + b];
-      float pair[2];
-      pair[0] = ms[j * nb1] + beta[j];
-      pair[1] = lse_n(vals, nb);
-      const float out = lse_n(pair, 2);
-      beta_s[(cur ^ 1) * ns + j] = out;
-      betas[((size_t)t * N + n) * ns + j] = out;
+    for (int k = 0; k < S::spt; ++k) {
+      const int j = js[k], i = is[k], m = ms_[k];
+      if (j < ns) {
+        float vals[kMaxCols];
+#pragma unroll
+        for (int b = 0; b < kMaxCols; ++b)
+          if (b < nb)
+            vals[b] = ms[(m * nb + b) * nb1 + 1 + i] + beta[m * nb + b];
+        float pair[2];
+        pair[0] = ms[j * nb1] + beta[j];
+        pair[1] = lse_n(vals, nb);
+        const float out = lse_n(pair, 2);
+        beta_s[(cur ^ 1) * ns + j] = out;
+        betas[((size_t)t * N + n) * ns + j] = out;
+      }
     }
     ring.land_next();
     __syncthreads();
@@ -138,14 +170,15 @@ crf_backward_kernel(const float* __restrict__ scores,
 //   with p_0 = j and p_{1+i} = i*nsd + j/nb;
 //   c_k = v_t[p_k] + log(exp((a_k + beta_{t+1}[j]) - logZ) + 1e-8);
 //   v_{t+1}[j] = max_k c_k, bp[t,n,j] = the first k at it (k = 0 first);
-//   alpha_{t+1}[j] = lse(a_0 .. a_nb), in order.
-// Step t reads its span from the ring (crf_ring.cuh) of D stages, by route
-// R: the score row of t and, where BS, the row beta_{t+1} after it;
-// without BS each thread loads its beta_{t+2} during step t.  n_base is
-// NB, or nb_arg when NB is 0.  With QUAL, edge_sel[t, n, j] is the edge
-// (a_k + beta_{t+1}[j]) - logZ of the chosen k.
-template <int R, int NB, bool BS, bool QUAL = false>
-__global__ void __launch_bounds__(kThreads)
+//   alpha_{t+1}[j] = lse(a_0 .. a_nb), in order;
+// for each of a thread's states.  Step t reads its span from the ring
+// (crf_ring.cuh) of D stages, by route R: the score row of t and, where
+// BS, the row beta_{t+1} after it; without BS each thread loads its
+// beta_{t+2} during step t.  n_base is NB, or nb_arg when NB is 0.  With
+// QUAL, edge_sel[t, n, j] is the edge (a_k + beta_{t+1}[j]) - logZ of the
+// chosen k.
+template <class S, int R, int NB, bool BS, bool QUAL = false>
+__global__ void __launch_bounds__(S::threads, S::blocks)
 crf_fwd_viterbi_kernel(const float* __restrict__ scores,
                        const float* __restrict__ betas,
                        const float* __restrict__ logz,
@@ -155,15 +188,20 @@ crf_fwd_viterbi_kernel(const float* __restrict__ scores,
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = NB ? NB : nb_arg;
   const int nb1 = nb + 1, C = ns * nb1, nsd = ns / nb;
-  RowRing<R> ring(smem, BS ? C + ns : C);
-  constexpr int D = kRingStages;
+  RowRing<R, S::stages> ring(smem, BS ? C + ns : C);
+  constexpr int D = S::stages;
   float2* av_s = reinterpret_cast<float2*>(ring.end());   // [2][ns]
-  const int n = blockIdx.x, j = threadIdx.x;
-  const int q = j / nb;   // outside the loop, or it is redone
+  const int n = blockIdx.x;
+  int js[S::spt], qs[S::spt];   // outside the loop, or redone
+#pragma unroll
+  for (int k = 0; k < S::spt; ++k) {
+    js[k] = threadIdx.x + k * S::threads;
+    qs[k] = js[k] / nb;
+  }
   const size_t row_stride = (size_t)N * C, beta_stride = (size_t)N * ns;
   const float* base = scores + (size_t)n * C;
   const float* beta1 = betas + beta_stride + (size_t)n * ns;   // beta_1
-  uint8_t* bpj = bp + (size_t)n * ns + j;
+  uint8_t* bpn = bp + (size_t)n * ns;
   const float lz = logz[n];
   const auto fetch = [&](int t) {
     if constexpr (BS)
@@ -174,7 +212,9 @@ crf_fwd_viterbi_kernel(const float* __restrict__ scores,
   };
 
   ring.init();
-  if (j < ns) av_s[j] = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int k = 0; k < S::spt; ++k)
+    if (js[k] < ns) av_s[js[k]] = make_float2(0.0f, 0.0f);
   __syncthreads();
   for (int t = 0; t < D - 1; ++t) {
     if (t < T)
@@ -182,8 +222,10 @@ crf_fwd_viterbi_kernel(const float* __restrict__ scores,
     else
       ring.skip();
   }
-  float beta_next = 0.0f;   // without BS
-  if (!BS && j < ns) beta_next = beta1[j];
+  float beta_next[S::spt];   // without BS
+#pragma unroll
+  for (int k = 0; k < S::spt; ++k)
+    beta_next[k] = !BS && js[k] < ns ? beta1[js[k]] : 0.0f;
   ring.land_next();
   __syncthreads();
 
@@ -193,50 +235,61 @@ crf_fwd_viterbi_kernel(const float* __restrict__ scores,
       fetch(t + D - 1);
     else
       ring.skip();
-    float beta_after = 0.0f;
-    if (!BS && t + 1 < T && j < ns)
-      beta_after = beta1[(t + 1) * beta_stride + j];
+    float beta_after[S::spt];
+#pragma unroll
+    for (int k = 0; k < S::spt; ++k)
+      beta_after[k] = !BS && t + 1 < T && js[k] < ns
+                          ? beta1[(t + 1) * beta_stride + js[k]]
+                          : 0.0f;
     const float* ms = ring.row(t);
-    if (j < ns) {
-      const float bn = BS ? ms[C + j] : beta_next;
-      const float* msj = ms + j * nb1;
-      const float2* av = av_s + cur * ns;
-      float a[kMaxCols], v[kMaxCols];
-      float2 p = av[j];
-      a[0] = p.x + msj[0];
-      v[0] = p.y;
+    const float2* av = av_s + cur * ns;
 #pragma unroll
-      for (int i = 0; i < kMaxCols - 1; ++i)
-        if (i < nb) {
-          p = av[i * nsd + q];
-          a[1 + i] = p.x + msj[1 + i];
-          v[1 + i] = p.y;
-        }
-      const float e0 = (a[0] + bn) - lz;
-      float best = v[0] + logf(expf(e0) + 1e-8f);
-      float best_e = e0;   // QUAL only
-      int best_k = 0;
+    for (int k = 0; k < S::spt; ++k) {
+      const int j = js[k], q = qs[k];
+      if (j < ns) {
+        const float bn = BS ? ms[C + j] : beta_next[k];
+        const float* msj = ms + j * nb1;
+        float a[kMaxCols], v[kMaxCols];
+        float2 p = av[j];
+        a[0] = p.x + msj[0];
+        v[0] = p.y;
 #pragma unroll
-      for (int k = 1; k < kMaxCols; ++k)
-        if (k <= nb) {
-          const float e = (a[k] + bn) - lz;
-          const float cand = v[k] + logf(expf(e) + 1e-8f);
-          if (cand > best) {
-            best = cand;
-            best_k = k;
-            if constexpr (QUAL) best_e = e;
+        for (int i = 0; i < kMaxCols - 1; ++i)
+          if (i < nb) {
+            p = av[i * nsd + q];
+            a[1 + i] = p.x + msj[1 + i];
+            v[1 + i] = p.y;
           }
-        }
-      av_s[(cur ^ 1) * ns + j] = make_float2(lse_n(a, nb1), best);
-      bpj[t * beta_stride] = (uint8_t)best_k;
-      if constexpr (QUAL)
-        edge_sel[(t * (size_t)N + n) * ns + j] = best_e;
+        const float e0 = (a[0] + bn) - lz;
+        float best = v[0] + logf(expf(e0) + 1e-8f);
+        float best_e = e0;   // QUAL only
+        int best_k = 0;
+#pragma unroll
+        for (int c = 1; c < kMaxCols; ++c)
+          if (c <= nb) {
+            const float e = (a[c] + bn) - lz;
+            const float cand = v[c] + logf(expf(e) + 1e-8f);
+            if (cand > best) {
+              best = cand;
+              best_k = c;
+              if constexpr (QUAL) best_e = e;
+            }
+          }
+        av_s[(cur ^ 1) * ns + j] = make_float2(lse_n(a, nb1), best);
+        bpn[t * beta_stride + j] = (uint8_t)best_k;
+        if constexpr (QUAL)
+          edge_sel[(t * (size_t)N + n) * ns + j] = best_e;
+      }
     }
-    beta_next = beta_after;
+#pragma unroll
+    for (int k = 0; k < S::spt; ++k) beta_next[k] = beta_after[k];
     ring.land_next();
     __syncthreads();
   }
-  if (j < ns) v_final[(size_t)n * ns + j] = av_s[(T & 1) * ns + j].y;
+#pragma unroll
+  for (int k = 0; k < S::spt; ++k)
+    if (js[k] < ns)
+      v_final[(size_t)n * ns + js[k]] = av_s[(T & 1) * ns + js[k]].y;
 }
 
 // K2c's layout in shared memory: rows of a chunk at a stride of ns rounded
@@ -381,48 +434,87 @@ crf_traceback_kernel(const uint8_t* __restrict__ bp,
   if (tid >= 32) write(n_chunks - 1);
 }
 
+// The wide path of K2a and K2b: n_state past supported()'s 256, up to
+// kWideStates, with rows of up to kWideMaxRow floats (NACGT at state_len 5:
+// 1024 states x 5 columns, a 20 KB score row).  The same kernels as the
+// first path on WideShape: 512 threads of 2 states a sequence on a ring of
+// 4 stages, so that 2 blocks share an SM and a batch of 256 sequences is
+// one wave on the card's 132 SMs (8 stages of K2b's 24 KB span, 192 KB,
+// would leave one block an SM and two waves).  Bound on the card at
+// T=2000, N=256 (bytes, read once): K2a 3.76 ms, K2b 3.91 ms.  The shape
+// was chosen by timing the alternatives in turns (tools/k2_turns.py, H100,
+// N=256): 512 threads of 2 states K2a 4.62, K2b 6.17 ms; 1024 of 1 (32
+// registers, K2b spilling) 4.64, 6.34; 256 of 4 4.75, 6.21; 1024 of 1 on 8
+// stages, one block an SM (two waves) 4.59, 6.49.  K2c takes these shapes
+// with its own kernel: its chunks of bp rows are sized by n_state.
+using WideShape = ScanShape<512, 2, 4, 2>;
+constexpr int kWideStates = 1024;    // most states
+constexpr int kWideMaxRow = 5120;    // floats of a score row
+static_assert(WideShape::threads * WideShape::spt >= kWideStates,
+              "a state for every thread's slot");
+
+// The shapes of the wide path: those supported() refuses, n_state a
+// multiple of n_base, at most kWideStates states and kWideMaxRow floats a
+// row.
+bool supported_wide(int T, int N, int nb, int ns) {
+  return !supported(T, N, nb, ns) && T >= 1 && N >= 1 && nb >= 1 &&
+         nb + 1 <= kMaxCols && ns >= nb && ns <= kWideStates &&
+         ns % nb == 0 && ns * (nb + 1) <= kWideMaxRow;
+}
+
 // K2b, and with edge_sel (non-null) its q-score variant.
 int fwd_viterbi(const void* scores, const void* betas, const void* logz,
                 void* bp, void* v_final, void* edge_sel, int T, int N, int nb,
-                int ns, void* stream) {
-  if (!supported(T, N, nb, ns)) return -2;
+                int ns, void* stream, int* wide) {
+  if (wide) *wide = 0;
+  const bool on_wide = !edge_sel && supported_wide(T, N, nb, ns);
+  if (!supported(T, N, nb, ns) && !on_wide) return -2;
   const int C = ns * (nb + 1);
   const int route = ring_route(scores, C);
   if (route < 0) return -3;
   // beta_{t+1} joins the span where its rows take the bulk copy too
   const bool span = route == kBulk && ns % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(betas) % 16 == 0;
-  const size_t smem =
-      ring_bytes(span ? C + ns : C) + 2 * (size_t)ns * sizeof(float2);
-  return ring_dispatch(route, nb, [&](auto r, auto b) {
-    constexpr int R = decltype(r)::value, NB = decltype(b)::value;
-    const auto launch = [&](auto kernel) {
-      return ring_launch(kernel, N, kThreads, smem, stream,
-                         static_cast<const float*>(scores),
-                         static_cast<const float*>(betas),
-                         static_cast<const float*>(logz),
-                         static_cast<uint8_t*>(bp),
-                         static_cast<float*>(v_final),
-                         static_cast<float*>(edge_sel), T, N, nb, ns);
-    };
-    if (edge_sel) {
+  if (wide) *wide = on_wide;
+  const auto run = [&](auto shape) {
+    using S = decltype(shape);
+    const size_t smem = ring_bytes(span ? C + ns : C, S::stages) +
+                        2 * (size_t)ns * sizeof(float2);
+    return ring_dispatch(route, nb, [&](auto r, auto b) {
+      constexpr int R = decltype(r)::value, NB = decltype(b)::value;
+      const auto launch = [&](auto kernel) {
+        return ring_launch(kernel, N, S::threads, smem, stream,
+                           static_cast<const float*>(scores),
+                           static_cast<const float*>(betas),
+                           static_cast<const float*>(logz),
+                           static_cast<uint8_t*>(bp),
+                           static_cast<float*>(v_final),
+                           static_cast<float*>(edge_sel), T, N, nb, ns);
+      };
+      if constexpr (std::is_same_v<S, FirstShape>)
+        if (edge_sel) {
+          if constexpr (R == kBulk)
+            if (span)
+              return launch(crf_fwd_viterbi_kernel<S, R, NB, true, true>);
+          return launch(crf_fwd_viterbi_kernel<S, R, NB, false, true>);
+        }
       if constexpr (R == kBulk)
-        if (span) return launch(crf_fwd_viterbi_kernel<R, NB, true, true>);
-      return launch(crf_fwd_viterbi_kernel<R, NB, false, true>);
-    }
-    if constexpr (R == kBulk)
-      if (span) return launch(crf_fwd_viterbi_kernel<R, NB, true>);
-    return launch(crf_fwd_viterbi_kernel<R, NB, false>);
-  });
+        if (span) return launch(crf_fwd_viterbi_kernel<S, R, NB, true>);
+      return launch(crf_fwd_viterbi_kernel<S, R, NB, false>);
+    });
+  };
+  return on_wide ? run(WideShape{}) : run(FirstShape{});
 }
 
 // K2c, and with edge_sel and probs (non-null) its q-score variant.
 int traceback(const void* bp, const void* v_final, const void* edge_sel,
               void* labels, void* probs, int T, int N, int nb, int ns,
-              void* stream) {
-  if (!supported(T, N, nb, ns)) return -2;
-  const int Tc = tb_chunk(T, ns), width = tb_width(bp, ns);
+              void* stream, int* wide) {
   const bool qual = edge_sel != nullptr;
+  const bool on_wide = !qual && supported_wide(T, N, nb, ns);
+  if (wide) *wide = on_wide;
+  if (!supported(T, N, nb, ns) && !on_wide) return -2;
+  const int Tc = tb_chunk(T, ns), width = tb_width(bp, ns);
   return nb_dispatch(nb, [&](auto b) {
     constexpr int NB = decltype(b)::value;
     const auto launch = [&](auto kernel) {
@@ -449,27 +541,37 @@ extern "C" {
 // Each entry point returns 0, a cudaError_t, -2 (unsupported shape), or,
 // for the ring's scans, -3 (scores not 8-byte aligned).
 // All tensors are contiguous; scores are f32 [T, N, ns * (nb + 1)].
+// wide: null, or receives 1 where the launch took the wide path (K2a, K2b
+// and K2c past supported()'s shapes, supported_wide), else 0; the q-score
+// variants keep supported()'s shapes.
 
 int xna_crf_backward(const void* scores, void* betas, int T, int N, int nb,
-                     int ns, void* stream) {
-  if (!supported(T, N, nb, ns)) return -2;
+                     int ns, void* stream, int* wide) {
+  if (wide) *wide = 0;
+  const bool on_wide = supported_wide(T, N, nb, ns);
+  if (!supported(T, N, nb, ns) && !on_wide) return -2;
   const int C = ns * (nb + 1);
-  const size_t smem = ring_bytes(C) + 2 * (size_t)ns * 4;
   const int route = ring_route(scores, C);
   if (route < 0) return -3;
-  return ring_dispatch(route, nb, [&](auto r, auto b) {
-    return ring_launch(
-        crf_backward_kernel<decltype(r)::value, decltype(b)::value>, N,
-        kThreads, smem, stream, static_cast<const float*>(scores),
-        static_cast<float*>(betas), T, N, nb, ns);
-  });
+  if (wide) *wide = on_wide;
+  const auto run = [&](auto shape) {
+    using S = decltype(shape);
+    const size_t smem = ring_bytes(C, S::stages) + 2 * (size_t)ns * 4;
+    return ring_dispatch(route, nb, [&](auto r, auto b) {
+      return ring_launch(
+          crf_backward_kernel<S, decltype(r)::value, decltype(b)::value>, N,
+          S::threads, smem, stream, static_cast<const float*>(scores),
+          static_cast<float*>(betas), T, N, nb, ns);
+    });
+  };
+  return on_wide ? run(WideShape{}) : run(FirstShape{});
 }
 
 int xna_crf_fwd_viterbi(const void* scores, const void* betas,
                         const void* logz, void* bp, void* v_final, int T,
-                        int N, int nb, int ns, void* stream) {
+                        int N, int nb, int ns, void* stream, int* wide) {
   return fwd_viterbi(scores, betas, logz, bp, v_final, nullptr, T, N, nb, ns,
-                     stream);
+                     stream, wide);
 }
 
 // edge_sel f32 [T, N, ns]
@@ -478,13 +580,13 @@ int xna_crf_fwd_viterbi_qual(const void* scores, const void* betas,
                              void* edge_sel, int T, int N, int nb, int ns,
                              void* stream) {
   return fwd_viterbi(scores, betas, logz, bp, v_final, edge_sel, T, N, nb, ns,
-                     stream);
+                     stream, nullptr);
 }
 
 int xna_crf_traceback(const void* bp, const void* v_final, void* labels,
-                      int T, int N, int nb, int ns, void* stream) {
+                      int T, int N, int nb, int ns, void* stream, int* wide) {
   return traceback(bp, v_final, nullptr, labels, nullptr, T, N, nb, ns,
-                   stream);
+                   stream, wide);
 }
 
 // edge_sel f32 [T, N, ns] of the qual K2b; probs f32 [N, T]
@@ -492,7 +594,7 @@ int xna_crf_traceback_qual(const void* bp, const void* v_final,
                            const void* edge_sel, void* labels, void* probs,
                            int T, int N, int nb, int ns, void* stream) {
   return traceback(bp, v_final, edge_sel, labels, probs, T, N, nb, ns,
-                   stream);
+                   stream, nullptr);
 }
 
 const char* xna_error_string(int code) {

@@ -283,6 +283,10 @@ def basecall(model, reads: Iterable, chunksize: int = 3600,
 
     def run(x):
         scores = _forward(members, x, compute_dtype, quantize)
+        with span("basecall.decode"):
+            return decode(scores)
+
+    def decode(scores):
         if qscores:
             paths, probs = _score_and_decode_qual(
                 scores, n_base, state_len, reverse, float(ub_bias), alphabet)

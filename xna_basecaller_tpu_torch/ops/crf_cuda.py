@@ -31,14 +31,24 @@ needs); K2c copies a sequence's backpointers into shared memory in chunks
 while one thread walks them.  The lattice kernels take stay and move packed
 side by side (``lattice_pack``).
 
+The kernels take n_state <= 256 and n_state * (n_base + 1) <= 2048 (one
+thread a state).  K2a, K2b and K2c alone also take up to 1024 states and
+5120 scores a frame (NACGT at state_len 5), on their wide path
+(``csrc/crf_decode.cu``: blocks of 512 threads of 2 states, a ring of 4
+stages); the q-score variants, the beam and the loss kernels keep the
+first rule and raise past it.
+
 Each wrapper takes the plain version in ``ops/crf.py`` for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
-``<wrapper>.launches`` counts its kernel launches.
+``<wrapper>.launches`` counts its kernel launches, and
+``crf_decode.launches_wide`` those of K2a, K2b and K2c that took the wide
+path, as the launch reports it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -48,12 +58,13 @@ from xna_basecaller_tpu_torch.ops import crf
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> (source, argument types)
 _SIGNATURES = {
-    "xna_crf_backward": ("crf_decode", [_P, _P, _I, _I, _I, _I, _P]),
+    "xna_crf_backward": ("crf_decode", [_P, _P, _I, _I, _I, _I, _P, _P]),
     "xna_crf_fwd_viterbi": ("crf_decode",
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "xna_crf_fwd_viterbi_qual": ("crf_decode",
                                  [_P] * 6 + [_I, _I, _I, _I, _P]),
-    "xna_crf_traceback": ("crf_decode", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "xna_crf_traceback": ("crf_decode",
+                          [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "xna_crf_traceback_qual": ("crf_decode",
                                [_P] * 5 + [_I, _I, _I, _I, _P]),
     "xna_crf_beam": ("crf_beam", [_P] * 7 + [_I] * 5 + [_P]),
@@ -66,8 +77,17 @@ _SIGNATURES = {
     "xna_lattice_depth": ("crf_loss", [_I, _I]),
 }
 _MESSAGES = {-2: "shape not supported by the kernel (n_state <= 256, "
-                 "n_base + 1 <= 8, n_state * (n_base + 1) <= 2048)"}
+                 "n_base + 1 <= 8, n_state * (n_base + 1) <= 2048; the "
+                 "Viterbi decode's kernels alone also take up to 1024 states "
+                 "and 5120 scores a frame)"}
 _SCAN_MESSAGES = {**_MESSAGES, -3: "scores not 8-byte aligned"}
+# K2a, K2b and K2c of the Viterbi decode (csrc/crf_decode.cu)
+_DECODE_MESSAGES = {
+    -2: "shape not supported by the Viterbi decode's kernels (n_base + 1 "
+        "<= 8, n_state a multiple of n_base, n_state <= 1024 and n_state * "
+        "(n_base + 1) <= 5120; past 256 states or 2048 scores a frame on "
+        "their wide path)",
+    -3: "scores not 8-byte aligned"}
 # the widest beam the beam kernel takes (``kMaxBeam``, csrc/crf_beam.cu)
 MAX_BEAM_WIDTH = 256
 _LATTICE_MESSAGES = {-2: "lattice not supported by the kernel (1 <= n <= "
@@ -119,10 +139,12 @@ def backward_scan(scores: torch.Tensor, n_base: int, state_len: int):
     ns = n_base ** state_len
     betas = torch.empty(T + 1, N, ns, device=scores.device)
     lib, fn = _fn("xna_crf_backward")
+    wide = ctypes.c_int(0)
     rc = fn(scores.data_ptr(), betas.data_ptr(), T, N, n_base, ns,
-            _stream())
-    _build.check(lib, rc, "crf backward kernel", _SCAN_MESSAGES)
+            _stream(), ctypes.byref(wide))
+    _build.check(lib, rc, "crf backward kernel", _DECODE_MESSAGES)
     backward_scan.launches += 1
+    crf_decode.launches_wide += wide.value
     return betas
 
 
@@ -163,14 +185,16 @@ def _forward_viterbi(scores, betas, logz, n_base, state_len, qual):
         edge_sel = torch.empty(T, N, ns, device=scores.device)
         lib, fn = _fn("xna_crf_fwd_viterbi_qual")
         rc = fn(*ptrs, edge_sel.data_ptr(), T, N, n_base, ns, _stream())
-    else:
-        lib, fn = _fn("xna_crf_fwd_viterbi")
-        rc = fn(*ptrs, T, N, n_base, ns, _stream())
-    _build.check(lib, rc, "crf forward-Viterbi kernel", _SCAN_MESSAGES)
-    if qual:
+        _build.check(lib, rc, "crf forward-Viterbi kernel (q-scores)",
+                     _SCAN_MESSAGES)
         forward_viterbi_qual.launches += 1
         return bp, v_final, edge_sel
+    lib, fn = _fn("xna_crf_fwd_viterbi")
+    wide = ctypes.c_int(0)
+    rc = fn(*ptrs, T, N, n_base, ns, _stream(), ctypes.byref(wide))
+    _build.check(lib, rc, "crf forward-Viterbi kernel", _DECODE_MESSAGES)
     forward_viterbi.launches += 1
+    crf_decode.launches_wide += wide.value
     return bp, v_final
 
 
@@ -181,10 +205,12 @@ def viterbi_traceback(bp: torch.Tensor, v_final: torch.Tensor,
         return crf.viterbi_traceback(bp, v_final, n_base, state_len)
     labels = _traceback_outputs(bp, v_final, n_base, state_len)
     lib, fn = _fn("xna_crf_traceback")
+    wide = ctypes.c_int(0)
     rc = fn(bp.data_ptr(), v_final.data_ptr(), labels.data_ptr(),
-            *bp.shape[:2], n_base, bp.shape[2], _stream())
-    _build.check(lib, rc, "crf traceback kernel", _MESSAGES)
+            *bp.shape[:2], n_base, bp.shape[2], _stream(), ctypes.byref(wide))
+    _build.check(lib, rc, "crf traceback kernel", _DECODE_MESSAGES)
     viterbi_traceback.launches += 1
+    crf_decode.launches_wide += wide.value
     return labels
 
 
@@ -444,6 +470,9 @@ def beam_search(scores: torch.Tensor, alphas: torch.Tensor,
 
 backward_scan.launches = 0
 forward_viterbi.launches = 0
+# K2a's, K2b's and K2c's launches on the wide path, counted again: 1 a
+# launch that reports it took the path, 0 otherwise (csrc/crf_decode.cu)
+crf_decode = SimpleNamespace(launches_wide=0)
 forward_viterbi_qual.launches = 0
 viterbi_traceback.launches = 0
 viterbi_traceback_qual.launches = 0
