@@ -33,16 +33,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      partials of K4 and K2a; then, at the shapes of ONT's R10.4.1 sup
      model (R10_CONFIG: 1024 CRF states, T=2000, N=256, H=1024), K2a, K2b
      and K2c on their wide path on its forward's scores (the wide-path
-     counter reading 3) and K1 in bf16 (twice, bit-equal);
+     counter reading 3) and K1 in bf16 (twice, bit-equal); the CRF
+     head's epilogue kernel against the chain of PyTorch passes at the
+     XNA and R10 heads (HEAD_SHAPES): bit-equal, one launch, on its
+     tiled path as the launch reports;
   3. check the model's scores and labels against the plain CPU path on a
      small input, in f32 and quantized; the quantized model's scores
      against the bf16 model's on one batch; ``int8_matmul`` (cuBLASLt)
      against the CPU;
   4. set every launch count to 0, basecall simulated reads through
-     ``infer.basecall.run_basecaller``, read the counts, check every read;
-     then the same with ``quantize=True`` (K7 five times a batch, K1 not
-     at all); 4c. with ``qscores=True`` (K2a, the q-score K2b and K2c once
-     a batch, no Viterbi K2b or K2c) and ``beam_width=PIPELINE_BEAM`` (K4,
+     ``infer.basecall.run_basecaller``, read the counts (the CRF head's
+     kernel once a batch, on its tiled path), check every read; then the
+     same with ``quantize=True`` (K7 five times a batch, K1 not at all,
+     the head's kernel on the f32 product once a batch); 4c. with
+     ``qscores=True`` (K2a, the q-score K2b and K2c once a batch, no
+     Viterbi K2b or K2c) and ``beam_width=PIPELINE_BEAM`` (K4,
      K2a and the beam kernel once a batch), each read's qstring as long
      as its sequence and valid phred characters, the mean q printed;
      4d. with the counts set to 0, ``superbatch=2`` (two batches an
@@ -128,7 +133,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      records carry MM/ML tags, and a read's site probabilities on the card
      equal the CPU's within 1e-5; ``call_mods``' time a read;
   8h. ``read_transition_probs`` on the card held to the CPU's plain route
-     (K1's f32 route and K2a), its stages; each pair through
+     (K1's f32 route, the head's kernel on the f32 product once, and
+     K2a), its stages; each pair through
      ``decode_pair``'s steps one at a time: the card's time a read, the
      host's simplex decodes, NW + envelope and pair Viterbi (with its
      cells), and the exit the pair takes; with the launch counts set to
@@ -152,7 +158,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      reproducing the winner's summary; ``forensics`` on tables the phase
      writes; ``convert`` where h5py is installed;
   9. time each kernel, its plain version and its library yardstick with
-     CUDA events: K1, K3a and K3b beside the port's like-for-like layer
+     CUDA events: the CRF head's epilogue kernel and the chain of PyTorch
+     passes it replaced as medians of 21 in turns at HEAD_SHAPES (the
+     ``kernels`` line has the XNA head's); K1, K3a and K3b beside the
+     port's like-for-like layer
      and cuDNN's ``nn.LSTM`` (flattened weights) as medians of 21 calls
      taken in turns, and K1's f32 route at duplex's 8 rows beside the
      port's f32 projection + K1 and cuDNN's f32 ``nn.LSTM`` (TF32 off),
@@ -886,6 +895,93 @@ def check_r10_wide_path(dev) -> dict:
     if not torch.equal(again, got):
         fail("K1 bf16 at H=1024 is not bit-repeatable")
     out["K1-1024_err"] = err
+    return out
+
+
+# phases 2 and 9: the CRF head's epilogue at the heads of the XNA model's
+# batch of 384 (NACGTXY at state_len 3: 1296 products, 1512 scores a
+# frame) and of the R10.4.1 sup model's batch of 256 (NACGT at state_len 5:
+# 4096 products, 5120 scores a frame), T, N, n_base, C
+HEAD_SHAPES = {"XNA": (720, 384, 6, 1296), "R10": (2000, 256, 4, 4096)}
+# phase 9: calls a timed sample of the head's kernel: back to back, so that
+# its wrapper's ~30 us of host time a call (a tenth of the kernel at the
+# XNA head) does not show, as it does not behind the head's product
+HEAD_BURST = 5
+
+
+def head_inputs(T, N, C, seed):
+    """A head product [T, N, C] in bf16 from LSTM-like features (|x| < 1)
+    and a head weight of the init's range, and a bias, made on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    H = 1024
+    x = torch.tanh(torch.randn(T * N, H, device="cuda", generator=g))
+    w = (torch.rand(H, C, device="cuda", generator=g) * 2 - 1) \
+        * math.sqrt(6.0 / H)
+    p = (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).view(T, N, C)
+    b = ((torch.rand(C, device="cuda", generator=g) * 2 - 1)
+         / math.sqrt(H)).to(torch.bfloat16)
+    return p, b
+
+
+@torch.inference_mode()
+def check_crf_head(shape) -> float:
+    """The CRF head's kernel against the chain of PyTorch passes at one of
+    HEAD_SHAPES, scale 5 and blank 2: bit-equal, one launch, on its tiled
+    path as the launch reports; -> the largest difference (0)."""
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    T, N, nb, C = HEAD_SHAPES[shape]
+    p, b = head_inputs(T, N, C, SEED)
+    k = crf_head.crf_head_epilogue
+    before, before_tiled = k.launches, k.launches_tiled
+    got = k(p, b, 5.0, 2.0, nb)
+    torch.cuda.synchronize()
+    launches, tiled = k.launches - before, k.launches_tiled - before_tiled
+    want = crf_head.crf_head_chain(p, b, 5.0, 2.0, nb)
+    differ = (got != want).sum().item()
+    print(f"CRF head epilogue at the {shape} head {tuple(p.shape)} -> "
+          f"{tuple(got.shape)}: launches {launches}, on its tiled path "
+          f"{tiled} (expected 1 and 1), scores differing from the chain's "
+          f"{differ} (tolerance 0)")
+    if launches != 1 or tiled != 1:
+        fail(f"the CRF head's kernel at the {shape} head took {launches} "
+             f"launches, {tiled} on its tiled path")
+    if differ or got.shape != want.shape:
+        fail(f"the CRF head's kernel at the {shape} head differs from the "
+             "chain")
+    return (got - want).abs().max().item()
+
+
+def head_bound(T, N, nb, C):
+    """The epilogue's bound: the bf16 product and bias read, the f32 scores
+    written; an add, a tanh and a multiply a product."""
+    return bound(2 * T * N * C + 2 * C + 4 * T * N * C // nb * (nb + 1),
+                 3 * T * N * C, PEAK_F32)
+
+
+@torch.inference_mode()
+def time_crf_head(card: str) -> dict:
+    """The CRF head's kernel and the chain of PyTorch passes it replaced,
+    medians of 21 samples of HEAD_BURST calls in turns at each of
+    HEAD_SHAPES, beside the bound; -> {shape: (kernel ms, chain ms)}."""
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    out = {}
+    for shape, (T, N, nb, C) in HEAD_SHAPES.items():
+        p, b = head_inputs(T, N, C, SEED + 1)
+        t = in_turns({
+            "kernel": lambda: crf_head.crf_head_epilogue(p, b, 5.0, 2.0, nb),
+            "chain": lambda: crf_head.crf_head_chain(p, b, 5.0, 2.0, nb)},
+            burst=HEAD_BURST)
+        b_ms, _ = head_bound(T, N, nb, C)
+        print(f"time CRF head epilogue at the {shape} head {(T, N, C)}, "
+              f"medians of 21 samples of {HEAD_BURST} calls in turns: "
+              f"kernel {t['kernel']:.3f} ms, the "
+              f"chain of PyTorch passes {t['chain']:.3f} ms; bound "
+              f"{b_ms:.3f} ms (bytes), kernel at "
+              f"{b_ms / t['kernel'] * 100:.1f} % of it, on {card}")
+        out[shape] = (t["kernel"], t["chain"])
+        del p, b
     return out
 
 
@@ -3310,7 +3406,7 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
     from xna_basecaller_tpu_torch.infer.basecall import basecall
     from xna_basecaller_tpu_torch.infer import pair_decode as pdec
     from xna_basecaller_tpu_torch.models.crf_model import Model
-    from xna_basecaller_tpu_torch.ops import crf_cuda, lstm_cuda
+    from xna_basecaller_tpu_torch.ops import crf_cuda, crf_head, lstm_cuda
     from xna_basecaller_tpu_torch.utils.model_io import load_model
 
     t_phase = time.perf_counter()
@@ -3321,9 +3417,11 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
     # the f32 route on the card against the CPU's plain route, one read
     lstm_cuda.lstm_recurrence.launches = 0
     crf_cuda.backward_scan.launches = 0
+    crf_head.crf_head_epilogue.launches = 0
     tg, ig = pdec.read_transition_probs(model, reads[0].signal)
     f32_launches = {"K1 f32": lstm_cuda.lstm_recurrence.launches,
-                    "K2a": crf_cuda.backward_scan.launches}
+                    "K2a": crf_cuda.backward_scan.launches,
+                    "head f32": crf_head.crf_head_epilogue.launches}
     cpu = Model(cfg, device="cpu", seed=None)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     tc, ic = pdec.read_transition_probs(cpu, reads[0].signal)
@@ -3335,6 +3433,8 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
           f"initial {err_i:.3e} (tolerance 1e-3); launches {f32_launches}")
     if err > 1e-3 or err_i > 1e-3:
         fail("read_transition_probs on the card disagrees with the CPU")
+    if f32_launches["head f32"] != 1:
+        fail("the f32 forward did not launch the head's kernel once")
     # read_transition_probs' stages on one read (CUDA events; the fetch
     # and the host's log by host clock)
     from xna_basecaller_tpu_torch.data import chunkops
@@ -3839,7 +3939,7 @@ def main() -> int:
         QUANT_SCALE, Model, crf_head_forward,
     )
     from xna_basecaller_tpu_torch.ops import _build, crf, crf_cuda, lstm
-    from xna_basecaller_tpu_torch.ops import lstm_cuda
+    from xna_basecaller_tpu_torch.ops import crf_head, lstm_cuda
     from xna_basecaller_tpu_torch.ops.conv import conv_stack_forward
 
     # -- 1. card and build ---------------------------------------------
@@ -4021,6 +4121,7 @@ def main() -> int:
         dec_errs, dec_inputs = check_decoders(scores, betas, logz, bp,
                                               v_final, labels, nb, sl)
         results.update(check_r10_wide_path(dev))
+        results["head_err"] = max(check_crf_head(k) for k in HEAD_SHAPES)
 
         # -- 3. the model against the plain CPU path, small input --------
         small = batch[:2].float()
@@ -4042,9 +4143,11 @@ def main() -> int:
                 "K2a": crf_cuda.backward_scan,
                 "K2b": crf_cuda.forward_viterbi,
                 "K2c": crf_cuda.viterbi_traceback,
-                "K7": lstm_cuda.lstm_recurrence_int8}
+                "K7": lstm_cuda.lstm_recurrence_int8,
+                "head": crf_head.crf_head_epilogue}
     for w in wrappers.values():
         w.launches = 0
+    crf_head.crf_head_epilogue.launches_tiled = 0
     fastq = io.StringIO()
     stats = run_basecaller(model, iter(reads), fastq, chunksize=chunksize,
                            overlap=overlap, batchsize=batchsize)
@@ -4052,11 +4155,15 @@ def main() -> int:
     print(f"main path: {stats} launches {launches} "
           f"(batches {n_batches})")
     need = {"K1": enc.num_rnn_layers * n_batches, "K2a": n_batches,
-            "K2b": n_batches, "K2c": n_batches}
+            "K2b": n_batches, "K2c": n_batches, "head": n_batches}
     for k, n in need.items():
         if launches[k] < n:
             fail(f"{k} launched {launches[k]} times on the main path, "
                  f"expected {n}")
+    if crf_head.crf_head_epilogue.launches_tiled != launches["head"]:
+        fail(f"the head's kernel took its tiled path "
+             f"{crf_head.crf_head_epilogue.launches_tiled} of "
+             f"{launches['head']} times on the main path")
     lines = fastq.getvalue().split("\n")
     seqs = lines[1::4]
     if stats["reads"] != N_READS or len(seqs) != N_READS \
@@ -4076,7 +4183,8 @@ def main() -> int:
     print(f"quantized path: {stats_q} launches {q_launches} "
           f"(batches {n_batches})")
     need = {"K7": enc.num_rnn_layers * n_batches, "K1": 0,
-            "K2a": n_batches, "K2b": n_batches, "K2c": n_batches}
+            "K2a": n_batches, "K2b": n_batches, "K2c": n_batches,
+            "head": n_batches}
     for k, n in need.items():
         if q_launches[k] != n:
             fail(f"{k} launched {q_launches[k]} times on the quantized path, "
@@ -4223,6 +4331,8 @@ def main() -> int:
             elapsed_ms(lambda: lstm.lstm_recurrence_int8(
                 xq, w_q, scale_q, rev_q), 1), None)
 
+        k_ms, chain_ms = time_crf_head(card)["XNA"]
+        timings["head"] = (k_ms, chain_ms, None)
         scan_t = crf_scan_turns(scores, loss_inputs[0], loss_inputs[5:],
                                 nb, sl, card, baseline)
         for k, v in scan_t.items():
@@ -4417,6 +4527,14 @@ def main() -> int:
         "beam": (f"crf_beam (B={PIPELINE_BEAM})", "crf_beam.cu",
                  "xna_basecaller_tpu/ops/crf.py:629", b_beam,
                  dec_errs["beam"]),
+        # no Pallas counterpart: XLA fuses the head's epilogue in JAX
+        # (models/crf_model.py); its plain_ms is the chain it replaced, at
+        # the XNA head, whose launches phase 4 counts (R10's time is
+        # printed by time_crf_head)
+        "head": ("crf_head_epilogue (XNA head {} x {} x {})".format(
+                     *HEAD_SHAPES["XNA"][:2], HEAD_SHAPES["XNA"][3]),
+                 "crf_head.cu", "xna_basecaller_tpu/models/crf_model.py:78",
+                 head_bound(*HEAD_SHAPES["XNA"]), results["head_err"]),
     }
     launches.update({k: train_launches[k] for k in (
         "K3a", "K3b", "K4", "K5b", "K6a", "K6b")})

@@ -990,3 +990,129 @@ def test_beam_decode_chain_runs_its_kernels(cuda):
     _hold_beam_to_plain((labels, best), s, _beam_inputs(s, 6, 3), 6, 3, 8)
     with pytest.raises(ValueError, match=str(crf_cuda.MAX_BEAM_WIDTH)):
         crf_cuda.decode_beam_cuda(s, 6, 3, crf_cuda.MAX_BEAM_WIDTH + 1)
+
+
+# The CRF head's epilogue (ops/crf_head.py): the kernel against the chain
+# of PyTorch passes on the card, bit for bit.
+
+def _head_product(T, N, C, dtype, seed, offset=0):
+    """A product [T, N, C] and a bias [C] made on the card, with large |x|
+    among them where tanh saturates; the product starts ``offset``
+    elements into its allocation."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    flat = torch.randn(offset + T * N * C, device="cuda", generator=g) * 3
+    flat[::17] *= 40
+    b = torch.randn(C, device="cuda", generator=g)
+    b[::5] *= 30
+    return flat.to(dtype)[offset:].view(T, N, C), b.to(dtype)
+
+
+# (n_base, C) of the three basecall cells' heads: the XNA model (NACGTXY,
+# state_len 3), ONT's hac (NACGT, 4) and ONT's R10.4.1 sup (NACGT, 5); 37 x
+# 13 rows, no multiple of a block's 256 units or of a warp's 32
+_HEAD_SHAPES = [(6, 1296), (4, 1024), (4, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("scale,blank", [(5.0, 2.0), (5.0, None),
+                                         (None, 2.0)])
+@pytest.mark.parametrize("n_base,C", _HEAD_SHAPES)
+def test_crf_head_kernel_is_bit_equal_to_the_chain(cuda, n_base, C, scale,
+                                                   blank, dtype):
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    p, b = _head_product(37, 13, C, dtype, seed=C + n_base)
+    k = crf_head.crf_head_epilogue
+    before, tiled = k.launches, k.launches_tiled
+    got = k(p, b, scale, blank, n_base)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    # without a blank score the plain loop (no cell runs one)
+    assert k.launches_tiled == tiled + (blank is not None)
+    want = crf_head.crf_head_chain(p, b, scale, blank, n_base)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_base,C,offset", [
+    (5, 3125, 0),     # NACGTX at state_len 4: n_base 5 takes the plain loop
+    (6, 36, 0),       # NACGTXY at state_len 1: rows of fewer than a unit
+    (4, 1024, 1),     # a product 2 bytes into its allocation
+])
+def test_crf_head_kernel_other_shapes_take_its_plain_loop(cuda, n_base, C,
+                                                          offset):
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    p, b = _head_product(21, 11, C, torch.bfloat16, seed=C, offset=offset)
+    k = crf_head.crf_head_epilogue
+    before, tiled = k.launches, k.launches_tiled
+    got = k(p, b, 5.0, 2.0, n_base)
+    assert k.launches == before + 1 and k.launches_tiled == tiled
+    assert torch.equal(got, crf_head.crf_head_chain(p, b, 5.0, 2.0, n_base))
+
+
+def test_crf_head_kernel_takes_an_f32_product_with_a_bf16_bias(cuda):
+    """The int8 head's case: the product f32, the bias in x's dtype."""
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    p, _ = _head_product(9, 7, 4096, torch.float32, seed=4)
+    _, b = _head_product(1, 1, 4096, torch.bfloat16, seed=5)
+    tiled = crf_head.crf_head_epilogue.launches_tiled
+    got = crf_head.crf_head_epilogue(p, b, 5.0, 2.0, 4)
+    assert crf_head.crf_head_epilogue.launches_tiled == tiled + 1
+    assert torch.equal(got, crf_head.crf_head_chain(p, b, 5.0, 2.0, 4))
+
+
+@pytest.mark.parametrize("p_dtype,b_dtype", [
+    (torch.float64, torch.float64), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.bfloat16)])
+def test_crf_head_kernel_raises_for_other_dtypes(cuda, p_dtype, b_dtype):
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    p = torch.zeros(4, 3, 1024, dtype=p_dtype, device=cuda)
+    b = torch.zeros(1024, dtype=b_dtype, device=cuda)
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        crf_head.crf_head_epilogue(p, b, 5.0, 2.0, 4)
+
+
+def test_model_forward_launches_the_head_kernel_in_inference_only(cuda):
+    """One launch a bf16 inference forward, scores bit-equal to the chain's
+    (the same head with grad on takes the chain); none in the training
+    forward; one an f32 or int8 inference forward."""
+    from xna_basecaller_tpu_torch.core.config import (
+        EncoderConfig, ModelConfig,
+    )
+    from xna_basecaller_tpu_torch.models.crf_model import (
+        Model, crf_head_forward,
+    )
+    from xna_basecaller_tpu_torch.ops import crf_head
+
+    cfg = ModelConfig(encoder=EncoderConfig(features=64, num_rnn_layers=2))
+    model = Model(cfg, device=cuda, seed=2)
+    sig = torch.randn(6, 1800, device=cuda,
+                      generator=torch.Generator("cuda").manual_seed(3))
+    k = crf_head.crf_head_epilogue
+    before = k.launches
+    with torch.inference_mode():
+        scores = model(sig)
+    assert k.launches == before + 1
+    assert scores.shape == (360, 6, cfg.n_score)
+    x = torch.randn(50, 6, 64, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        fused = crf_head_forward(model.head, model.head_ext, x, cfg)
+    chain = crf_head_forward(model.head, model.head_ext, x, cfg)
+    assert chain.requires_grad and k.launches == before + 2
+    assert torch.equal(fused, chain.detach())
+    model(sig, inference=False).sum().backward()
+    torch.cuda.synchronize()
+    assert k.launches == before + 2
+    assert model.head.w.grad is not None and model.head.b.grad is not None
+    # f32 inference (duplex --pair-decode) and the int8 head take it too
+    with torch.inference_mode():
+        f32 = crf_head_forward(model.head, model.head_ext, x.float(), cfg)
+        crf_head_forward(model.head, model.head_ext, x, cfg, int8=True)
+    assert k.launches == before + 4
+    f32_chain = crf_head_forward(model.head, model.head_ext, x.float(), cfg)
+    assert k.launches == before + 4
+    assert torch.equal(f32, f32_chain.detach())

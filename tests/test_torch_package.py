@@ -97,8 +97,8 @@ def test_no_pandas_and_no_module_scope_h5py():
 def test_nothing_built_at_import():
     # importing every module builds no kernel (nvcc runs at first use)
     assert _build.build_log() == ""
-    assert set(_build.sources()) == {"crf_beam", "crf_decode", "crf_loss",
-                                     "lstm_backward", "lstm_int8",
+    assert set(_build.sources()) == {"crf_beam", "crf_decode", "crf_head",
+                                     "crf_loss", "lstm_backward", "lstm_int8",
                                      "lstm_recurrence"}
 
 

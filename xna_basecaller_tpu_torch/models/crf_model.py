@@ -33,6 +33,9 @@ from xna_basecaller_tpu_torch.ops import crf as crf_ops
 from xna_basecaller_tpu_torch.ops.conv import (
     conv_stack, conv_stack_forward, init_conv_,
 )
+from xna_basecaller_tpu_torch.ops.crf_head import (
+    crf_head_chain, crf_head_epilogue,
+)
 from xna_basecaller_tpu_torch.ops.lstm import (
     init_lstm_params, int8_matmul, quantize_w_hh,
 )
@@ -82,11 +85,14 @@ def crf_head_forward(head: Linear, head_ext: Linear | None, x: torch.Tensor,
     """LinearCRFEncoder: x [T, N, F] -> scores [T, N, n_score] in f32.
 
     The products run in x's dtype; tanh, the scale and the blank expansion
-    run in f32 on the product plus the bias (in x's dtype).  ``int8=True``
-    (the ``--quantize`` path, ``crf_model.py:87-101`` in JAX) runs each
-    product as an ``int8_matmul`` of x and the weight quantized per column
-    (f32 out; the extra linear's is cast back to x's dtype before its
-    bias)."""
+    run in f32 on the product plus the bias (in x's dtype): in one kernel
+    (``ops/crf_head.py::crf_head_epilogue``) where autograd does not need
+    the chain, else as the chain of PyTorch passes (``crf_head_chain``: the
+    training forward).
+    ``int8=True`` (the ``--quantize`` path, ``crf_model.py:87-101`` in JAX)
+    runs each product as an ``int8_matmul`` of x and the weight quantized
+    per column (f32 out; the extra linear's is cast back to x's dtype
+    before its bias)."""
     enc = cfg.encoder
     if int8:
         def dense(v, lin):
@@ -96,16 +102,10 @@ def crf_head_forward(head: Linear, head_ext: Linear | None, x: torch.Tensor,
             return v @ lin.w.to(x.dtype)
     if head_ext is not None:
         x = dense(x, head_ext).to(x.dtype) + head_ext.b.to(x.dtype)
-    scores = dense(x, head).float() + head.b.to(x.dtype).float()
-    scores = torch.tanh(scores)
-    if enc.scale is not None:
-        scores = scores * enc.scale
-    if enc.blank_score is not None:
-        T, N, C = scores.shape
-        scores = scores.reshape(T, N, C // cfg.n_base, cfg.n_base)
-        blanks = scores.new_full((T, N, C // cfg.n_base, 1), enc.blank_score)
-        scores = torch.cat([blanks, scores], -1).reshape(T, N, -1)
-    return scores
+    p, b = dense(x, head), head.b.to(x.dtype)
+    grad = torch.is_grad_enabled() and (p.requires_grad or b.requires_grad)
+    epilogue = crf_head_chain if grad else crf_head_epilogue
+    return epilogue(p, b, enc.scale, enc.blank_score, cfg.n_base)
 
 
 def apply_dropout(x: torch.Tensor, rate: float,
