@@ -227,6 +227,8 @@ import warnings
 import numpy as np
 import torch
 
+from xna_basecaller_tpu_torch.ops import _build
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, dense int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -432,21 +434,12 @@ def scan_kernels(libs: dict, tag: str) -> dict:
     n_base, state_len) -> betas, "K4": fn(scores, n_base, state_len) ->
     (alphas, logZ), "K2b": fn(scores, betas, logz, n_base, state_len) ->
     (bp, v_final), "K2c": fn(bp, v_final, n_base, state_len) -> labels}."""
-    import ctypes
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    backward = libs["crf_decode"].xna_crf_backward
-    # the trailing pointer: this tree's `wide` out-parameter, null (an
-    # older tree's entry points ignore it)
-    backward.argtypes = [P, P, I, I, I, I, P, P]
-    forward = libs["crf_loss"].xna_crf_forward
-    forward.argtypes = [P, P, P, I, I, I, I, P]
-    viterbi = libs["crf_decode"].xna_crf_fwd_viterbi
-    viterbi.argtypes = [P, P, P, P, P, I, I, I, I, P, P]
-    traceback = libs["crf_decode"].xna_crf_traceback
-    traceback.argtypes = [P, P, P, I, I, I, I, P, P]
-    for fn in (backward, forward, viterbi, traceback):
-        fn.restype = ctypes.c_int
+    # typed as this tree's; the trailing pointer of K2a, K2b and K2c, this
+    # tree's `wide` out-parameter, is null (an older tree's ignore it)
+    backward = _build.entry("xna_crf_backward", libs["crf_decode"])
+    forward = _build.entry("xna_crf_forward", libs["crf_loss"])
+    viterbi = _build.entry("xna_crf_fwd_viterbi", libs["crf_decode"])
+    traceback = _build.entry("xna_crf_traceback", libs["crf_decode"])
 
     def scan(is_forward, scores, n_base, state_len):
         T, N, _ = scores.shape
@@ -502,21 +495,14 @@ def baseline_kernels(root: str) -> dict:
     reverse)} for bf16 xp of at most 256 rows, K2a, K2b, K2c and K4 as
     ``scan_kernels``, "lattice" as ``lattice_kernels`` and "beam" as
     ``beam_kernel``."""
-    import ctypes
-
     has_beam = os.path.exists(os.path.join(
         root, "xna_basecaller_tpu_torch", "csrc", "crf_beam.cu"))
     libs = build_tree(root, ("lstm_recurrence", "lstm_int8", "crf_decode",
                              "crf_loss") + ("crf_beam",) * has_beam,
                       "baseline")
-    fns = {}
-    for name, entry in (("lstm_recurrence", "xna_lstm_recurrence"),
-                        ("lstm_int8", "xna_lstm_int8")):
-        fn = getattr(libs[name], entry)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    fns = {name: _build.entry(entry, libs[name]) for name, entry in (
+        ("lstm_recurrence", "xna_lstm_recurrence"),
+        ("lstm_int8", "xna_lstm_int8"))}
 
     def launch(name, xp, w, scale, reverse, h_dtype):
         T, N, H4 = xp.shape
@@ -525,14 +511,17 @@ def baseline_kernels(root: str) -> dict:
         hbuf = torch.zeros(2 * -(-N // 128) * 128 * -(-H // 128) * 128,
                            dtype=h_dtype, device=xp.device)
         flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
-        if scale is None:   # K1: xp, w_hh, ys, cs (none), hbuf, flags
-            ptrs = (xp.data_ptr(), w.data_ptr(), ys.data_ptr(), None)
-        else:               # K7: xp, w_q, scale, ys, hbuf, flags
-            ptrs = (xp.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                    ys.data_ptr())
+        # K1: xp, w_hh, ys, cs (none), hbuf, flags, ..., wide (null)
+        # K7: xp, w_q, scale, ys, hbuf, flags, ...
+        if scale is None:
+            ptrs, tail = (xp.data_ptr(), w.data_ptr(), ys.data_ptr(),
+                          None), (None,)
+        else:
+            ptrs, tail = (xp.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                          ys.data_ptr()), ()
         rc = fns[name](*ptrs, hbuf.data_ptr(), flags.data_ptr(), T, N, N, H,
                        int(reverse), int(xp.dtype == torch.bfloat16),
-                       torch.cuda.current_stream().cuda_stream)
+                       torch.cuda.current_stream().cuda_stream, *tail)
         if rc:
             fail(f"the baseline tree's {name} kernel returned {rc}")
         return ys
@@ -551,12 +540,7 @@ def beam_kernel(lib, tag: str):
     """The beam kernel through the C entry point of a ``crf_beam`` library
     built by ``build_tree``: fn(scores, alphas, betas, logz, n_base,
     state_len, B) -> (labels [N, T] int8, best_score [N])."""
-    import ctypes
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = lib.xna_crf_beam
-    fn.argtypes = [P] * 7 + [I] * 5 + [P]
-    fn.restype = I
+    fn = _build.entry("xna_crf_beam", lib)
 
     def run(scores, alphas, betas, logz, nb, sl, B):
         T, N, _ = scores.shape
@@ -587,12 +571,16 @@ def lattice_kernels(lib, tag: str) -> dict:
 
     from xna_basecaller_tpu_torch.ops import crf_cuda
 
-    P, I = ctypes.c_void_p, ctypes.c_int
     packed = hasattr(lib, "xna_lattice_depth")
-    fwd, bwd = lib.xna_lattice_forward, lib.xna_lattice_backward
-    fwd.argtypes = [P] * (4 if packed else 5) + [I, I, I, P]
-    bwd.argtypes = [P] * (7 if packed else 8) + [I, I, I, P]
-    fwd.restype = bwd.restype = ctypes.c_int
+    if packed:
+        fwd, bwd = (_build.entry(f"xna_lattice_{d}", lib)
+                    for d in ("forward", "backward"))
+    else:   # an older tree's: stay and move apart, one pointer more
+        fwd, bwd = lib.xna_lattice_forward, lib.xna_lattice_backward
+        for fn, d in ((fwd, "forward"), (bwd, "backward")):
+            fn.argtypes = [ctypes.c_void_p] + _build.ENTRY_POINTS[
+                f"xna_lattice_{d}"].argtypes
+            fn.restype = ctypes.c_int
 
     def inputs(stay, move):
         rows = ((crf_cuda.lattice_pack(stay, move),) if packed
@@ -811,7 +799,8 @@ def check_r10_wide_path(dev) -> dict:
     tests/test_torch_kernels_gpu.py's wide-path test: betas rtol 1e-5,
     backpointers and the chain's labels equal but for f32 near-ties (at
     most 1e-3), v_final within T x 1e-7 relative, K2c's labels of the same
-    backpointers exact; ``crf_decode.launches_wide`` reads 3 after the
+    backpointers exact; the ``.wide`` counts of ``_build.launches`` read
+    3 in all after the
     three launches.  Then K1 in bf16 at the model's [2000, 256, 1024]
     against its plain version (max_abs 5e-2) and bit-equal over two
     calls."""
@@ -839,8 +828,10 @@ def check_r10_wide_path(dev) -> dict:
     if scores.shape != (T, bc.batchsize, cfg.n_score) \
             or not bool(torch.isfinite(scores).all()):
         fail(f"R10 scores {tuple(scores.shape)} not finite/expected")
-    wide = crf_cuda.crf_decode
-    wide.launches_wide = 0
+    wide = [f"{w}.wide" for w in ("backward_scan", "forward_viterbi",
+                                  "viterbi_traceback")]
+    for key in wide:
+        _build.launches[key] = 0
     betas = crf_cuda.backward_scan(scores, nb, sl)
     betas_p = crf.backward_scores(scores, nb, sl)
     rel = ((betas - betas_p).abs() / (1 + betas_p.abs())).max().item()
@@ -854,7 +845,7 @@ def check_r10_wide_path(dev) -> dict:
     tb_diff = int((labels != crf.viterbi_traceback(bp, v_final, nb, sl)
                    ).sum().item())
     torch.cuda.synchronize()
-    launches = wide.launches_wide
+    launches = sum(_build.launches[key] for key in wide)
     lab_share = (labels != crf.viterbi_traceback(bp_p, v_p, nb, sl)
                  ).float().mean().item()
     print(f"R10 wide path {tuple(scores.shape)} ({cfg.n_state} states): "
@@ -863,7 +854,7 @@ def check_r10_wide_path(dev) -> dict:
           f"differing {lab_share:.3e} (tolerance 1e-3), v_final max_abs "
           f"{v_err.max().item():.3e} (tolerance 1e-4 + {1e-7 * T:.1e} "
           f"|plain|); K2c labels "
-          f"differing {tb_diff} (tolerance 0); crf_decode.launches_wide "
+          f"differing {tb_diff} (tolerance 0); launches on the wide path "
           f"{launches} (expected 3)")
     if rel > 1e-5:
         fail("K2a on the wide path disagrees with its plain version")
@@ -933,10 +924,12 @@ def check_crf_head(shape) -> float:
     T, N, nb, C = HEAD_SHAPES[shape]
     p, b = head_inputs(T, N, C, SEED)
     k = crf_head.crf_head_epilogue
-    before, before_tiled = k.launches, k.launches_tiled
+    keys = ("crf_head_epilogue", "crf_head_epilogue.tiled")
+    before = [_build.launches[key] for key in keys]
     got = k(p, b, 5.0, 2.0, nb)
     torch.cuda.synchronize()
-    launches, tiled = k.launches - before, k.launches_tiled - before_tiled
+    launches, tiled = (_build.launches[key] - n
+                       for key, n in zip(keys, before))
     want = crf_head.crf_head_chain(p, b, 5.0, 2.0, nb)
     differ = (got != want).sum().item()
     print(f"CRF head epilogue at the {shape} head {tuple(p.shape)} -> "
@@ -1227,6 +1220,17 @@ def training_wrappers() -> dict:
             "K6b": crf_cuda.lattice_backward}
 
 
+def zero_launches(wrappers: dict) -> None:
+    """Zero the wrappers' launch counts (``_build.launches``)."""
+    for w in wrappers.values():
+        _build.launches[w.__name__] = 0
+
+
+def launch_counts(wrappers: dict) -> dict:
+    """{label: its wrapper's launches} (``_build.launches``)."""
+    return {k: _build.launches[w.__name__] for k, w in wrappers.items()}
+
+
 def check_training_launches(launches: dict, steps: int, n_valid: int,
                             where: str):
     """Fails unless each training kernel launched at least as often as
@@ -1267,14 +1271,13 @@ def drive_training(workroot: str):
     save_ctc_data(data, *simulate_ctc_dataset(
         n_train + VALID_CHUNKS, chunk_len=3600, target_len=400, seed=SEED))
     wrappers = training_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     t0 = time.perf_counter()
     cli(["train", run, "--directory", data, "--epochs", "1", "--batch",
          str(TRAIN_BATCH), "--seed", str(SEED), "--device", "cuda", "-f"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts(wrappers)
     with open(os.path.join(run, "losses_1.csv")) as fh:
         rows = list(csv.DictReader(fh))
     with open(os.path.join(run, "training.csv")) as fh:
@@ -1549,8 +1552,7 @@ def drive_augmented_training(workroot: str):
     wrappers = training_wrappers()
     ctc_data.load_datasets = counting
     try:
-        for w in wrappers.values():
-            w.launches = 0
+        zero_launches(wrappers)
         t0 = time.perf_counter()
         cli(["train", run, "--directory", data, "--chunks", str(AUG_CHUNKS),
              "--epochs", "1", "--batch", str(TRAIN_BATCH), "--seed",
@@ -1559,7 +1561,7 @@ def drive_augmented_training(workroot: str):
              "0.05", "--xna-ctc-dir", donors, "--profile", prof])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = launch_counts(wrappers)
     finally:
         ctc_data.load_datasets = load
     with open(os.path.join(run, "losses_1.csv")) as fh:
@@ -1877,15 +1879,15 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
             members, iter(chunk_reads), chunksize=chunksize,
             overlap=cfg.basecaller.overlap, batchsize=batchsize,
             ub_bias=bias)}
-    lstm_cuda.lstm_recurrence.launches = 0
+    _build.launches["lstm_recurrence"] = 0
     alone, ensemble = calls_of(model), calls_of([model, model])
     n_ens = sum(alone[k] != ensemble[k] for k in alone)
     print(f"ensemble [m, m] against m alone on the {len(alone)} "
           f"chunk-reads: calls differing {n_ens} (tolerance 0); K1 "
-          f"launches {lstm_cuda.lstm_recurrence.launches} (expected "
+          f"launches {_build.launches['lstm_recurrence']} (expected "
           f"{3 * cfg.encoder.num_rnn_layers})")
     if n_ens or len(alone) != batchsize or \
-            lstm_cuda.lstm_recurrence.launches != \
+            _build.launches["lstm_recurrence"] != \
             3 * cfg.encoder.num_rnn_layers:
         fail("the ensemble [m, m] does not call what m calls")
     if n_templates == 0:
@@ -1922,8 +1924,7 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
         written.append(a)
         return bam_write(self, *a, **kw)
 
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     basecaller.align = timed_align
     bam_mod.BamWriter.write = recorded_write
     try:
@@ -1935,7 +1936,7 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
     finally:
         basecaller.align = align
         bam_mod.BamWriter.write = bam_write
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts(wrappers)
     need = {"K1": cfg.encoder.num_rnn_layers, "K2a": 1, "K2b": 1, "K2c": 1}
     print(f"phase B step 2, the basecall with alignment and the writer: "
           f"{stats['reads']} chunk-reads in {t_b:.3f} s, "
@@ -2034,11 +2035,10 @@ def drive_bootstrap_data(workroot: str, model, cfg, reads, card: str):
                   "1"]
     twrappers = training_wrappers()
     for epochs, extra in ((1, []), (2, ["--restore-optim"])):
-        for w in twrappers.values():
-            w.launches = 0
+        zero_launches(twrappers)
         cli([*train_args, "--epochs", str(epochs), *extra])
         torch.cuda.synchronize()
-        tl = {k: w.launches for k, w in twrappers.items()}
+        tl = launch_counts(twrappers)
         with open(os.path.join(run_dir, f"losses_{epochs}.csv")) as fh:
             losses = [float(r["loss"]) for r in csv.DictReader(fh)]
         optim = load_flat(os.path.join(run_dir, f"optim_{epochs}.npz"))
@@ -2086,13 +2086,12 @@ def drive_northstar(workroot: str, card: str):
           f"xna_basecaller_tpu_torch.tools.spliced_northstar "
           f"{' '.join(argv)}", flush=True)
     wrappers = training_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     t0 = time.perf_counter()
     summary = spliced_northstar.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts(wrappers)
     print(f"phase 8d launches {launches}")
     for k, n in launches.items():
         if n == 0:
@@ -2169,11 +2168,10 @@ def drive_superbatches(model, reads, fastq_one: str, cfg, n_batches: int,
                 "K2a": crf_cuda.backward_scan,
                 "K2b": crf_cuda.forward_viterbi,
                 "K2c": crf_cuda.viterbi_traceback}
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     fq = io.StringIO()
     st = run_basecaller(model, iter(reads), fq, superbatch=2, **opts)
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts(wrappers)
     need = {"K1": cfg.encoder.num_rnn_layers * n_batches, "K2a": n_batches,
             "K2b": n_batches, "K2c": n_batches}
     same = sum(a == b for a, b in zip(fq.getvalue().split("\n")[1::4],
@@ -2588,9 +2586,9 @@ def rows_sweep(card):
                 else:
                     fn = lambda: wrapper(  # noqa: E731
                         xp, w32 if dtype == torch.float32 else w)
-                before = wrapper.launches
+                before = _build.launches[wrapper.__name__]
                 fn()
-                launches = wrapper.launches - before
+                launches = _build.launches[wrapper.__name__] - before
                 ms = median_ms(fn, 5)
             rows = -(-N // launches)
             points.append((N, rows, launches, ms, ms / (T * launches) * 1e3))
@@ -3229,14 +3227,13 @@ def drive_mods(workroot: str, boot_dir: str, card: str):
         [boot_dir, "reads", "--reference", fasta, "--bam", bam,
          "--mods-model", mods_dir])
     wrappers = training_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     t0 = time.perf_counter()
     stats = basecaller.call_reads(args, model, mcfg, iter(mreads),
                                   out=io.StringIO())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    launches = {k: n for k, n in launch_counts(wrappers).items() if n}
     records = read_bam(bam)[1]
     # ML is the SAM spec's B:C array, read back as "ML:B:C,..."
     mm = [t for r in records for t in r["tags"]
@@ -3415,13 +3412,13 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
     alphabet = cfg.alphabet
 
     # the f32 route on the card against the CPU's plain route, one read
-    lstm_cuda.lstm_recurrence.launches = 0
-    crf_cuda.backward_scan.launches = 0
-    crf_head.crf_head_epilogue.launches = 0
+    _build.launches["lstm_recurrence"] = 0
+    _build.launches["backward_scan"] = 0
+    _build.launches["crf_head_epilogue"] = 0
     tg, ig = pdec.read_transition_probs(model, reads[0].signal)
-    f32_launches = {"K1 f32": lstm_cuda.lstm_recurrence.launches,
-                    "K2a": crf_cuda.backward_scan.launches,
-                    "head f32": crf_head.crf_head_epilogue.launches}
+    f32_launches = {"K1 f32": _build.launches["lstm_recurrence"],
+                    "K2a": _build.launches["backward_scan"],
+                    "head f32": _build.launches["crf_head_epilogue"]}
     cpu = Model(cfg, device="cpu", seed=None)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     tc, ic = pdec.read_transition_probs(cpu, reads[0].signal)
@@ -3554,9 +3551,8 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
     wrappers = {**training_wrappers(),
                 "K2b-qual": crf_cuda.forward_viterbi_qual,
                 "K2c-qual": crf_cuda.viterbi_traceback_qual}
-    for w in wrappers.values():
-        w.launches = 0
-    lstm_cuda.lstm_recurrence.launches_f32 = 0
+    zero_launches(wrappers)
+    _build.launches["lstm_recurrence.f32"] = 0
     out, merged = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -3566,9 +3562,8 @@ def drive_duplex(workroot: str, boot_dir: str, card: str):
                  "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()
-                    if w.launches}
-        launches["K1-f32"] = lstm_cuda.lstm_recurrence.launches_f32
+        launches = {k: n for k, n in launch_counts(wrappers).items() if n}
+        launches["K1-f32"] = _build.launches["lstm_recurrence.f32"]
         # the same pairs through the consensus merge alone
         with contextlib.redirect_stdout(merged):
             cli(["duplex", boot_dir, "reads", "--pairs",
@@ -3624,8 +3619,7 @@ def drive_evaluate_view_export(workroot: str, boot_dir: str, card: str):
 
     t_phase = time.perf_counter()
     wrappers = training_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         cli(["evaluate", boot_dir, "--directory",
@@ -3633,7 +3627,7 @@ def drive_evaluate_view_export(workroot: str, boot_dir: str, card: str):
              "--chunks", str(EVAL_CHUNKS), "--batchsize", str(EVAL_BATCH),
              "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    launches = {k: n for k, n in launch_counts(wrappers).items() if n}
     text = out.getvalue()
     print("xnacall evaluate --weights 1,2 --poa: " + " | ".join(
         text.splitlines()) + f"; launches {launches} on {card}")
@@ -3835,11 +3829,10 @@ def drive_tail(workroot: str, boot_dir: str, reads, card: str):
     launches = {}
     for install in (TAIL_MODEL, "from_tar"):
         model, _ = load_model(os.path.join(registry, install), device="cuda")
-        for w in wrappers.values():
-            w.launches = 0
+        zero_launches(wrappers)
         got = calls(model)
         torch.cuda.synchronize()
-        launches[install] = {k: w.launches for k, w in wrappers.items()}
+        launches[install] = launch_counts(wrappers)
         same = sum(g == w for g, w in zip(got, want))
         print(f"{install}, installed and loaded on the card: {same} of "
               f"{len(want)} calls equal the source model's (bases "
@@ -4028,9 +4021,11 @@ def main() -> int:
         xp = lstm.input_projection(
             p, x_xna.permute(2, 0, 1).contiguous().to(torch.bfloat16))
         k1 = lstm_cuda.lstm_recurrence
-        before = (k1.launches, k1.launches_wide)
+        keys = ("lstm_recurrence", "lstm_recurrence.wide")
+        before = [_build.launches[key] for key in keys]
         got = k1(xp, p["w_hh"], rev0)
-        counted = (k1.launches - before[0], k1.launches_wide - before[1])
+        counted = tuple(_build.launches[key] - n
+                        for key, n in zip(keys, before))
         err = (got.float() - lstm.lstm_recurrence(
             xp, p["w_hh"], rev0).float()).abs().max().item()
         again = k1(xp, p["w_hh"], rev0)
@@ -4145,13 +4140,12 @@ def main() -> int:
                 "K2c": crf_cuda.viterbi_traceback,
                 "K7": lstm_cuda.lstm_recurrence_int8,
                 "head": crf_head.crf_head_epilogue}
-    for w in wrappers.values():
-        w.launches = 0
-    crf_head.crf_head_epilogue.launches_tiled = 0
+    zero_launches(wrappers)
+    _build.launches["crf_head_epilogue.tiled"] = 0
     fastq = io.StringIO()
     stats = run_basecaller(model, iter(reads), fastq, chunksize=chunksize,
                            overlap=overlap, batchsize=batchsize)
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts(wrappers)
     print(f"main path: {stats} launches {launches} "
           f"(batches {n_batches})")
     need = {"K1": enc.num_rnn_layers * n_batches, "K2a": n_batches,
@@ -4160,9 +4154,9 @@ def main() -> int:
         if launches[k] < n:
             fail(f"{k} launched {launches[k]} times on the main path, "
                  f"expected {n}")
-    if crf_head.crf_head_epilogue.launches_tiled != launches["head"]:
+    if _build.launches["crf_head_epilogue.tiled"] != launches["head"]:
         fail(f"the head's kernel took its tiled path "
-             f"{crf_head.crf_head_epilogue.launches_tiled} of "
+             f"{_build.launches['crf_head_epilogue.tiled']} of "
              f"{launches['head']} times on the main path")
     lines = fastq.getvalue().split("\n")
     seqs = lines[1::4]
@@ -4173,13 +4167,12 @@ def main() -> int:
     print(f"pipeline: {stats['samples_per_s']:.4e} samples/s on {card}")
 
     # -- 4b. the quantized path, through run_basecaller(quantize=True) --
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     fastq_q = io.StringIO()
     stats_q = run_basecaller(model, iter(reads), fastq_q, chunksize=chunksize,
                              overlap=overlap, batchsize=batchsize,
                              quantize=True)
-    q_launches = {k: w.launches for k, w in wrappers.items()}
+    q_launches = launch_counts(wrappers)
     print(f"quantized path: {stats_q} launches {q_launches} "
           f"(batches {n_batches})")
     need = {"K7": enc.num_rnn_layers * n_batches, "K1": 0,
@@ -4215,12 +4208,11 @@ def main() -> int:
             (f"beam {PIPELINE_BEAM}", {"beam_width": PIPELINE_BEAM},
              {"K4": 1, "K2a": 1, "beam": 1, "K2b": 0, "K2c": 0,
               "K2b-qual": 0, "K2c-qual": 0})):
-        for w in dec_wrappers.values():
-            w.launches = 0
+        zero_launches(dec_wrappers)
         fq = io.StringIO()
         st = run_basecaller(model, iter(reads), fq, chunksize=chunksize,
                             overlap=overlap, batchsize=batchsize, **opts)
-        got = {k: w.launches for k, w in dec_wrappers.items()}
+        got = launch_counts(dec_wrappers)
         print(f"{path} path: {st} launches {got} (batches {n_batches})")
         need = {"K1": enc.num_rnn_layers, **need}
         for k, per_batch in need.items():

@@ -11,6 +11,7 @@ from xna_basecaller_tpu_torch.core.config import EncoderConfig, ModelConfig
 from xna_basecaller_tpu_torch.models import crf_model
 from xna_basecaller_tpu_torch.models.crf_model import Model, crf_head_forward
 from xna_basecaller_tpu_torch.ops import crf_head
+from xna_basecaller_tpu_torch.ops._build import launches
 
 
 def _inline_chain(p, b, scale, blank, n_base):
@@ -61,14 +62,14 @@ def test_plain_version_equals_the_inline_chain(dtype, n_base, C, scale,
                                                blank):
     p, b = _product(3, 5, C, dtype, seed=C + n_base)
     want = _inline_chain(p, b, scale, blank, n_base)
-    before = crf_head.crf_head_epilogue.launches
+    before = launches["crf_head_epilogue"]
     for got in (crf_head.crf_head_chain(p, b, scale, blank, n_base),
                 crf_head.crf_head_epilogue(p, b, scale, blank, n_base)):
         assert got.dtype == torch.float32
         assert got.shape == (3, 5, C if blank is None
                              else C // n_base * (n_base + 1))
         assert torch.equal(got, want)
-    assert crf_head.crf_head_epilogue.launches == before
+    assert launches["crf_head_epilogue"] == before
 
 
 def _cfg(**kw):

@@ -41,8 +41,15 @@ import pytest
 import torch
 
 from xna_basecaller_tpu_torch.ops import crf, crf_cuda, lstm, lstm_cuda
+from xna_basecaller_tpu_torch.ops._build import launches
 
 pytestmark = pytest.mark.gpu
+
+
+def _decode_wide():
+    """Launches of K2a, K2b and K2c on the decode's wide path."""
+    return sum(launches[f"{k}.wide"] for k in (
+        "backward_scan", "forward_viterbi", "viterbi_traceback"))
 
 
 @pytest.fixture()
@@ -107,12 +114,12 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     xp, w = _lstm_inputs(_steps(N, H, 40), N, H, seed=N, device=cuda,
                          dtype=dtype)
     k1 = lstm_cuda.lstm_recurrence
-    before = (k1.launches, k1.launches_wide)
+    before = (launches["lstm_recurrence"], launches["lstm_recurrence.wide"])
     got = lstm_cuda.lstm_recurrence(xp, w, reverse)
     torch.cuda.synchronize()
-    launches, wide = _k1_launches(N, H, dtype)
-    assert (k1.launches, k1.launches_wide) == (before[0] + launches,
-                                               before[1] + wide)
+    n_launches, wide = _k1_launches(N, H, dtype)
+    assert (launches["lstm_recurrence"], launches["lstm_recurrence.wide"]) \
+        == (before[0] + n_launches, before[1] + wide)
     if dtype == torch.bfloat16 and H == 768:
         assert wide == (N > 256)   # one launch of 257-384 rows
     want = lstm.lstm_recurrence(xp, w, reverse)
@@ -195,11 +202,11 @@ def test_int8_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     T = 301 if (N, H) == (256, 768) else 41
     xp, w = _lstm_inputs(T, N, H, seed=N + H, device=cuda, dtype=dtype)
     w_q, scale = lstm.quantize_w_hh(w)
-    before = lstm_cuda.lstm_recurrence_int8.launches
+    before = launches["lstm_recurrence_int8"]
     got = lstm_cuda.lstm_recurrence_int8(xp, w_q, scale, reverse)
     torch.cuda.synchronize()
     group = lstm_cuda.group_rows("lstm_int8", dtype)
-    assert lstm_cuda.lstm_recurrence_int8.launches == before + -(-N // group)
+    assert launches["lstm_recurrence_int8"] == before + -(-N // group)
     want = lstm.lstm_recurrence_int8(xp, w_q, scale, reverse)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
@@ -268,9 +275,9 @@ def test_decode_kernels_match_plain_on_the_wide_path(cuda, nb, sl, T, N):
     v_final, a best path's sum of T terms, within T x 1e-7 relative (the
     plain version's exp() and log() differ from the kernel's by an ulp here
     and there: 7.1e-5 at most read at T=2000 on an H100); one launch each,
-    each counted by ``crf_decode.launches_wide``."""
+    each counted in ``launches["<wrapper>.wide"]``."""
     s = _card_scores(nb, sl, T, N, seed=N)
-    wide = crf_cuda.crf_decode.launches_wide
+    wide = _decode_wide()
     betas = crf_cuda.backward_scan(s, nb, sl)
     torch.testing.assert_close(betas, crf.backward_scores(s, nb, sl),
                                rtol=1e-5, atol=1e-5)
@@ -282,7 +289,7 @@ def test_decode_kernels_match_plain_on_the_wide_path(cuda, nb, sl, T, N):
     torch.testing.assert_close(v, v_p, rtol=1e-7 * T, atol=1e-4)
     labels = crf_cuda.viterbi_traceback(bp, v, nb, sl)
     assert torch.equal(labels, crf.viterbi_traceback(bp, v, nb, sl))
-    assert crf_cuda.crf_decode.launches_wide == wide + 3
+    assert _decode_wide() == wide + 3
     full = crf_cuda.decode_paths_cuda(s, nb, sl)
     want = crf.decode_paths(s, nb, sl)
     assert (full != want).float().mean().item() <= 1e-3
@@ -292,20 +299,16 @@ def test_decode_kernels_match_plain_on_the_wide_path(cuda, nb, sl, T, N):
     (4, 5, 1), (6, 3, 0), (4, 4, 0)])
 def test_crf_decode_launches_wide_counts_the_wide_path(cuda, n_base,
                                                        state_len, wide):
-    """``crf_decode.launches_wide`` counts 1 for each launch of K2a, K2b
-    and K2c that took the wide path (1024 states) and 0 for the others
-    (216 and 256 states); every launch counts in ``launches``."""
+    """``launches["<wrapper>.wide"]`` counts 1 for each launch of K2a,
+    K2b and K2c that took the wide path (1024 states) and 0 for the others
+    (216 and 256 states); every launch counts in ``launches[<wrapper>]``."""
     s = _card_scores(n_base, state_len, 40, 8, seed=3)
-    before = (crf_cuda.crf_decode.launches_wide,
-              crf_cuda.backward_scan.launches,
-              crf_cuda.forward_viterbi.launches,
-              crf_cuda.viterbi_traceback.launches)
+    before = (_decode_wide(), launches["backward_scan"],
+              launches["forward_viterbi"], launches["viterbi_traceback"])
     crf_cuda.decode_paths_cuda(s, n_base, state_len)
     torch.cuda.synchronize()
-    after = (crf_cuda.crf_decode.launches_wide,
-             crf_cuda.backward_scan.launches,
-             crf_cuda.forward_viterbi.launches,
-             crf_cuda.viterbi_traceback.launches)
+    after = (_decode_wide(), launches["backward_scan"],
+             launches["forward_viterbi"], launches["viterbi_traceback"])
     assert [a - b for a, b in zip(after, before)] == [3 * wide, 1, 1, 1]
 
 
@@ -360,10 +363,11 @@ def test_k1_at_1024_takes_narrow_and_is_bit_repeatable(cuda):
     xp, w = _lstm_inputs(2000, 256, 1024, seed=11, device=cuda,
                          dtype=torch.bfloat16)
     k1 = lstm_cuda.lstm_recurrence
-    before = (k1.launches, k1.launches_wide)
+    before = (launches["lstm_recurrence"], launches["lstm_recurrence.wide"])
     first = k1(xp, w, True)
     assert torch.equal(k1(xp, w, True), first)
-    assert (k1.launches, k1.launches_wide) == (before[0] + 2, before[1])
+    assert (launches["lstm_recurrence"], launches["lstm_recurrence.wide"]) \
+        == (before[0] + 2, before[1])
     torch.testing.assert_close(first.float(),
                                lstm.lstm_recurrence(xp, w, True).float(),
                                rtol=0, atol=2e-2)
@@ -393,7 +397,7 @@ def _card_scores(n_base, state_len, T, N, seed, offset=0):
 
 
 def _scan_launches():
-    return (crf_cuda.backward_scan.launches, crf_cuda.forward_scan.launches)
+    return (launches["backward_scan"], launches["forward_scan"])
 
 
 def _scans_against_plain(s, n_base, state_len):
@@ -445,8 +449,7 @@ def test_crf_scans_take_rows_at_any_alignment(cuda, offset, n_base,
 
 
 def _decode_launches():
-    return (crf_cuda.forward_viterbi.launches,
-            crf_cuda.viterbi_traceback.launches)
+    return launches["forward_viterbi"], launches["viterbi_traceback"]
 
 
 def _viterbi_inputs(s, n_base, state_len):
@@ -569,8 +572,8 @@ def test_trainable_lstm_kernels_match_plain(cuda, dtype, atol, rtol_dxp, N,
     """K3a (ys and cells) and K3b (dxp) against their plain versions."""
     T = _steps(N, H, 33)
     xp, w = _lstm_inputs(T, N, H, seed=N + 1, device=cuda, dtype=dtype)
-    before = (lstm_cuda.lstm_forward_with_cells.launches,
-              lstm_cuda.lstm_backward_dxp.launches)
+    before = (launches["lstm_forward_with_cells"],
+              launches["lstm_backward_dxp"])
     ys, cs = lstm_cuda.lstm_forward_with_cells(xp, w, reverse)
     torch.cuda.synchronize()
     ys_p, cs_p = lstm.lstm_recurrence_with_cells(xp, w, reverse)
@@ -590,8 +593,8 @@ def test_trainable_lstm_kernels_match_plain(cuda, dtype, atol, rtol_dxp, N,
     assert _max_rel(dxp, dxp_p) <= rtol_dxp
     group = 64 if dtype == torch.bfloat16 else 256
     rows = lstm_cuda.group_rows("lstm_recurrence", dtype)
-    assert (lstm_cuda.lstm_forward_with_cells.launches,
-            lstm_cuda.lstm_backward_dxp.launches) == (
+    assert (launches["lstm_forward_with_cells"],
+            launches["lstm_backward_dxp"]) == (
         before[0] + -(-N // rows), before[1] + -(-N // group))
 
 
@@ -619,7 +622,7 @@ _LOSS_WRAPPERS = ("forward_scan", "backward_scan", "edge_posteriors",
 
 
 def _loss_launches():
-    return {k: getattr(crf_cuda, k).launches for k in _LOSS_WRAPPERS}
+    return {k: launches[k] for k in _LOSS_WRAPPERS}
 
 
 @pytest.mark.parametrize("n_base,state_len", [(6, 3), (4, 2)])
@@ -846,8 +849,8 @@ def test_ensemble_of_one_model_twice_calls_as_the_model(cuda):
 # viterbi_traceback_qual), and the beam kernel (beam_search).
 
 def _qual_launches():
-    return (crf_cuda.forward_viterbi_qual.launches,
-            crf_cuda.viterbi_traceback_qual.launches)
+    return (launches["forward_viterbi_qual"],
+            launches["viterbi_traceback_qual"])
 
 
 @pytest.mark.parametrize("n_base,state_len", _RING_ALPHABETS)
@@ -895,10 +898,10 @@ def test_qual_decode_chain_labels_are_the_viterbi_decodes(cuda):
     """decode_paths_with_qual_cuda: K2a, K2b-qual and K2c-qual once each,
     labels bit-equal to decode_paths_cuda's, probs in (0, 1]."""
     s = _card_scores(6, 3, 300, 64, seed=5)
-    before = (crf_cuda.backward_scan.launches, *_qual_launches())
+    before = (launches["backward_scan"], *_qual_launches())
     labels, probs = crf_cuda.decode_paths_with_qual_cuda(s, 6, 3)
     torch.cuda.synchronize()
-    assert (crf_cuda.backward_scan.launches, *_qual_launches()) == tuple(
+    assert (launches["backward_scan"], *_qual_launches()) == tuple(
         b + 1 for b in before)
     assert torch.equal(labels, crf_cuda.decode_paths_cuda(s, 6, 3))
     assert bool(((probs > 0) & (probs <= 1 + 1e-5)).all())
@@ -944,10 +947,10 @@ def _hold_beam_to_plain(got, s, parts, n_base, state_len, B):
 def test_beam_kernel_matches_plain(cuda, T, N, n_base, state_len, B):
     s = _card_scores(n_base, state_len, T, N, seed=T * 100 + N + B)
     parts = _beam_inputs(s, n_base, state_len)
-    before = crf_cuda.beam_search.launches
+    before = launches["beam_search"]
     got = crf_cuda.beam_search(s, *parts, n_base, state_len, B)
     torch.cuda.synchronize()
-    assert crf_cuda.beam_search.launches == before + 1
+    assert launches["beam_search"] == before + 1
     _hold_beam_to_plain(got, s, parts, n_base, state_len, B)
 
 
@@ -980,10 +983,10 @@ def test_beam_decode_chain_runs_its_kernels(cuda):
     s = _card_scores(6, 3, 100, 16, seed=9)
     names = ("forward_scan", "backward_scan", "beam_search",
              "forward_viterbi", "viterbi_traceback")
-    before = {k: getattr(crf_cuda, k).launches for k in names}
+    before = {k: launches[k] for k in names}
     labels, best = crf_cuda.decode_beam_cuda(s, 6, 3, 8)
     torch.cuda.synchronize()
-    moved = {k: getattr(crf_cuda, k).launches - before[k] for k in names}
+    moved = {k: launches[k] - before[k] for k in names}
     assert moved == {"forward_scan": 1, "backward_scan": 1,
                      "beam_search": 1, "forward_viterbi": 0,
                      "viterbi_traceback": 0}
@@ -1024,12 +1027,14 @@ def test_crf_head_kernel_is_bit_equal_to_the_chain(cuda, n_base, C, scale,
 
     p, b = _head_product(37, 13, C, dtype, seed=C + n_base)
     k = crf_head.crf_head_epilogue
-    before, tiled = k.launches, k.launches_tiled
+    before = launches["crf_head_epilogue"]
+    tiled = launches["crf_head_epilogue.tiled"]
     got = k(p, b, scale, blank, n_base)
     torch.cuda.synchronize()
-    assert k.launches == before + 1
+    assert launches["crf_head_epilogue"] == before + 1
     # without a blank score the plain loop (no cell runs one)
-    assert k.launches_tiled == tiled + (blank is not None)
+    assert launches["crf_head_epilogue.tiled"] \
+        == tiled + (blank is not None)
     want = crf_head.crf_head_chain(p, b, scale, blank, n_base)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.equal(got, want)
@@ -1046,9 +1051,11 @@ def test_crf_head_kernel_other_shapes_take_its_plain_loop(cuda, n_base, C,
 
     p, b = _head_product(21, 11, C, torch.bfloat16, seed=C, offset=offset)
     k = crf_head.crf_head_epilogue
-    before, tiled = k.launches, k.launches_tiled
+    before = launches["crf_head_epilogue"]
+    tiled = launches["crf_head_epilogue.tiled"]
     got = k(p, b, 5.0, 2.0, n_base)
-    assert k.launches == before + 1 and k.launches_tiled == tiled
+    assert launches["crf_head_epilogue"] == before + 1
+    assert launches["crf_head_epilogue.tiled"] == tiled
     assert torch.equal(got, crf_head.crf_head_chain(p, b, 5.0, 2.0, n_base))
 
 
@@ -1058,9 +1065,9 @@ def test_crf_head_kernel_takes_an_f32_product_with_a_bf16_bias(cuda):
 
     p, _ = _head_product(9, 7, 4096, torch.float32, seed=4)
     _, b = _head_product(1, 1, 4096, torch.bfloat16, seed=5)
-    tiled = crf_head.crf_head_epilogue.launches_tiled
+    tiled = launches["crf_head_epilogue.tiled"]
     got = crf_head.crf_head_epilogue(p, b, 5.0, 2.0, 4)
-    assert crf_head.crf_head_epilogue.launches_tiled == tiled + 1
+    assert launches["crf_head_epilogue.tiled"] == tiled + 1
     assert torch.equal(got, crf_head.crf_head_chain(p, b, 5.0, 2.0, 4))
 
 
@@ -1093,26 +1100,26 @@ def test_model_forward_launches_the_head_kernel_in_inference_only(cuda):
     sig = torch.randn(6, 1800, device=cuda,
                       generator=torch.Generator("cuda").manual_seed(3))
     k = crf_head.crf_head_epilogue
-    before = k.launches
+    before = launches["crf_head_epilogue"]
     with torch.inference_mode():
         scores = model(sig)
-    assert k.launches == before + 1
+    assert launches["crf_head_epilogue"] == before + 1
     assert scores.shape == (360, 6, cfg.n_score)
     x = torch.randn(50, 6, 64, device=cuda).to(torch.bfloat16)
     with torch.inference_mode():
         fused = crf_head_forward(model.head, model.head_ext, x, cfg)
     chain = crf_head_forward(model.head, model.head_ext, x, cfg)
-    assert chain.requires_grad and k.launches == before + 2
+    assert chain.requires_grad and launches["crf_head_epilogue"] == before + 2
     assert torch.equal(fused, chain.detach())
     model(sig, inference=False).sum().backward()
     torch.cuda.synchronize()
-    assert k.launches == before + 2
+    assert launches["crf_head_epilogue"] == before + 2
     assert model.head.w.grad is not None and model.head.b.grad is not None
     # f32 inference (duplex --pair-decode) and the int8 head take it too
     with torch.inference_mode():
         f32 = crf_head_forward(model.head, model.head_ext, x.float(), cfg)
         crf_head_forward(model.head, model.head_ext, x, cfg, int8=True)
-    assert k.launches == before + 4
+    assert launches["crf_head_epilogue"] == before + 4
     f32_chain = crf_head_forward(model.head, model.head_ext, x.float(), cfg)
-    assert k.launches == before + 4
+    assert launches["crf_head_epilogue"] == before + 4
     assert torch.equal(f32, f32_chain.detach())

@@ -17,6 +17,7 @@ import torch
 from xna_basecaller_tpu.ops import lstm as jlstm
 from xna_basecaller_tpu.ops import lstm_pallas
 from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+from xna_basecaller_tpu_torch.ops._build import launches
 
 
 @pytest.fixture()
@@ -78,12 +79,12 @@ def test_recurrence_plain_equals_wrapper_on_cpu():
     rng = np.random.default_rng(3)
     xp = torch.from_numpy(rng.standard_normal((6, 2, 64)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32))
-    before = lstm_cuda.lstm_recurrence.launches
+    before = launches["lstm_recurrence"]
     for reverse in (False, True):
         torch.testing.assert_close(
             lstm_cuda.lstm_recurrence(xp, w, reverse),
             lstm.lstm_recurrence(xp, w, reverse), rtol=0, atol=0)
-    assert lstm_cuda.lstm_recurrence.launches == before
+    assert launches["lstm_recurrence"] == before
 
 
 def test_reverse_is_flip_of_forward():

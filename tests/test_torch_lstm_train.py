@@ -20,6 +20,7 @@ import torch
 from xna_basecaller_tpu.ops import lstm as jlstm
 from xna_basecaller_tpu.ops import lstm_pallas
 from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+from xna_basecaller_tpu_torch.ops._build import launches
 
 
 @pytest.fixture()
@@ -114,8 +115,8 @@ def test_wrappers_take_the_plain_versions_on_cpu():
     g = torch.Generator().manual_seed(6)
     xp = torch.randn(7, 2, 64, generator=g)
     w = torch.randn(16, 64, generator=g) / 4
-    before = (lstm_cuda.lstm_forward_with_cells.launches,
-              lstm_cuda.lstm_backward_dxp.launches)
+    before = (launches["lstm_forward_with_cells"],
+              launches["lstm_backward_dxp"])
     for reverse in (False, True):
         ys, cs = lstm_cuda.lstm_forward_with_cells(xp, w, reverse)
         ys_p, cs_p = lstm.lstm_recurrence_with_cells(xp, w, reverse)
@@ -128,8 +129,8 @@ def test_wrappers_take_the_plain_versions_on_cpu():
             lstm_cuda.lstm_backward_dxp(dy, xp, w, ys, cs, reverse),
             lstm.lstm_backward_dxp(dy, xp, w, ys, cs, reverse),
             rtol=0, atol=0)
-    assert (lstm_cuda.lstm_forward_with_cells.launches,
-            lstm_cuda.lstm_backward_dxp.launches) == before
+    assert (launches["lstm_forward_with_cells"],
+            launches["lstm_backward_dxp"]) == before
 
 
 def test_cells_are_stored_in_the_compute_dtype():

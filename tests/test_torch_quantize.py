@@ -39,6 +39,7 @@ from xna_basecaller_tpu_torch.data.simulate import simulate_reads
 from xna_basecaller_tpu_torch.infer import basecall as tbasecall
 from xna_basecaller_tpu_torch.models.crf_model import QUANT_SCALE, Model
 from xna_basecaller_tpu_torch.ops import lstm, lstm_cuda
+from xna_basecaller_tpu_torch.ops._build import launches
 from xna_basecaller_tpu_torch.utils.model_io import load_model
 from xna_basecaller_tpu_torch.utils.weights import params_from_jax
 
@@ -185,10 +186,10 @@ def test_int8_recurrence_matches_pallas(tpu_interpret, T, N, H, reverse,
     want = lstm_pallas.lstm_recurrence_pallas_int8(walk, w_q, scale)
     want = np.asarray((jnp.flip(want, 0) if reverse else want).astype(
         jnp.float32))
-    before = lstm_cuda.lstm_recurrence_int8.launches
+    before = launches["lstm_recurrence_int8"]
     got = lstm_cuda.lstm_recurrence_int8(_t(xp), _t(w_q), _t(scale),
                                          reverse)
-    assert lstm_cuda.lstm_recurrence_int8.launches == before
+    assert launches["lstm_recurrence_int8"] == before
     assert got.dtype == _t(xp).dtype and got.shape == (T, N, H)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
     if dtype == jnp.bfloat16:
@@ -213,11 +214,11 @@ def test_model_forward_int8_matches_jax(tpu_interpret):
     model = Model(tconfig.from_dict(jconfig.to_dict(cfg)), device="cpu",
                   seed=None)
     model.load_state_dict(params_from_jax(params))
-    before = lstm_cuda.lstm_recurrence.launches
+    before = launches["lstm_recurrence"]
     with torch.no_grad():
         got = model(torch.from_numpy(sig), compute_dtype=torch.float32,
                     lstm_int8=True)
-    assert lstm_cuda.lstm_recurrence.launches == before
+    assert launches["lstm_recurrence"] == before
     assert got.shape == want.shape == (120, 3, cfg.n_score)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 

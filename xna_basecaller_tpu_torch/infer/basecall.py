@@ -81,18 +81,25 @@ def _apply_ub_bias(scores: torch.Tensor, n_base: int, ub_bias: float):
             + bias).reshape(T, N, C)
 
 
-def _score_and_decode(scores: torch.Tensor, n_base: int, state_len: int,
-                      reverse: bool = False, ub_bias: float = 0.0,
-                      alphabet: str | None = None):
-    """CRF scores [T', N, C] -> per-frame label paths [N, T'] int8.
-    ``reverse`` complements through ``alphabet``'s complement map
-    (``ops/crf.py::reverse_complement``)."""
+def _decode_input(scores: torch.Tensor, n_base: int, state_len: int,
+                  reverse: bool, ub_bias: float, alphabet: str | None):
+    """The scores every decode takes: for ``reverse`` complemented through
+    ``alphabet``'s complement map (``ops/crf.py::reverse_complement``),
+    then ``ub_bias`` added."""
     if reverse:
         scores = crf_ops.reverse_complement(scores, n_base, state_len,
                                             alphabet)
-    scores = _apply_ub_bias(scores, n_base, ub_bias)
-    decode = decode_paths_cuda if scores.is_cuda else crf_ops.decode_paths
-    return decode(scores, n_base, state_len)
+    return _apply_ub_bias(scores, n_base, ub_bias)
+
+
+def _score_and_decode(scores: torch.Tensor, n_base: int, state_len: int,
+                      reverse: bool = False, ub_bias: float = 0.0,
+                      alphabet: str | None = None):
+    """CRF scores [T', N, C] -> per-frame label paths [N, T'] int8 (the
+    kernels' decode on the card, their plain versions on the CPU)."""
+    return decode_paths_cuda(_decode_input(
+        scores, n_base, state_len, reverse, ub_bias, alphabet),
+        n_base, state_len)
 
 
 def _score_and_decode_qual(scores: torch.Tensor, n_base: int,
@@ -101,11 +108,9 @@ def _score_and_decode_qual(scores: torch.Tensor, n_base: int,
                            alphabet: str | None = None):
     """The decode with the posterior of each chosen transition: (paths
     [N, T'] int8, probs [N, T'] f16), as JAX's ``_score_and_decode_qual``."""
-    if reverse:
-        scores = crf_ops.reverse_complement(scores, n_base, state_len,
-                                            alphabet)
-    scores = _apply_ub_bias(scores, n_base, ub_bias)
-    paths, probs = decode_paths_with_qual_cuda(scores, n_base, state_len)
+    paths, probs = decode_paths_with_qual_cuda(_decode_input(
+        scores, n_base, state_len, reverse, ub_bias, alphabet),
+        n_base, state_len)
     return paths, probs.half()
 
 
@@ -115,11 +120,9 @@ def _score_and_decode_beam(scores: torch.Tensor, n_base: int,
                            alphabet: str | None = None):
     """The path-collapsing beam decode: paths [N, T'] int8, as JAX's
     ``_score_and_decode_beam``."""
-    if reverse:
-        scores = crf_ops.reverse_complement(scores, n_base, state_len,
-                                            alphabet)
-    scores = _apply_ub_bias(scores, n_base, ub_bias)
-    return decode_beam_cuda(scores, n_base, state_len, beam_width)[0]
+    return decode_beam_cuda(_decode_input(
+        scores, n_base, state_len, reverse, ub_bias, alphabet),
+        n_base, state_len, beam_width)[0]
 
 
 def _forward(models, batch: torch.Tensor, compute_dtype, lstm_int8: bool):

@@ -40,85 +40,24 @@ first rule and raise past it.
 
 Each wrapper takes the plain version in ``ops/crf.py`` for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
-``<wrapper>.launches`` counts its kernel launches, and
-``crf_decode.launches_wide`` those of K2a, K2b and K2c that took the wide
+``_build.launches[<wrapper>]`` counts its kernel launches, and
+``launches["<wrapper>.wide"]`` those of K2a, K2b and K2c that took the wide
 path, as the launch reports it.
 """
 
 from __future__ import annotations
 
-import ctypes
-from types import SimpleNamespace
-
 import torch
 
 from xna_basecaller_tpu_torch.ops import _build
 from xna_basecaller_tpu_torch.ops import crf
+from xna_basecaller_tpu_torch.ops._build import check_tensor
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# entry point -> (source, argument types)
-_SIGNATURES = {
-    "xna_crf_backward": ("crf_decode", [_P, _P, _I, _I, _I, _I, _P, _P]),
-    "xna_crf_fwd_viterbi": ("crf_decode",
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "xna_crf_fwd_viterbi_qual": ("crf_decode",
-                                 [_P] * 6 + [_I, _I, _I, _I, _P]),
-    "xna_crf_traceback": ("crf_decode",
-                          [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "xna_crf_traceback_qual": ("crf_decode",
-                               [_P] * 5 + [_I, _I, _I, _I, _P]),
-    "xna_crf_beam": ("crf_beam", [_P] * 7 + [_I] * 5 + [_P]),
-    "xna_crf_forward": ("crf_loss", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "xna_crf_posteriors": ("crf_loss",
-                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "xna_lattice_forward": ("crf_loss", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "xna_lattice_backward": ("crf_loss",
-                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "xna_lattice_depth": ("crf_loss", [_I, _I]),
-}
-_MESSAGES = {-2: "shape not supported by the kernel (n_state <= 256, "
-                 "n_base + 1 <= 8, n_state * (n_base + 1) <= 2048; the "
-                 "Viterbi decode's kernels alone also take up to 1024 states "
-                 "and 5120 scores a frame)"}
-_SCAN_MESSAGES = {**_MESSAGES, -3: "scores not 8-byte aligned"}
-# K2a, K2b and K2c of the Viterbi decode (csrc/crf_decode.cu)
-_DECODE_MESSAGES = {
-    -2: "shape not supported by the Viterbi decode's kernels (n_base + 1 "
-        "<= 8, n_state a multiple of n_base, n_state <= 1024 and n_state * "
-        "(n_base + 1) <= 5120; past 256 states or 2048 scores a frame on "
-        "their wide path)",
-    -3: "scores not 8-byte aligned"}
 # the widest beam the beam kernel takes (``kMaxBeam``, csrc/crf_beam.cu)
 MAX_BEAM_WIDTH = 256
-_LATTICE_MESSAGES = {-2: "lattice not supported by the kernel (1 <= n <= "
-                         "6144 positions)",
-                     -3: "packed lattice or alphas not 16-byte aligned"}
 _NEG = -1e38   # log(0) in the packed lattice's pads, as in the kernels
-
-
-def _fn(name: str):
-    source, argtypes = _SIGNATURES[name]
-    lib = _build.load(source)
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
-def _check(t: torch.Tensor, name: str, dtype, ndim: int,
-           contiguous: bool = True):
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    _build.check_device(name, t)
-    if t.dtype != dtype or t.ndim != ndim \
-            or (contiguous and not t.is_contiguous()):
-        raise ValueError(
-            f"{name}: expected a contiguous {ndim}-d {dtype} tensor, got "
-            f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+_F32 = torch.float32
+_ANY3 = (None, None, None)
 
 
 def _ring_aligned(scores: torch.Tensor) -> torch.Tensor:
@@ -133,18 +72,13 @@ def backward_scan(scores: torch.Tensor, n_base: int, state_len: int):
     [T+1, N, n_state] (beta_T = 0)."""
     if scores.device.type == "cpu":
         return crf.backward_scores(scores, n_base, state_len)
-    _check(scores, "backward_scan", torch.float32, 3)
+    check_tensor("backward_scan", "scores", scores, _F32, _ANY3)
     scores = _ring_aligned(scores)
     T, N, _ = scores.shape
     ns = n_base ** state_len
     betas = torch.empty(T + 1, N, ns, device=scores.device)
-    lib, fn = _fn("xna_crf_backward")
-    wide = ctypes.c_int(0)
-    rc = fn(scores.data_ptr(), betas.data_ptr(), T, N, n_base, ns,
-            _stream(), ctypes.byref(wide))
-    _build.check(lib, rc, "crf backward kernel", _DECODE_MESSAGES)
-    backward_scan.launches += 1
-    crf_decode.launches_wide += wide.value
+    _build.launch("backward_scan", "xna_crf_backward", scores, betas, T, N,
+                  n_base, ns)
     return betas
 
 
@@ -169,32 +103,22 @@ def forward_viterbi_qual(scores: torch.Tensor, betas: torch.Tensor,
 
 def _forward_viterbi(scores, betas, logz, n_base, state_len, qual):
     """Launch K2b, or its q-score variant with ``qual``, on the card."""
-    _check(scores, "forward_viterbi", torch.float32, 3)
-    _check(betas, "forward_viterbi", torch.float32, 3)
-    _check(logz, "forward_viterbi", torch.float32, 1)
-    scores = _ring_aligned(scores)
+    what = "forward_viterbi_qual" if qual else "forward_viterbi"
+    check_tensor(what, "scores", scores, _F32, _ANY3)
     T, N, _ = scores.shape
     ns = n_base ** state_len
-    if betas.shape != (T + 1, N, ns) or logz.shape != (N,):
-        raise ValueError("forward_viterbi: betas/logz do not match scores")
+    check_tensor(what, "betas", betas, _F32, (T + 1, N, ns))
+    check_tensor(what, "logz", logz, _F32, (N,))
+    scores = _ring_aligned(scores)
     bp = torch.empty(T, N, ns, dtype=torch.uint8, device=scores.device)
     v_final = torch.empty(N, ns, device=scores.device)
-    ptrs = [scores.data_ptr(), betas.data_ptr(), logz.data_ptr(),
-            bp.data_ptr(), v_final.data_ptr()]
     if qual:
         edge_sel = torch.empty(T, N, ns, device=scores.device)
-        lib, fn = _fn("xna_crf_fwd_viterbi_qual")
-        rc = fn(*ptrs, edge_sel.data_ptr(), T, N, n_base, ns, _stream())
-        _build.check(lib, rc, "crf forward-Viterbi kernel (q-scores)",
-                     _SCAN_MESSAGES)
-        forward_viterbi_qual.launches += 1
+        _build.launch(what, "xna_crf_fwd_viterbi_qual", scores, betas, logz,
+                      bp, v_final, edge_sel, T, N, n_base, ns)
         return bp, v_final, edge_sel
-    lib, fn = _fn("xna_crf_fwd_viterbi")
-    wide = ctypes.c_int(0)
-    rc = fn(*ptrs, T, N, n_base, ns, _stream(), ctypes.byref(wide))
-    _build.check(lib, rc, "crf forward-Viterbi kernel", _DECODE_MESSAGES)
-    forward_viterbi.launches += 1
-    crf_decode.launches_wide += wide.value
+    _build.launch(what, "xna_crf_fwd_viterbi", scores, betas, logz, bp,
+                  v_final, T, N, n_base, ns)
     return bp, v_final
 
 
@@ -203,14 +127,10 @@ def viterbi_traceback(bp: torch.Tensor, v_final: torch.Tensor,
     """K2c: -> labels [N, T] int8 in 0..n_base."""
     if bp.device.type == "cpu":
         return crf.viterbi_traceback(bp, v_final, n_base, state_len)
-    labels = _traceback_outputs(bp, v_final, n_base, state_len)
-    lib, fn = _fn("xna_crf_traceback")
-    wide = ctypes.c_int(0)
-    rc = fn(bp.data_ptr(), v_final.data_ptr(), labels.data_ptr(),
-            *bp.shape[:2], n_base, bp.shape[2], _stream(), ctypes.byref(wide))
-    _build.check(lib, rc, "crf traceback kernel", _DECODE_MESSAGES)
-    viterbi_traceback.launches += 1
-    crf_decode.launches_wide += wide.value
+    what = "viterbi_traceback"
+    labels = _traceback_outputs(what, bp, v_final, n_base, state_len)
+    _build.launch(what, "xna_crf_traceback", bp, v_final, labels,
+                  *bp.shape[:2], n_base, bp.shape[2])
     return labels
 
 
@@ -223,27 +143,21 @@ def viterbi_traceback_qual(bp: torch.Tensor, v_final: torch.Tensor,
     if bp.device.type == "cpu":
         return crf.viterbi_traceback(bp, v_final, n_base, state_len,
                                      edge_sel)
-    labels = _traceback_outputs(bp, v_final, n_base, state_len)
-    _check(edge_sel, "viterbi_traceback", torch.float32, 3)
-    if edge_sel.shape != bp.shape:
-        raise ValueError("viterbi_traceback: edge_sel does not match bp")
+    what = "viterbi_traceback_qual"
+    labels = _traceback_outputs(what, bp, v_final, n_base, state_len)
+    check_tensor(what, "edge_sel", edge_sel, _F32, tuple(bp.shape))
     probs = torch.empty(labels.shape, device=bp.device)
-    lib, fn = _fn("xna_crf_traceback_qual")
-    rc = fn(bp.data_ptr(), v_final.data_ptr(), edge_sel.data_ptr(),
-            labels.data_ptr(), probs.data_ptr(), *bp.shape[:2], n_base,
-            bp.shape[2], _stream())
-    _build.check(lib, rc, "crf traceback kernel (q-scores)", _MESSAGES)
-    viterbi_traceback_qual.launches += 1
+    _build.launch(what, "xna_crf_traceback_qual", bp, v_final, edge_sel,
+                  labels, probs, *bp.shape[:2], n_base, bp.shape[2])
     return labels, probs
 
 
-def _traceback_outputs(bp, v_final, n_base, state_len) -> torch.Tensor:
+def _traceback_outputs(what, bp, v_final, n_base, state_len) -> torch.Tensor:
     """K2c's input checks; -> its labels [N, T] int8, unwritten."""
-    _check(bp, "viterbi_traceback", torch.uint8, 3)
-    _check(v_final, "viterbi_traceback", torch.float32, 2)
+    check_tensor(what, "bp", bp, torch.uint8, (None, None,
+                                               n_base ** state_len))
     T, N, ns = bp.shape
-    if ns != n_base ** state_len or v_final.shape != (N, ns):
-        raise ValueError("viterbi_traceback: shapes do not match")
+    check_tensor(what, "v_final", v_final, _F32, (N, ns))
     return torch.empty(N, T, dtype=torch.int8, device=bp.device)
 
 
@@ -254,17 +168,14 @@ def forward_scan(scores: torch.Tensor, n_base: int, state_len: int):
         alphas = crf.forward_scores(scores, n_base, state_len)
         return alphas, crf.logz_from_alphas(alphas)
     scores = scores.contiguous()
-    _check(scores, "forward_scan", torch.float32, 3)
+    check_tensor("forward_scan", "scores", scores, _F32, _ANY3)
     scores = _ring_aligned(scores)
     T, N, _ = scores.shape
     ns = n_base ** state_len
     alphas = torch.empty(T + 1, N, ns, device=scores.device)
     logz = torch.empty(N, device=scores.device)
-    lib, fn = _fn("xna_crf_forward")
-    rc = fn(scores.data_ptr(), alphas.data_ptr(), logz.data_ptr(), T, N,
-            n_base, ns, _stream())
-    _build.check(lib, rc, "crf forward kernel", _SCAN_MESSAGES)
-    forward_scan.launches += 1
+    _build.launch("forward_scan", "xna_crf_forward", scores, alphas, logz,
+                  T, N, n_base, ns)
     return alphas, logz
 
 
@@ -275,28 +186,23 @@ def edge_posteriors(scores: torch.Tensor, alphas: torch.Tensor,
     n_state] alphas and betas and logZ [N], times ``ct`` [N] when given."""
     if scores.device.type == "cpu":
         return crf.edge_posteriors(scores, alphas, betas, logz, ct)
+    what = "edge_posteriors"
     scores, alphas, betas, logz = (t.contiguous() for t in (
         scores, alphas, betas, logz))
-    for t, nd in ((scores, 3), (alphas, 3), (betas, 3), (logz, 1)):
-        _check(t, "edge_posteriors", torch.float32, nd)
+    check_tensor(what, "scores", scores, _F32, _ANY3)
     T, N, C = scores.shape
+    check_tensor(what, "alphas", alphas, _F32, (T + 1, N, None))
     ns = alphas.shape[-1]
-    if alphas.shape != (T + 1, N, ns) or betas.shape != alphas.shape \
-            or logz.shape != (N,) or C % ns:
-        raise ValueError("edge_posteriors: alphas/betas/logz do not match "
-                         "the scores")
+    check_tensor(what, "betas", betas, _F32, (T + 1, N, ns))
+    check_tensor(what, "logz", logz, _F32, (N,))
+    if C % ns:
+        raise ValueError(f"{what}: {C} score columns for {ns} states")
     if ct is not None:
         ct = ct.contiguous()
-        _check(ct, "edge_posteriors", torch.float32, 1)
-        if ct.shape != (N,):
-            raise ValueError("edge_posteriors: ct must be [N]")
+        check_tensor(what, "ct", ct, _F32, (N,))
     post = torch.empty_like(scores)
-    lib, fn = _fn("xna_crf_posteriors")
-    rc = fn(scores.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
-            logz.data_ptr(), None if ct is None else ct.data_ptr(),
-            post.data_ptr(), T, N, C // ns - 1, ns, _stream())
-    _build.check(lib, rc, "crf posterior kernel", _MESSAGES)
-    edge_posteriors.launches += 1
+    _build.launch(what, "xna_crf_posteriors", scores, alphas, betas, logz,
+                  ct, post, T, N, C // ns - 1, ns)
     return post
 
 
@@ -358,17 +264,15 @@ def _padded(alphas: torch.Tensor, npad: int) -> torch.Tensor:
     return out
 
 
-def _lattice_inputs(name, stay, move, lengths):
+def _lattice_inputs(what, stay, move, lengths):
     """The packed lattice of f32 stay [T, N, n] and move [T, N, n-1] on the
     card, and the lengths [N] as int32 there."""
-    _check(stay, name, torch.float32, 3, contiguous=False)
-    _check(move, name, torch.float32, 3, contiguous=False)
+    check_tensor(what, "stay", stay, _F32, _ANY3, contiguous=False)
     T, N, n = stay.shape
-    if move.shape != (T, N, n - 1) or lengths.shape != (N,):
-        raise ValueError(
-            f"{name}: expected stay [T, N, n], move [T, N, n-1] and lengths "
-            f"[N], got {tuple(stay.shape)}, {tuple(move.shape)}, "
-            f"{tuple(lengths.shape)}")
+    check_tensor(what, "move", move, _F32, (T, N, n - 1), contiguous=False)
+    if lengths.shape != (N,):
+        raise ValueError(f"{what}: expected lengths [{N}], got "
+                         f"{list(lengths.shape)}")
     lengths = lengths.to(device=stay.device, dtype=torch.int32).contiguous()
     return _packed(stay, move), lengths
 
@@ -385,11 +289,8 @@ def lattice_forward(stay: torch.Tensor, move: torch.Tensor,
     n = stay.shape[2]
     alphas = torch.empty(T, N, npad, device=stay.device)
     logz = torch.empty(N, device=stay.device)
-    lib, fn = _fn("xna_lattice_forward")
-    rc = fn(lat.data_ptr(), lengths.data_ptr(), alphas.data_ptr(),
-            logz.data_ptr(), T, N, n, _stream())
-    _build.check(lib, rc, "lattice forward kernel", _LATTICE_MESSAGES)
-    lattice_forward.launches += 1
+    _build.launch("lattice_forward", "xna_lattice_forward", lat, lengths,
+                  alphas, logz, T, N, n)
     return alphas[:, :, :n], logz
 
 
@@ -400,25 +301,19 @@ def lattice_backward(stay: torch.Tensor, move: torch.Tensor,
     posteriors times ``ct`` [N]."""
     if stay.device.type == "cpu":
         return crf.lattice_backward(stay, move, lengths, alphas, logz, ct)
-    lat, lengths = _lattice_inputs("lattice_backward", stay, move, lengths)
+    what = "lattice_backward"
+    lat, lengths = _lattice_inputs(what, stay, move, lengths)
     logz, ct = logz.contiguous(), ct.contiguous()
-    _check(alphas, "lattice_backward", torch.float32, 3, contiguous=False)
-    _check(logz, "lattice_backward", torch.float32, 1)
-    _check(ct, "lattice_backward", torch.float32, 1)
     T, N, _, npad = lat.shape
     n = stay.shape[2]
-    if alphas.shape != stay.shape or logz.shape != (N,) \
-            or ct.shape != (N,):
-        raise ValueError("lattice_backward: alphas/logz/ct do not match")
+    check_tensor(what, "alphas", alphas, _F32, (T, N, n), contiguous=False)
+    check_tensor(what, "logz", logz, _F32, (N,))
+    check_tensor(what, "ct", ct, _F32, (N,))
     alphas = _padded(alphas, npad)
     d_stay = torch.empty(T, N, n, device=stay.device)
     d_move = torch.empty(T, N, n - 1, device=stay.device)
-    lib, fn = _fn("xna_lattice_backward")
-    rc = fn(lat.data_ptr(), lengths.data_ptr(), alphas.data_ptr(),
-            logz.data_ptr(), ct.data_ptr(), d_stay.data_ptr(),
-            d_move.data_ptr(), T, N, n, _stream())
-    _build.check(lib, rc, "lattice backward kernel", _LATTICE_MESSAGES)
-    lattice_backward.launches += 1
+    _build.launch(what, "xna_lattice_backward", lat, lengths, alphas, logz,
+                  ct, d_stay, d_move, T, N, n)
     return d_stay, d_move
 
 
@@ -426,8 +321,7 @@ def lattice_depth(n: int, backward: bool) -> int:
     """The stages of the ring of K6a (or K6b, ``backward``) for a lattice
     of n positions: 8, or 4 or 2 where 8 do not fit in a block's shared
     memory (``csrc/crf_loss.cu``).  Needs the built kernels."""
-    _, fn = _fn("xna_lattice_depth")
-    return fn(n, int(backward))
+    return _build.size("xna_lattice_depth", n, int(backward))
 
 
 def beam_search(scores: torch.Tensor, alphas: torch.Tensor,
@@ -444,49 +338,31 @@ def beam_search(scores: torch.Tensor, alphas: torch.Tensor,
         raise ValueError(
             f"beam_search: beam width {beam_width} outside 1..."
             f"{MAX_BEAM_WIDTH}, the widths the beam kernel takes")
+    what = "beam_search"
     scores, alphas, betas, logz = (t.contiguous() for t in (
         scores, alphas, betas, logz))
-    for t, nd in ((scores, 3), (alphas, 3), (betas, 3), (logz, 1)):
-        _check(t, "beam_search", torch.float32, nd)
-    T, N, C = scores.shape
     ns = n_base ** state_len
-    if C != ns * (n_base + 1) or alphas.shape != (T + 1, N, ns) \
-            or betas.shape != alphas.shape or logz.shape != (N,):
-        raise ValueError("beam_search: alphas/betas/logz do not match the "
-                         "scores")
+    check_tensor(what, "scores", scores, _F32, (None, None,
+                                                ns * (n_base + 1)))
+    T, N, _ = scores.shape
+    for name, t in (("alphas", alphas), ("betas", betas)):
+        check_tensor(what, name, t, _F32, (T + 1, N, ns))
+    check_tensor(what, "logz", logz, _F32, (N,))
     hist = torch.empty(N, T, beam_width, dtype=torch.int16,
                        device=scores.device)
     labels = torch.empty(N, T, dtype=torch.int8, device=scores.device)
     best = torch.empty(N, device=scores.device)
-    lib, fn = _fn("xna_crf_beam")
-    rc = fn(scores.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
-            logz.data_ptr(), hist.data_ptr(), labels.data_ptr(),
-            best.data_ptr(), T, N, n_base, ns, beam_width, _stream())
-    _build.check(lib, rc, "crf beam kernel", {
-        **_MESSAGES, -4: f"beam width outside 1..{MAX_BEAM_WIDTH}"})
-    beam_search.launches += 1
+    _build.launch(what, "xna_crf_beam", scores, alphas, betas, logz, hist,
+                  labels, best, T, N, n_base, ns, beam_width)
     return labels, best
-
-
-backward_scan.launches = 0
-forward_viterbi.launches = 0
-# K2a's, K2b's and K2c's launches on the wide path, counted again: 1 a
-# launch that reports it took the path, 0 otherwise (csrc/crf_decode.cu)
-crf_decode = SimpleNamespace(launches_wide=0)
-forward_viterbi_qual.launches = 0
-viterbi_traceback.launches = 0
-viterbi_traceback_qual.launches = 0
-beam_search.launches = 0
-forward_scan.launches = 0
-edge_posteriors.launches = 0
-lattice_forward.launches = 0
-lattice_backward.launches = 0
 
 
 def decode_paths_cuda(scores: torch.Tensor, n_base: int, state_len: int):
     """The decode chain through the three kernels: scores [T, N, C] ->
     labels [N, T] int8, in f32.  logZ between K2a and K2b is one torch
-    reduction.  The scores are aligned for the ring once, for both scans."""
+    reduction.  The scores are aligned for the ring once, for both scans.
+    On the CPU the same four steps in their plain versions, which is
+    ``crf.decode_paths``."""
     scores = _ring_aligned(scores.float().contiguous())
     betas = backward_scan(scores, n_base, state_len)
     bp, v_final = forward_viterbi(scores, betas, crf.logz_from_betas(betas),

@@ -41,10 +41,10 @@ backward, then dW = sum_t h_p^T dgates as one ``torch.matmul``.
 
 Each wrapper takes the plain version (``ops/lstm.py``) for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
-``<wrapper>.launches`` counts its launches (one per group of batch rows;
-K3b's group is one launch of its gate recompute and one of its recursion);
-``lstm_recurrence.launches_f32`` counts K1's launches in f32 once more, and
-``lstm_recurrence.launches_wide`` those on the 192-row tiles.
+``_build.launches[<wrapper>]`` counts its launches (one per group of batch
+rows; K3b's group is one launch of its gate recompute and one of its
+recursion), ``launches["lstm_recurrence.f32"]`` K1's in f32 once more, and
+``launches["<wrapper>.wide"]`` those of K1 and K3a on the 192-row tiles.
 """
 
 from __future__ import annotations
@@ -63,42 +63,15 @@ from xna_basecaller_tpu_torch.ops.lstm import (
     quantize_w_hh,
 )
 
-_MESSAGES = {
-    -1: "the kernel's grid cannot be co-resident on this card",
-    -2: "shape not supported by the kernel (H must be a multiple of 16, "
-        "at most 1024 in f32 and in bf16 past 64 rows)",
-    -3: "the kernel's shared-memory request was refused (H too large)",
-}
-_MESSAGES_INT8 = {**_MESSAGES, -2: "shape not supported by the kernel (H "
-                                   "must be a multiple of 32)"}
-_MESSAGES_BWD = {**_MESSAGES, -2: "shape not supported by the kernel (H must "
-                                  "be a multiple of 16, of 32 in bf16)"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib(name: str, fn_name: str, argtypes):
-    lib = _build.load(name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib, fn
-
-
-def _call(lib, name: str, *ints: int) -> int:
-    """The integer a library's size query returns for integer arguments."""
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = [_I] * len(ints), _I
-    return fn(*ints)
-
 
 def group_rows(source: str, dtype: torch.dtype) -> int:
     """Batch rows one launch of the recurrence of ``csrc/<source>.cu``
     (``lstm_recurrence``: K1 and K3a, 384 in bf16 and 256 in f32;
     ``lstm_int8``: K7, 256 in either) takes for xp of ``dtype``; the
     wrappers launch once per group of that many rows."""
-    lib = _build.load(source)
     if source == "lstm_int8":
-        return _call(lib, "xna_lstm_int8_group_rows")
-    return _call(lib, "xna_lstm_group_rows", int(dtype == torch.bfloat16))
+        return _build.size("xna_lstm_int8_group_rows")
+    return _build.size("xna_lstm_group_rows", int(dtype == torch.bfloat16))
 
 
 def bf16_geometry(rows: int, H: int) -> dict:
@@ -106,84 +79,64 @@ def bf16_geometry(rows: int, H: int) -> dict:
     ``H`` on the current card: whether it takes the wide geometry, rows a
     tile, CTAs, columns a chunk of h, ring stages (for tests and tools;
     the launch itself reports whether it took the wide geometry)."""
-    lib, fn = _lib("lstm_recurrence", "xna_lstm_bf16_geometry",
-                   [_I, _I, _P])
     out = (ctypes.c_int * 5)()
-    _build.check(lib, fn(rows, H, out), "lstm_recurrence geometry",
-                 _MESSAGES)
+    name = "xna_lstm_bf16_geometry"
+    _build.check(name, _build.entry(name)(rows, H, out),
+                 "lstm_recurrence geometry")
     return dict(zip(("wide", "rows", "ctas", "chunk_cols", "stages"), out))
 
 
-def _check(what: str, shapes: dict[str, tuple],
-           fixed: dict[str, torch.dtype] | None = None, **tensors):
-    """Raise unless every tensor is contiguous, on CUDA and of the shape
-    given for it, those named in ``fixed`` of the dtype given there, and the
-    others all of one dtype, f32 or bf16."""
-    fixed = fixed or {}
-    dtype = None
-    for name, t in tensors.items():
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous CUDA "
-                             f"tensor, got {t.device}")
-        _build.check_device(f"{what}: {name}", t)
-        if t.shape != shapes[name]:
-            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
-        if name in fixed:
-            if t.dtype != fixed[name]:
-                raise ValueError(f"{what}: {name} must be {fixed[name]}, "
-                                 f"got {t.dtype}")
-            continue
-        dtype = dtype or t.dtype
-        if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"{what}: tensors must all be f32 or all bf16, "
-                             f"{name} is {t.dtype}")
-
-
-def _recurrence_shapes(what: str, xp: torch.Tensor, w_hh: torch.Tensor):
-    if xp.ndim != 3 or w_hh.ndim != 2:
-        raise ValueError(f"{what}: xp must be 3-d and w_hh 2-d")
+def _dims(what: str, xp: torch.Tensor, w: torch.Tensor,
+          w_dtype: torch.dtype | None = None, **others) -> tuple:
+    """T, N, H of xp [T, N, 4H]; raise unless xp is f32 or bf16 (the LSTM
+    kernels take all their tensors f32 or all bf16) and a contiguous CUDA
+    tensor on the current device, as are w [H, 4H] (of ``w_dtype``, by
+    default xp's) and each of ``others`` [T, N, H] of xp's dtype."""
+    if xp.ndim != 3 or xp.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: xp must be [T, N, 4H], all tensors f32 "
+                         f"or all bf16, got {xp.dtype} {list(xp.shape)}")
     T, N, H4 = xp.shape
     H = H4 // 4
-    return T, N, H, {"xp": (T, N, 4 * H), "w_hh": (H, 4 * H),
-                     "ys": (T, N, H), "cs": (T, N, H), "dys": (T, N, H),
-                     "w_q": (H, 4 * H), "scale": (4 * H,)}
+    _build.check_tensor(what, "xp", xp, xp.dtype, (T, N, 4 * H))
+    _build.check_tensor(what, "w", w, w_dtype or xp.dtype, (H, 4 * H))
+    for name, t in others.items():
+        _build.check_tensor(what, name, t, xp.dtype, (T, N, H))
+    return T, N, H
+
+
+def _row(t: torch.Tensor, n0: int) -> int:
+    """The address of batch row n0 of the contiguous t [T, N, ...]."""
+    return t.data_ptr() + n0 * t.stride(1) * t.element_size()
+
+
+def _launch_groups(what: str, name: str, N: int, group: int, args,
+                   also: str | None = None) -> None:
+    """Launch the entry point ``name`` once per group of at most ``group``
+    of the N batch rows (``also`` as ``_build.launch`` takes it):
+    ``args(n0, rows)`` gives a launch's arguments up to the stream, the
+    tensors' addresses at row n0 (``_row``) and its own scratch."""
+    for n0 in range(0, N, group):
+        _build.launch(what, name, *args(n0, min(group, N - n0)), also=also)
 
 
 def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
                 cells: bool):
     """K1 (``cells`` False) or K3a: ys, and cs or None."""
     what = "lstm_forward_with_cells" if cells else "lstm_recurrence"
-    T, N, H, shapes = _recurrence_shapes(what, xp, w_hh)
-    _check(what, shapes, xp=xp, w_hh=w_hh)
+    T, N, H = _dims(what, xp, w_hh)
     ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
     cs = torch.empty_like(ys) if cells else None
-    lib, fn = _lib("lstm_recurrence", "xna_lstm_recurrence",
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                    _P])
     group = group_rows("lstm_recurrence", xp.dtype)
-    wide = ctypes.c_int(0)
-    size = xp.element_size()
-    stream = torch.cuda.current_stream().cuda_stream
-    for n0 in range(0, N, group):
-        rows = min(group, N - n0)
-        hbuf = torch.zeros(_call(lib, "xna_lstm_hbuf_elems", rows, H),
+
+    def args(n0, rows):
+        hbuf = torch.zeros(_build.size("xna_lstm_hbuf_elems", rows, H),
                            dtype=xp.dtype, device=xp.device)
         flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
-        rc = fn(xp.data_ptr() + n0 * 4 * H * size, w_hh.data_ptr(),
-                ys.data_ptr() + n0 * H * size,
-                cs.data_ptr() + n0 * H * size if cells else None,
-                hbuf.data_ptr(), flags.data_ptr(), T, rows, N, H,
-                int(reverse), int(xp.dtype == torch.bfloat16), stream,
-                ctypes.byref(wide))
-        _build.check(lib, rc, f"{what} kernel", _MESSAGES)
-        if cells:
-            lstm_forward_with_cells.launches += 1
-        else:
-            lstm_recurrence.launches += 1
-            if xp.dtype == torch.float32:
-                lstm_recurrence.launches_f32 += 1
-            lstm_recurrence.launches_wide += wide.value
+        return (_row(xp, n0), w_hh, _row(ys, n0),
+                _row(cs, n0) if cells else None, hbuf, flags, T, rows, N, H,
+                int(reverse), int(xp.dtype == torch.bfloat16))
+    _launch_groups(what, "xna_lstm_recurrence", N, group, args,
+                   "f32" if xp.dtype == torch.float32 and not cells else None)
     return ys, cs
 
 
@@ -217,31 +170,19 @@ def lstm_backward_dxp(dys: torch.Tensor, xp: torch.Tensor,
     if xp.device.type == "cpu":
         return lstm_backward_dxp_plain(dys, xp, w_hh, ys, cs, reverse)
     what = "lstm_backward_dxp"
-    T, N, H, shapes = _recurrence_shapes(what, xp, w_hh)
-    _check(what, shapes, xp=xp, w_hh=w_hh, ys=ys, cs=cs, dys=dys)
-    lib, fn = _lib("lstm_backward", "xna_lstm_backward",
-                   [_P] * 9 + [_I] * 6 + [_P])
-    group_rows = lib.xna_lstm_backward_group_rows
-    group_rows.argtypes, group_rows.restype = [_I], _I
+    T, N, H = _dims(what, xp, w_hh, ys=ys, cs=cs, dys=dys)
     is_bf16 = int(xp.dtype == torch.bfloat16)
-    group = group_rows(is_bf16)
     dxp = torch.empty_like(xp)
     act = torch.empty(xp.shape, dtype=torch.float32, device=xp.device)
-    size = xp.element_size()
-    stream = torch.cuda.current_stream().cuda_stream
-    for n0 in range(0, N, group):
-        rows = min(group, N - n0)
+
+    def args(n0, rows):
         dgbuf = torch.empty(2, rows, 4 * H, dtype=xp.dtype, device=xp.device)
         flags = torch.zeros(H, dtype=torch.int32, device=xp.device)
-        row4, row1 = n0 * 4 * H, n0 * H
-        rc = fn(xp.data_ptr() + row4 * size, ys.data_ptr() + row1 * size,
-                cs.data_ptr() + row1 * size, dys.data_ptr() + row1 * size,
-                w_hh.data_ptr(), act.data_ptr() + row4 * 4,
-                dxp.data_ptr() + row4 * size, dgbuf.data_ptr(),
-                flags.data_ptr(), T, rows, N, H, int(reverse), is_bf16,
-                stream)
-        _build.check(lib, rc, "LSTM backward kernel", _MESSAGES_BWD)
-        lstm_backward_dxp.launches += 1
+        return (_row(xp, n0), _row(ys, n0), _row(cs, n0), _row(dys, n0),
+                w_hh, _row(act, n0), _row(dxp, n0), dgbuf, flags, T, rows,
+                N, H, int(reverse), is_bf16)
+    _launch_groups(what, "xna_lstm_backward", N,
+                   _build.size("xna_lstm_backward_group_rows", is_bf16), args)
     return dxp
 
 
@@ -254,34 +195,18 @@ def lstm_recurrence_int8(xp: torch.Tensor, w_q: torch.Tensor,
     if xp.device.type == "cpu":
         return lstm_recurrence_int8_plain(xp, w_q, scale, reverse)
     what = "lstm_recurrence_int8"
-    T, N, H, shapes = _recurrence_shapes(what, xp, w_q)
-    _check(what, shapes, {"w_q": torch.int8, "scale": torch.float32},
-           xp=xp, w_q=w_q, scale=scale)
+    T, N, H = _dims(what, xp, w_q, torch.int8)
+    _build.check_tensor(what, "scale", scale, torch.float32, (4 * H,))
     ys = torch.empty(T, N, H, dtype=xp.dtype, device=xp.device)
-    lib, fn = _lib("lstm_int8", "xna_lstm_int8",
-                   [_P] * 6 + [_I] * 6 + [_P])
-    group = group_rows("lstm_int8", xp.dtype)
-    size = xp.element_size()
-    stream = torch.cuda.current_stream().cuda_stream
-    for n0 in range(0, N, group):
-        rows = min(group, N - n0)
+
+    def args(n0, rows):
         hbuf = torch.zeros(2, rows, H, dtype=torch.int8, device=xp.device)
         counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
-        rc = fn(xp.data_ptr() + n0 * 4 * H * size, w_q.data_ptr(),
-                scale.data_ptr(), ys.data_ptr() + n0 * H * size,
-                hbuf.data_ptr(), counter.data_ptr(), T, rows, N, H,
-                int(reverse), int(xp.dtype == torch.bfloat16), stream)
-        _build.check(lib, rc, f"{what} kernel", _MESSAGES_INT8)
-        lstm_recurrence_int8.launches += 1
+        return (_row(xp, n0), w_q, scale, _row(ys, n0), hbuf, counter, T,
+                rows, N, H, int(reverse), int(xp.dtype == torch.bfloat16))
+    _launch_groups(what, "xna_lstm_int8", N,
+                   group_rows("lstm_int8", xp.dtype), args)
     return ys
-
-
-lstm_recurrence.launches = 0
-lstm_recurrence.launches_f32 = 0   # those of K1's f32 route, counted again
-lstm_recurrence.launches_wide = 0  # those on the wide geometry, again
-lstm_forward_with_cells.launches = 0
-lstm_backward_dxp.launches = 0
-lstm_recurrence_int8.launches = 0
 
 
 class LSTMRecurrence(torch.autograd.Function):

@@ -125,22 +125,24 @@ def kernel(lib: ctypes.CDLL, tag: str):
     of ``lib`` takes.  A tree without ``xna_lstm_bf16_geometry`` takes 256
     rows in either dtype, its ``xna_lstm_group_rows`` no argument and its
     ``xna_lstm_recurrence`` no pointer for the geometry it took."""
-    bf16_geo = getattr(lib, "xna_lstm_bf16_geometry", None)
-    fn = lib.xna_lstm_recurrence
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * (1 if bf16_geo is None else 2)
-    fn.restype = ctypes.c_int
-    wide = () if bf16_geo is None else (None,)
-    elems = lib.xna_lstm_hbuf_elems
-    elems.argtypes, elems.restype = [ctypes.c_int] * 2, ctypes.c_int
-    group_rows = lib.xna_lstm_group_rows
-    group_rows.restype = ctypes.c_int
-    if bf16_geo is not None:
-        bf16_geo.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        bf16_geo.restype = ctypes.c_int
-        group_rows.argtypes = [ctypes.c_int]
-    else:
-        group_rows.argtypes = []
+    def typed(name, drop=0):
+        """``name`` typed from this tree's table, less its last ``drop``
+        arguments (an older tree's), or None where ``lib`` lacks it."""
+        if not hasattr(lib, name):
+            return None
+        if not drop:
+            return _build.entry(name, lib)
+        fn = getattr(lib, name)
+        fn.argtypes = _build.ENTRY_POINTS[name].argtypes[:-drop]
+        fn.restype = ctypes.c_int
+        return fn
+
+    bf16_geo = typed("xna_lstm_bf16_geometry")
+    old = bf16_geo is None
+    fn = typed("xna_lstm_recurrence", drop=int(old))
+    wide = () if old else (None,)
+    elems = typed("xna_lstm_hbuf_elems")
+    group_rows = typed("xna_lstm_group_rows", drop=int(old))
 
     def run(xp, w_hh, reverse):
         t, n, h4 = xp.shape
@@ -175,10 +177,7 @@ def kernel(lib: ctypes.CDLL, tag: str):
             if rc == 0 else rc
     run.bf16_geometry = bf16_geometry
 
-    geo = getattr(lib, "xna_lstm_f32_geometry", None)
-    if geo is not None:
-        geo.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        geo.restype = ctypes.c_int
+    geo = typed("xna_lstm_f32_geometry")
 
     def geometry(n, h):
         """The f32 route's (units, depth, rows a block, staging buffers)

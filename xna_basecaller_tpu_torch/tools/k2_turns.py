@@ -129,16 +129,10 @@ class Chain:
     ignored there."""
 
     def __init__(self, lib: ctypes.CDLL, tag: str):
-        P, I = ctypes.c_void_p, ctypes.c_int
         self.tag = tag
-        self.bwd = lib.xna_crf_backward
-        self.bwd.argtypes = [P, P, I, I, I, I, P, P]
-        self.fwd = lib.xna_crf_fwd_viterbi
-        self.fwd.argtypes = [P, P, P, P, P, I, I, I, I, P, P]
-        self.tb = lib.xna_crf_traceback
-        self.tb.argtypes = [P, P, P, I, I, I, I, P, P]
-        for fn in (self.bwd, self.fwd, self.tb):
-            fn.restype = ctypes.c_int
+        self.bwd = _build.entry("xna_crf_backward", lib)
+        self.fwd = _build.entry("xna_crf_fwd_viterbi", lib)
+        self.tb = _build.entry("xna_crf_traceback", lib)
 
     def _ok(self, rc, what):
         if rc:
