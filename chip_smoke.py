@@ -801,9 +801,10 @@ def check_r10_wide_path(dev) -> dict:
     most 1e-3), v_final within T x 1e-7 relative, K2c's labels of the same
     backpointers exact; the ``.wide`` counts of ``_build.launches`` read
     3 in all after the
-    three launches.  Then K1 in bf16 at the model's [2000, 256, 1024]
-    against its plain version (max_abs 5e-2) and bit-equal over two
-    calls."""
+    three launches.  The forward's five K1 launches take the split
+    geometry (``launches["lstm_recurrence.split"]`` reads 5).  Then K1 in
+    bf16 at the model's [2000, 256, 1024] against its plain version
+    (max_abs 5e-2) and bit-equal over two calls."""
     from xna_basecaller_tpu_torch.core.config import from_dict
     from xna_basecaller_tpu_torch.data import chunkops
     from xna_basecaller_tpu_torch.data.simulate import simulate_reads
@@ -824,7 +825,14 @@ def check_r10_wide_path(dev) -> dict:
         fail(f"R10 wide path: {len(chunks)} chunks, fewer than a batch")
     batch = torch.from_numpy(chunks[:bc.batchsize]).to(dev)
     model = Model(cfg, device=dev, seed=SEED).eval()
+    split = _build.launches["lstm_recurrence.split"]
     scores = model(batch)
+    split = _build.launches["lstm_recurrence.split"] - split
+    print(f"R10 forward: K1 launches on the split geometry {split} "
+          "(expected 5)")
+    if split != 5:
+        fail(f"the R10 forward took {split} K1 launches on the split "
+             "geometry, expected 5")
     if scores.shape != (T, bc.batchsize, cfg.n_score) \
             or not bool(torch.isfinite(scores).all()):
         fail(f"R10 scores {tuple(scores.shape)} not finite/expected")

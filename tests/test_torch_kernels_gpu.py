@@ -73,7 +73,10 @@ def _lstm_inputs(T, N, H, seed, device, dtype):
 # 200 a second tile of 72 rows, 255 and 256 two tiles; 257, 300 and 384
 # three tiles of 128 rows at H=64 and 96, and at H=768 (where 144 CTAs of
 # 128 rows do not fit the card) the wide geometry: two tiles of 192 rows,
-# the second of 65, 108 or 192; 385 two launches (at most 384 rows each),
+# the second of 65, 108 or 192 (the split geometry, clusters of 2 CTAs
+# splitting W_hh's depth, takes H >= 1024 only: _REPEAT_CASES and
+# test_k1_at_1024_takes_split_and_is_bit_repeatable run it); 385 two
+# launches (at most 384 rows each),
 # the second of 1 row on the cluster path.  f32: at most 256 rows a
 # launch (257-385 two); all N rows in one block up to 42 (6 units a CTA,
 # H=96 and 768) or 32 (8 units, H=64), past that blocks of at most 41 rows
@@ -92,17 +95,25 @@ def _steps(N, H, T):
     return 300 if (N, H) in ((64, 768), (256, 768)) else T
 
 
+# csrc/lstm_recurrence.cu's kSplitMinH: the narrowest H on the split
+# geometry
+SPLIT_MIN_H = 1024
+
+
 def _k1_launches(N, H, dtype):
     """K1's launches over N rows of width H, and those of them on the wide
-    geometry: a bf16 launch of more than 64 rows takes it where one CTA
-    an SM of 16 units and 128 rows would need more CTAs than the card has
+    and on the split geometry: a bf16 launch of more than 64 rows takes the
+    split where H >= SPLIT_MIN_H is a multiple of 128 and its grid (one
+    CTA an SM of 16 units and 128 rows) fits the card's SMs, else the wide
+    geometry where that grid would need more CTAs than the card has
     SMs."""
     group = lstm_cuda.group_rows("lstm_recurrence", dtype)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = [min(group, N - n0) for n0 in range(0, N, group)]
-    wide = sum(dtype == torch.bfloat16 and r > 64
-               and -(-r // 128) * (H // 16) > sms for r in rows)
-    return len(rows), wide
+    rows = [r for r in (min(group, N - n0) for n0 in range(0, N, group))
+            if dtype == torch.bfloat16 and r > 64]
+    fits = [-(-r // 128) * (H // 16) <= sms for r in rows]
+    split = sum(f and H >= SPLIT_MIN_H and H % 128 == 0 for f in fits)
+    return -(-N // group), fits.count(False), split
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -114,27 +125,31 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, N, H, reverse):
     xp, w = _lstm_inputs(_steps(N, H, 40), N, H, seed=N, device=cuda,
                          dtype=dtype)
     k1 = lstm_cuda.lstm_recurrence
-    before = (launches["lstm_recurrence"], launches["lstm_recurrence.wide"])
+    keys = ("lstm_recurrence", "lstm_recurrence.wide",
+            "lstm_recurrence.split")
+    before = [launches[k] for k in keys]
     got = lstm_cuda.lstm_recurrence(xp, w, reverse)
     torch.cuda.synchronize()
-    n_launches, wide = _k1_launches(N, H, dtype)
-    assert (launches["lstm_recurrence"], launches["lstm_recurrence.wide"]) \
-        == (before[0] + n_launches, before[1] + wide)
+    n_launches, wide, split = _k1_launches(N, H, dtype)
+    assert [launches[k] - b for k, b in zip(keys, before)] \
+        == [n_launches, wide, split]
     if dtype == torch.bfloat16 and H == 768:
         assert wide == (N > 256)   # one launch of 257-384 rows
+    assert split == 0   # none of these widths takes the split
     want = lstm.lstm_recurrence(xp, w, reverse)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
 # bf16: 65-256 one launch of the wgmma kernel (one or two row tiles of
-# 128): at H=768 3 chunks of 256 columns on 2 ring stages, at H=1024 8
-# chunks of 128 on 3 stages, fetched as they finish within a window of 2;
-# 257, 300 and 384 one launch on the wide geometry (two tiles of 192 rows,
-# 6 or 8 chunks of 128 columns on 2 stages); 385 two launches, the second
-# on the cluster path.  f32: 1, 8 and 32 rows in one block; 64, 65 and 256
-# in blocks double buffered, 257 two launches; H=768: 6 units a CTA,
-# H=1024: 8
+# 128): at H=768 3 chunks of 256 columns on 2 ring stages; at H=1024 the
+# split geometry, clusters of 2 CTAs each reading its depth slice of h in
+# 4 chunks of 128 columns on 2 stages (65: one row in a tile's last 16-row
+# block; 200: a second tile of 72 rows); 257, 300 and 384 one launch on
+# the wide geometry (two tiles of 192 rows, 6 or 8 chunks of 128 columns
+# on 2 stages); 385 two launches, the second on the cluster path.  f32:
+# 1, 8 and 32 rows in one block; 64, 65 and 256 in blocks double
+# buffered, 257 two launches; H=768: 6 units a CTA, H=1024: 8
 _REPEAT_CASES = ([(torch.bfloat16, n)
                   for n in (65, 128, 200, 256, 257, 300, 384, 385)]
                  + [(torch.float32, n) for n in (1, 8, 32, 64, 65, 256, 257)])
@@ -173,18 +188,29 @@ def test_lstm_384_rows_equal_two_launches(cuda, cells, H, reverse):
     H=768 and 1024), equals bit for bit the same kernel run apart on the
     first 256 rows and on the last 128 (the two launches it replaces): a
     row's gates sum the same k16 products in the same order whatever its
-    tile."""
+    tile.  At H=1024, where 65-256 rows take the split geometry (which adds
+    the two depth slices' sums: other bits), the split's 256 rows in one
+    launch equal its two launches of 128 rows instead, and the wide
+    launch of 384 rows is held to the plain version (2e-2, 5e-2)."""
     xp, w = _lstm_inputs(300, 384, H, seed=H + 384, device=cuda,
                          dtype=torch.bfloat16)
     fn = (lstm_cuda.lstm_forward_with_cells if cells
           else lambda x, w, r: (lstm_cuda.lstm_recurrence(x, w, r),))
-    assert lstm_cuda.bf16_geometry(384, H)["wide"]
-    whole = fn(xp, w, reverse)
-    parts = [fn(xp[:, a:b].contiguous(), w, reverse)
-             for a, b in ((0, 256), (256, 384))]
+    assert lstm_cuda.bf16_geometry(384, H)["geometry"] == "wide"
+    split = lstm_cuda.bf16_geometry(256, H)["geometry"] == "split"
+    assert split == (H >= SPLIT_MIN_H)
+    cuts = ((0, 128), (128, 256)) if split else ((0, 256), (256, 384))
+    whole = fn(xp[:, :cuts[-1][1]].contiguous(), w, reverse)
+    parts = [fn(xp[:, a:b].contiguous(), w, reverse) for a, b in cuts]
     torch.cuda.synchronize()
     for i, got in enumerate(whole):
         assert torch.equal(got, torch.cat([p[i] for p in parts], dim=1))
+    if split:
+        plain = (lstm.lstm_recurrence_with_cells(xp, w, reverse) if cells
+                 else (lstm.lstm_recurrence(xp, w, reverse),))
+        for got, want, atol in zip(fn(xp, w, reverse), plain, (2e-2, 5e-2)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=atol)
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -353,21 +379,25 @@ def test_decode_kernels_of_the_first_path_keep_their_bits(cuda, n_base,
         _FIRST_PATH_SHA256[(n_base, state_len)]
 
 
-def test_k1_at_1024_takes_narrow_and_is_bit_repeatable(cuda):
+def test_k1_at_1024_takes_split_and_is_bit_repeatable(cuda):
     """K1 at the R10.4.1 sup model's width and batch (H=1024, N=256) over
-    its 2000-step chain: Narrow's geometry (two tiles of 128 rows, 128
-    CTAs, co-resident), one launch a call on it, the same bits twice, and
-    the plain version's values within bf16's 2e-2."""
+    its 2000-step chain: the split geometry (two tiles of 128 rows, 128
+    CTAs in clusters of 2, co-resident; each CTA's depth slice of h in 4
+    chunks of 128 columns on 2 stages), one launch a call on it, counted
+    in ``launches["lstm_recurrence.split"]``, the same bits twice, and the
+    plain version's values within bf16's 2e-2."""
     geo = lstm_cuda.bf16_geometry(256, 1024)
-    assert (geo["wide"], geo["rows"], geo["ctas"]) == (0, 128, 128)
+    assert geo == {"geometry": "split", "rows": 128, "ctas": 128,
+                   "chunk_cols": 128, "stages": 2}
     xp, w = _lstm_inputs(2000, 256, 1024, seed=11, device=cuda,
                          dtype=torch.bfloat16)
     k1 = lstm_cuda.lstm_recurrence
-    before = (launches["lstm_recurrence"], launches["lstm_recurrence.wide"])
+    keys = ("lstm_recurrence", "lstm_recurrence.wide",
+            "lstm_recurrence.split")
+    before = [launches[k] for k in keys]
     first = k1(xp, w, True)
     assert torch.equal(k1(xp, w, True), first)
-    assert (launches["lstm_recurrence"], launches["lstm_recurrence.wide"]) \
-        == (before[0] + 2, before[1])
+    assert [launches[k] - b for k, b in zip(keys, before)] == [2, 0, 2]
     torch.testing.assert_close(first.float(),
                                lstm.lstm_recurrence(xp, w, True).float(),
                                rtol=0, atol=2e-2)

@@ -1,8 +1,10 @@
 // Asynchronous copies into shared memory, shared by the LSTM kernels
 // (through lstm_common.cuh), the CRF scans (crf_ring.cuh) and the
 // traceback K2c (crf_decode.cu): cp.async of 8 or 16 bytes a thread,
-// waited by commit groups; mbarriers; and the bulk copy (TMA without a
-// tensor map) that completes on one.
+// waited by commit groups; mbarriers (also those of another CTA of a
+// cluster); the bulk copy (TMA without a tensor map) that completes on
+// one; and the stores into another CTA of a cluster (st.async) that
+// complete on the mbarrier there.
 
 #pragma once
 
@@ -65,6 +67,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         " selp.u32 %0, 1, 0, p;\n}"
         : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   } while (!done);
+}
+// The same with acquire order at the cluster's scope: what another CTA of
+// the cluster did before its release arrive (or its st_async16) on `bar`.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// Arrive, with release order at the cluster's scope, on the mbarrier at
+// `bar`, an address in another CTA of the cluster (cluster_addr).
+__device__ __forceinline__ void mbar_arrive_remote(unsigned bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+      :: "r"(bar) : "memory");
+}
+// 16 bytes into another CTA of the cluster's shared memory at `dst`,
+// completing 16 bytes of the transaction of its mbarrier at `bar` (both
+// addresses in that CTA: cluster_addr).
+__device__ __forceinline__ void st_async16(unsigned dst, float4 v,
+                                           unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 // Arrive on `bar`, announcing `bytes` more bytes for its current phase.
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {

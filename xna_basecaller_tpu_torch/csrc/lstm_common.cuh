@@ -216,9 +216,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // Keeps the compiler from moving accesses of the accumulator across the
 // asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 // Descriptor of a K-major operand in shared memory with the 128-byte
 // swizzle (rows of 64 bf16, groups of 8 rows 1024 bytes apart; the group
@@ -241,11 +242,17 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-// The float2 at `p` (this CTA's shared memory) in CTA `rank`'s copy.
-__device__ __forceinline__ float2 ld_cluster_f2(const float* p, unsigned rank) {
+// The address of `p` (this CTA's shared memory) in CTA `rank`'s copy.
+__device__ __forceinline__ unsigned cluster_addr(const void* p,
+                                                 unsigned rank) {
   unsigned a;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
                : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+// The float2 at `p` (this CTA's shared memory) in CTA `rank`'s copy.
+__device__ __forceinline__ float2 ld_cluster_f2(const float* p, unsigned rank) {
+  const unsigned a = cluster_addr(p, rank);
   float2 v;
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
                : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
@@ -255,9 +262,7 @@ __device__ __forceinline__ float2 ld_cluster_f2(const float* p, unsigned rank) {
 // The float at `p` (this CTA's shared memory) in CTA `rank`'s copy.
 __device__ __forceinline__ float ld_cluster_f32(const float* p,
                                                unsigned rank) {
-  unsigned a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  const unsigned a = cluster_addr(p, rank);
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];"
                : "=f"(v) : "r"(a) : "memory");
@@ -266,8 +271,9 @@ __device__ __forceinline__ float ld_cluster_f32(const float* p,
 
 // Launch `ctas` CTAs of `fn` in clusters of `cluster`, all of which must be
 // resident at once (they wait on each other's flags): checked first with
-// cudaOccupancyMaxActiveClusters.  0, -3 (shared-memory request refused),
-// -1 (the grid cannot be co-resident), or a cudaError_t.
+// cudaOccupancyMaxActiveClusters; with `args` null, only checked.  0, -3
+// (shared-memory request refused), -1 (the grid cannot be co-resident),
+// or a cudaError_t.
 inline int launch_clusters(const void* fn, int ctas, int cluster, int threads,
                            size_t smem, void** args, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -294,6 +300,7 @@ inline int launch_clusters(const void* fn, int ctas, int cluster, int threads,
   if ((e = cudaOccupancyMaxActiveClusters(&active, fn, &cfg)) != cudaSuccess)
     return e;
   if (active * cluster < ctas) return -1;
+  if (!args) return 0;
   cfg.numAttrs = 2;     // and cooperative: the grid is resident as a whole
   if ((e = cudaLaunchKernelExC(&cfg, fn, args)) != cudaSuccess) return e;
   return cudaGetLastError();

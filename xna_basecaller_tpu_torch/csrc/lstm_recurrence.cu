@@ -55,7 +55,8 @@
 //
 // N > 64 (K1 at the basecall batch, K3a's launches past 64 rows):
 // lstm_bf16_wg_kernel, one launch of up to 384 rows, in the geometry
-// Narrow wherever its grid fits the card, else Wide (below).  In Narrow,
+// Split at H=1024 (below) wherever its grid fits the card, else Narrow
+// wherever its grid does, else Wide (below).  In Narrow,
 // CTA b owns 16 units (their 64 gate columns of W_hh, 96 KB) for one tile
 // of 128 batch rows: 96 CTAs at N=256, the two tiles independent of each
 // other.
@@ -126,7 +127,48 @@
 // times a step: with each chunk's writers found as ranges of flags (which
 // 24 units a CTA needs) in place of `per` flags a chunk, Wide took 14.17,
 // 14.25.  Medians of 21 in turns, H100 80GB HBM3, 700 W,
-// tools/k1_turns.py.  N <= 256 keeps Narrow, its launch and its code.
+// tools/k1_turns.py.  N <= 256 keeps Narrow (or Split), its launch and
+// its code.
+//
+// Split (ONT's R10.4.1 sup model: H=1024, N=256, T=2000).  Narrow's step
+// there took 17.5 us (12.4 % of the bound in dna_r10_sup.basecall), and
+// its step at four shapes fits 6.3 us fixed plus 43 ns for each KB of h
+// that one CTA brings in (256 KB a step at H=1024), whatever the number of
+// CTAs: what an SM takes in costs the time, not the traffic through L2.
+// No cluster holds W_hh at H=1024 (8.4 MB), so Split halves the depth a
+// CTA multiplies: clusters of 2 CTAs share 32 units' 128 gate columns,
+// CTA `rank` holds their W_hh rows [rank H/2, (rank + 1) H/2) (128 KB) and
+// brings only that half of h (128 KB a step: 4 chunks of 128 columns on 2
+// stages, beside a 32 KB exchange buffer), waiting only for the 32 CTAs
+// that write it; each warpgroup multiplies its 64 rows with wgmma
+// m64n128k16 and sends its f32 partial of the peer's 64 columns into the
+// peer's shared memory (st.async, completing on the peer's mbarrier); the
+// two partials are added in rank order and each CTA updates its 16 units'
+// cells.  Split releases each ring stage once that chunk's product is
+// done, so that both stages can be in flight (Narrow's rule, release on
+// taking the next chunk, would keep one copy in flight on 2 stages).
+// 30.66, 30.70 ms a layer (forward, reverse) against Narrow's 34.24,
+// 34.22 (the parent's kernel; bound 4.34); in other calls 30.06, 30.04
+// against 33.85, 33.70 and 30.46, 30.19 against 33.84, 33.57.
+// Bit-repeatable; not bit-equal to Narrow (the
+// sums split at H/2), within 3.9e-3 of the plain version.  In the same
+// turns: stages released as Narrow releases them 31.94, 31.86; the
+// exchange switched off (wrong results, and the pair no longer waits for
+// each other) 24.72, 24.72: the exchange costs ~3 us a step, DSMEM
+// taking 32 KB in and sending 32 out; the product switched off 27.68,
+// 27.73; plain remote stores with one release arrive a warp in place of
+// st.async 31.42, 31.40 (another call); the peer's columns first in W
+// (no selects between the accumulators' halves) 30.93, 30.65 against
+// 30.46, 30.19 (the same bits); 64-column chunks on 4 stages 33.59,
+// 33.49.  The rule, from turns at the other basecall shapes: at H=768,
+// N=256 Split 10.59, 10.59 against Narrow 10.67, 10.68 (-0.8 %; before
+// the early release 10.46, 10.48 against 10.45, 10.47); at H=384 Split
+// 8.64, 8.67 against Narrow 7.77, 7.76 (48 KB saved, the exchange's cost
+// the same); at N=384, H=768 Split's 128-row tiles need 144 CTAs (not
+// co-resident) and Wide stays.  So H >= kSplitMinH = 1024 takes Split, up
+// to 256 rows (257-384 rows at H=1024: Wide); H=768 at 65-256 rows, in no
+// benchmark cell, keeps Narrow's bits for under 1 %.  Medians of 21 in turns, H100 80GB HBM3, 700 W,
+// tools/k1_turns.py --width 1024 --steps 2000 --rows 256.
 //
 // f32 (K1 in f32 is what duplex's transition posteriors run, at N = a
 // read's chunks: 8 for 22.5 k samples, ~30 for 10 kb; K3a in f32 the f32
@@ -169,8 +211,6 @@
 // kGroupRowsF32 (256) in f32; the wrapper launches once per group of rows
 // (rows are independent), with xp and ys strided by the full batch.
 
-#include <type_traits>
-
 #include "lstm_common.cuh"
 
 namespace {
@@ -182,23 +222,30 @@ constexpr int kGroupRowsBf16 = 384; // batch rows per launch, bf16
 constexpr int kGroupRowsF32 = 256;  // and f32
 
 // bf16 path at kCRows < N <= kGroupRowsBf16: the wgmma kernel, in one of
-// two geometries (WgGeo)
-constexpr int kUnits = 16;          // hidden units of one CTA
+// three geometries (WgGeo)
+constexpr int kUnits = 16;          // hidden units whose cells a CTA updates
 constexpr int kCols = 4 * kUnits;   // their gate columns, unit-major
 constexpr int kHChunk = 64;         // h columns per sub-chunk (128 B)
 constexpr int kMaxSubs = 4;         // sub-chunks per exchanged chunk, most
 constexpr int kMaxStages = 8;       // ring stages of h chunks
+constexpr int kSplitMinH = 1024;    // the narrowest H that takes Split
 
 // The geometry of lstm_bf16_wg_kernel: kWG consumer warpgroups of 64 batch
-// rows each (a row tile of 64 kWG rows) and a producer warp.
-template <int kWG>
+// rows each (a row tile of 64 kWG rows) and a producer warp; kSplit CTAs
+// (a cluster where 2) share the gate columns of their kSplit x 16 units and
+// split W_hh's depth between them.  kCode is what a launch reports.
+template <int kWG, int kSplit>
 struct WgGeo {
   static constexpr int kRows = 64 * kWG;   // batch rows of one CTA
   static constexpr int kCWarps = 4 * kWG;  // consumer warps
   static constexpr int kThreads = 32 * (kCWarps + 1);
+  static constexpr int kDepths = kSplit;
+  static constexpr int kN = kCols * kSplit;   // gate columns of the product
+  static constexpr int kCode = kSplit > 1 ? 2 : kWG > 2 ? 1 : 0;
 };
-using Narrow = WgGeo<2>;   // wherever its grid is co-resident
-using Wide = WgGeo<3>;     // where Narrow's is not (257-384 rows, H=768)
+using Narrow = WgGeo<2, 1>;  // wherever its grid is co-resident
+using Wide = WgGeo<3, 1>;    // where Narrow's is not (257-384 rows, H=768)
+using Split = WgGeo<2, 2>;   // H >= kSplitMinH, where its grid is co-resident
 
 // bf16 path at N <= kCRows: clusters of two CTAs
 constexpr int kCUnits = 16;         // hidden units of one cluster
@@ -248,6 +295,18 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The same with B [16 x 128]: for each 8-column block j (16 of them),
+// d[4 j .. 4 j + 3] as above.
+__device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // Position of h[n, k] in one buffer of the bf16 h exchange at N > 64, in
 // row tiles of kRows rows: [row tile n / kRows][sub-chunk k / 64 of
 // n_sub][row n % kRows][64 columns], 16-byte piece p of row n stored at
@@ -262,29 +321,43 @@ __device__ __forceinline__ size_t hpos(int n, int k, int n_sub) {
 }
 
 // The bf16 path for kCRows < N <= kGroupRowsBf16 rows (the basecall batch;
-// K3a past 64 rows), in geometry G (kR = G::kRows rows a tile): CTA b owns
-// units [16 (b % S), + 16) of row tile b / S (S = H / 16 slices).
+// K3a past 64 rows), in geometry G (kR = G::kRows rows a tile, D =
+// G::kDepths depth slices): CTA b owns the cells of units [16 (b % S), +
+// 16) of row tile b / S (S = H / 16 slices).  With D = 1 (Narrow, Wide) it
+// holds those units' 64 gate columns of W_hh over the whole depth H; with
+// D = 2 (Split) the two CTAs of a cluster hold the 128 gate columns of
+// their 32 units, CTA `rank` over depth slice `rank` (the W_hh rows [rank
+// H/2, (rank + 1) H/2)), and read only that half of h.
 // Warpgroup g (warps 4 g .. 4 g + 3) computes rows [64 g, 64 g + 64) of
-// the CTA's [kR, 64] gate tile; the warp after the consumers produces.
+// the CTA's [kR, 64 D] gate tile; the warp after the consumers produces.
 // Step s:
-//   producer (s > 0): poll the tile's flags for step s; each chunk c of
-//     h_s whose writers are done, among the first stages - 1 chunks not
-//     brought yet: one bulk copy of the tile's kR rows of it into stage
-//     (s - 1) n_chunks + c of the ring (mod stages);
+//   producer (s > 0): poll the flags of the writers of the CTA's depth
+//     slice of h_s in its row tile; each chunk c of that slice whose
+//     writers are done, among the first stages - 1 chunks not brought yet
+//     (Split: stages): one bulk copy of the tile's kR rows of it into stage (s - 1) n_chunks
+//     + c of the ring (mod stages);
 //   consumers: take the cells' xp[t] (loaded a step ahead), load xp[t + 1];
 //     (s > 0) for each chunk in index order (the stages in ring order),
 //     wait for it, add its product (wgmma), release the stage of the one
-//     before once its product is done; add xp, rotate the gates within
-//     each quad, update 8 cells; h to hbuf[(s + 1) & 1]; publish (one count
-//     a CTA); ys (and cs).
-// The gate sums are f32 sums of the chunks' products in index order, the
+//     before once its product is done (Split: release each chunk's stage
+//     once its own product is done); (Split) send the peer's 64 columns
+//     of the tile to the peer's shared memory (st.async, completing on its
+//     mbarrier xfull), wait for the peer's of ours, add the two in rank
+//     order; add xp, rotate the gates within each quad, update 8 cells; h
+//     to hbuf[(s + 1) & 1]; publish (one count a CTA); ys (and cs).
+// The gate sums are f32 sums of the chunks' products in index order (under
+// Split, of each depth slice's, then the two slices' in rank order), the
 // same order at every call: the result does not depend on which chunk's
 // writers finish first, and two calls give the same bits.  Nor does it
-// depend on the geometry: a row's gates are the same k16 products added
-// in the same order whatever its tile and warpgroup.
+// depend on the row tile: a row's gates are the same k16 products added in
+// the same order whatever its tile and warpgroup, so Narrow and Wide give
+// the same bits; Split adds the same products in another order.
 // The double buffer of h is safe without a barrier: a CTA writes h_{s+1}
 // only after it has read all of h_s, that is after every CTA of its tile
-// has published step s - 1, hence finished reading h_{s-1}.
+// has published step s - 1, hence finished reading h_{s-1}.  Split's
+// exchange buffer holds one step: a CTA sends step s's partial only after
+// the peer's consumer warps have arrived on its mbarrier xempty, once they
+// have read step s - 1's.
 template <class G, bool kWriteCells>
 __global__ void __launch_bounds__(G::kThreads, 1)
 lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
@@ -292,49 +365,74 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
                     bf16* __restrict__ cs, bf16* hbuf, unsigned int* flags,
                     int T, int N, int ld_n, int H, int reverse, int subs,
                     int stages) {
-  constexpr int kR = G::kRows, kCWarps = G::kCWarps;
+  constexpr int kR = G::kRows, kCWarps = G::kCWarps, kD = G::kDepths;
+  constexpr int kN = G::kN, kAcc = kN / 2;   // accumulators of a thread
+  constexpr int kCThreads = 32 * kCWarps;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int n_sub = (H + kHChunk - 1) / kHChunk;
-  const int n_chunks = (n_sub + subs - 1) / subs;
+  const int d_sub = n_sub / kD;   // sub-chunks of the CTA's depth slice
+  const int n_chunks = (d_sub + subs - 1) / subs;
   bf16* ring = reinterpret_cast<bf16*>(smem);   // [stages][subs][kR][kHChunk]
   bf16* w_s = ring + (size_t)stages * subs * kR * kHChunk;
+  // (Split) the peer's partial of this CTA's 64 columns, [8][kCThreads]
+  // float4: consumer thread i's 32 accumulators of them at [.][i]
+  float4* xbuf =
+      reinterpret_cast<float4*>(w_s + (size_t)d_sub * kN * kHChunk);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      w_s + (size_t)n_sub * kCols * kHChunk);
+      xbuf + (kD > 1 ? kR * kCols / 4 : 0));
   uint64_t* empty = full + stages;
+  uint64_t* xfull = empty + stages;   // the peer's partial has landed
+  uint64_t* xempty = xfull + 1;       // the peer has read this CTA's
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_slices = H / kUnits;
   const int slice = blockIdx.x % n_slices, tile = blockIdx.x / n_slices;
+  const int rank = slice % kD;   // the CTA's rank in its cluster
   const int u0 = slice * kUnits, r0 = tile * kR;
+  const int uc0 = u0 - rank * kUnits;   // the first unit of the cluster
+  const int sub0 = rank * d_sub;        // the depth slice's first sub-chunk
   const int rows = min(kR, N - r0);
   const int Np = (N + kR - 1) / kR * kR;
   const size_t H4 = 4 * (size_t)H, hb = (size_t)n_sub * Np * kHChunk;
   unsigned int* tile_flags = flags + tile * n_slices;
 
   // W's slice as the B operand: column n is gate (n % 8) / 2 of unit
-  // 2 (n / 8) + n % 2
-  for (int idx = tid; idx < H * kCols; idx += G::kThreads) {
-    const int k = idx / kCols, n = idx % kCols, kk = k % kHChunk;
-    const int unit = n / 8 * 2 + n % 2, gate = n % 8 / 2;
-    w_s[((size_t)(k / kHChunk) * kCols + n) * kHChunk +
+  // 16 (n / 64) + 2 (n % 64 / 8) + n % 2 of the cluster
+  const int k_lo = sub0 * kHChunk, k_n = min(d_sub * kHChunk, H - k_lo);
+  for (int idx = tid; idx < k_n * kN; idx += G::kThreads) {
+    const int k = idx / kN, n = idx % kN, kk = k % kHChunk;
+    const int unit = n / 64 * kUnits + n % 64 / 8 * 2 + n % 2;
+    const int gate = n % 8 / 2;
+    w_s[((size_t)(k / kHChunk) * kN + n) * kHChunk +
         (((kk / 8) ^ (n % 8)) * 8) + kk % 8] =
-        w_hh[(size_t)k * H4 + (size_t)gate * H + u0 + unit];
+        w_hh[(size_t)(k_lo + k) * H4 + (size_t)gate * H + uc0 + unit];
   }
+  constexpr unsigned kXBytes = kR * kCols * 4;   // a partial, f32
   if (tid == 0) {
     for (int i = 0; i < stages; ++i) {
       mbar_init(full + i, 1);
       mbar_init(empty + i, kCWarps);
     }
+    if (kD > 1) {
+      mbar_init(xfull, 1);
+      mbar_init(xempty, kCWarps);
+    }
     mbar_init_fence();
+    if (kD > 1) mbar_expect_tx(xfull, kXBytes);   // step 1's partial
   }
-  // W's generic stores, then wgmma's async-proxy reads of them
+  // W's generic stores, then wgmma's async-proxy reads of them; (Split)
+  // the barriers initialised before the peer uses them
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
+  if (kD > 1)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (warp == kCWarps) {   // the producer
     const unsigned sub_bytes = kR * kHChunk * 2;
+    const unsigned int* writers = tile_flags + rank * (n_slices / kD);
     for (int s = 1; s < T; ++s) {
       const bf16* h_cur = hbuf + (size_t)(s & 1) * hb;
       const unsigned base = (unsigned)(s - 1) * n_chunks;   // chunk 0's use
@@ -345,12 +443,14 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
         // consumers release once they take chunk c - stages + 1 (brought:
         // it comes before the first chunk not brought yet); chunk
         // lo + stages - 1 would wait for the release that only chunk lo
-        // brings
+        // brings.  Split's consumers release chunk c - stages once its
+        // product is done: the first stages.
         const int lo = __ffsll(left) - 1;
         const unsigned long long window =
-            left & (((1ull << (stages - 1)) - 1) << lo);
+            left & (((1ull << (stages - (kD > 1 ? 0 : 1))) - 1) << lo);
         unsigned long long ready =
-            ready_chunks(tile_flags, n_slices, subs * kHChunk / kUnits, s) &
+            ready_chunks(writers, n_slices / kD, subs * kHChunk / kUnits,
+                         s) &
             window;
         left &= ~ready;
         while (ready) {
@@ -362,10 +462,10 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
           if (it >= (unsigned)stages)
             mbar_wait(empty + st, (it / stages - 1) & 1);
           if (lane == 0) {
-            const unsigned bytes = min(subs, n_sub - subs * c) * sub_bytes;
+            const unsigned bytes = min(subs, d_sub - subs * c) * sub_bytes;
             mbar_expect_tx(full + st, bytes);
             bulk_copy(ring + (size_t)st * subs * kR * kHChunk,
-                      h_cur + (size_t)(tile * n_sub + subs * c) * kR *
+                      h_cur + (size_t)(tile * n_sub + sub0 + subs * c) * kR *
                                   kHChunk,
                       bytes, full + st);
           }
@@ -404,6 +504,12 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
   load_x(0);
   unsigned it = 0;
   const bf16* a_base = ring + (size_t)64 * wg * kHChunk;
+  // (Split) this thread's place in the peer's exchange buffer, the peer's
+  // mbarriers
+  const unsigned peer = rank ^ 1;
+  const unsigned x_dst = kD > 1 ? cluster_addr(xbuf + tid, peer) : 0;
+  const unsigned x_full = kD > 1 ? cluster_addr(xfull, peer) : 0;
+  const unsigned x_empty = kD > 1 ? cluster_addr(xempty, peer) : 0;
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
@@ -413,9 +519,9 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
       for (int hf = 0; hf < 2; ++hf) x_raw[e][hf] = x_next[e][hf];
     load_x(min(s + 1, T - 1));
 
-    float acc[32];
+    float acc[kAcc];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
     if (s > 0) {
       if (has_tile) wgmma_fence();
       int prev = -1;
@@ -423,27 +529,80 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
         const int st = it % stages;
         mbar_wait(full + st, (it / stages) & 1);
         if (has_tile) {
-          for (int j = 0; j < subs && subs * c + j < n_sub; ++j) {
-            const int sub = subs * c + j;
+          for (int j = 0; j < subs && subs * c + j < d_sub; ++j) {
+            const int sub = subs * c + j;   // of the depth slice
             const bf16* a_st = a_base + ((size_t)st * subs + j) * kR * kHChunk;
-            const bf16* b_t = w_s + (size_t)sub * kCols * kHChunk;
-            const int kc = min(kHChunk, H - sub * kHChunk);
-            for (int kk = 0; kk < kc; kk += 16)
-              wgmma_64x64(acc, sw128_desc(a_st + kk), sw128_desc(b_t + kk));
+            const bf16* b_t = w_s + (size_t)sub * kN * kHChunk;
+            const int kc = min(kHChunk, H - (sub0 + sub) * kHChunk);
+            for (int kk = 0; kk < kc; kk += 16) {
+              if constexpr (kD > 1)
+                wgmma_64x128(acc, sw128_desc(a_st + kk), sw128_desc(b_t + kk));
+              else
+                wgmma_64x64(acc, sw128_desc(a_st + kk), sw128_desc(b_t + kk));
+            }
           }
           wgmma_commit();
-          wgmma_wait<1>();   // the previous chunk's products are done
+          // the previous chunk's products are done (Split: this one's)
+          if constexpr (kD > 1)
+            wgmma_wait<0>();
+          else
+            wgmma_wait<1>();
         }
-        if (prev >= 0) {
+        const int done = kD > 1 ? st : prev;
+        if (done >= 0) {
           __syncwarp();
-          if (lane == 0) mbar_arrive(empty + prev);
+          if (lane == 0) mbar_arrive(empty + done);
         }
         prev = st;
       }
-      if (has_tile) wgmma_wait<0>();
+      if (kD == 1 && has_tile) wgmma_wait<0>();
       fence_acc(acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + prev);
+      if (kD == 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + prev);
+      }
+    }
+
+    // the gate sums of the CTA's 16 units (accumulators 0..31 hold units
+    // 0..15 of the cluster, 32..63 units 16..31): Split adds the two
+    // depth slices' partials, rank 0's first
+    float g_sum[32];
+    if constexpr (kD > 1) {
+      if (s > 0) {
+        // the peer has read this CTA's partial of step s - 1
+        if (s > 1) mbar_wait_cluster(xempty, (s - 2) & 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = rank ? acc[4 * i + e] : acc[32 + 4 * i + e];
+          st_async16(x_dst + 16 * i * kCThreads,
+                     make_float4(v[0], v[1], v[2], v[3]), x_full);
+        }
+        mbar_wait_cluster(xfull, (s - 1) & 1);
+        // arm the next step's phase: every consumer of this CTA is past
+        // this one before the peer can complete it (it waits on xempty)
+        if (tid == 0) mbar_expect_tx(xfull, kXBytes);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 p = xbuf[i * kCThreads + tid];
+          const float o[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float mine = rank ? acc[32 + 4 * i + e] : acc[4 * i + e];
+            g_sum[4 * i + e] = rank ? o[e] + mine : mine + o[e];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive_remote(x_empty);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) g_sum[i] = 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) g_sum[i] = acc[i];
     }
 
     // lane q holds gate q of the cells (unit 2 j + d % 2, row row0 +
@@ -456,8 +615,8 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 x0 = x_of(j, 0), x1 = x_of(j, 1);
-      const float v[4] = {acc[4 * j] + x0.x, acc[4 * j + 1] + x0.y,
-                          acc[4 * j + 2] + x1.x, acc[4 * j + 3] + x1.y};
+      const float v[4] = {g_sum[4 * j] + x0.x, g_sum[4 * j + 1] + x0.y,
+                          g_sum[4 * j + 2] + x1.x, g_sum[4 * j + 3] + x1.y};
       float g[4];
       quad_transpose(v, g);
       h[j / 4][j % 4] = lstm_cell(g[0], g[1], g[2], g[3], c_reg[j / 4][j % 4]);
@@ -490,6 +649,9 @@ lstm_bf16_wg_kernel(const bf16* __restrict__ xp,
       }
     }
   }
+  // (Split) no CTA leaves while its peer may still write to its shared
+  // memory or arrive on its barriers (the producer, exited, is not waited)
+  if (kD > 1) cluster_sync();
 }
 
 // The bf16 path for N <= kCRows rows (the training batch, the validation
@@ -995,30 +1157,34 @@ int lstm_f32_launch(const void* xp, const void* w_hh, void* ys, void* cs,
 }
 
 // A launch of lstm_bf16_wg_kernel in geometry G for N rows of width H on
-// the current card: 1 KB to align the swizzled tiles, W's slice and the
-// barriers; the rest for as many ring stages as fit, of the widest chunks
-// of which two stages fit (Narrow at H=768: 256 columns, 3 chunks on 2
-// stages; Wide: 128 columns, 6 chunks on 2 stages).  0, or -2 (the
-// producer polls at most 64 flags), -3, -1 (the grid cannot be
-// co-resident) or a cudaError_t.
+// the current card: 1 KB to align the swizzled tiles, W's slice, (Split)
+// the exchange buffer and the barriers; the rest for as many ring stages
+// as fit, of the widest chunks of which two stages fit (Narrow at H=768:
+// 256 columns, 3 chunks on 2 stages; Wide: 128 columns, 6 chunks on 2
+// stages; Split at H=1024: 128 columns, 4 chunks of a depth slice on 2
+// stages).  0, or -2 (the producer polls at most 64 flags; Split takes H
+// a multiple of 128), -3, -1 (the grid cannot be co-resident) or a
+// cudaError_t.
 struct WgPlan {
   const void* fn;
-  int wide, threads, rows, blocks, subs, stages;
+  int code, depths, threads, rows, blocks, subs, stages;
   size_t smem;
 };
 template <class G>
 int wg_plan(int N, int H, bool cells, WgPlan* p) {
   if (H / kUnits > 64) return -2;   // the producer polls <= 64 flags
+  if (H % (kHChunk * G::kDepths) != 0 && G::kDepths > 1) return -2;
   int rc, dev = 0, max_smem = 0;
   if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
   if ((rc = cudaDeviceGetAttribute(
            &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
     return rc;
-  const size_t fixed = 1024 +
-                       (size_t)(H + kHChunk - 1) / kHChunk * kCols *
-                           kHChunk * 2 +
-                       16 * kMaxStages;
+  const size_t fixed =
+      1024 +
+      (size_t)(H + kHChunk - 1) / kHChunk / G::kDepths * G::kN * kHChunk * 2 +
+      (G::kDepths > 1 ? (size_t)G::kRows * kCols * 4 : 0) +
+      16 * kMaxStages + 16;
   size_t stage = 0;
   p->stages = 0;
   for (p->subs = kMaxSubs; p->subs >= 1; p->subs /= 2) {
@@ -1031,16 +1197,24 @@ int wg_plan(int N, int H, bool cells, WgPlan* p) {
   p->smem = fixed + p->stages * stage;
   p->fn = cells ? reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<G, true>)
                 : reinterpret_cast<const void*>(&lstm_bf16_wg_kernel<G, false>);
-  p->wide = std::is_same<G, Wide>::value;
+  p->code = G::kCode;
+  p->depths = G::kDepths;
   p->threads = G::kThreads;
   p->rows = G::kRows;
   p->blocks = H / kUnits * ((N + G::kRows - 1) / G::kRows);
-  return co_resident(p->fn, p->smem, p->blocks, p->threads);
+  return G::kDepths > 1
+             ? launch_clusters(p->fn, p->blocks, G::kDepths, p->threads,
+                               p->smem, nullptr, nullptr)
+             : co_resident(p->fn, p->smem, p->blocks, p->threads);
 }
 
 // The geometry of a bf16 launch of kCRows < N <= kGroupRowsBf16 rows:
-// Narrow wherever its grid is co-resident, else Wide.
+// Split at H >= kSplitMinH (a multiple of 128) wherever its grid is
+// co-resident, else Narrow wherever its grid is, else Wide.
 int wg_choose(int N, int H, bool cells, WgPlan* p) {
+  if (H >= kSplitMinH && H % (2 * kHChunk) == 0 &&
+      wg_plan<Split>(N, H, cells, p) == 0)
+    return 0;
   const int rc = wg_plan<Narrow>(N, H, cells, p);
   return rc == -1 ? wg_plan<Wide>(N, H, cells, p) : rc;
 }
@@ -1055,21 +1229,21 @@ extern "C" {
 // K3a, [T, ld_n, H] of that dtype like ys, which receives the cell states.
 // hbuf: zeros of that dtype, xna_lstm_hbuf_elems(N, H) elements (h_0 and
 // the exchange of h).  flags: H zeroed uint32 (the ready flags, one per
-// CTA).  wide: null, or receives 1 where the launch took the wide
-// geometry, else 0.  Returns 0, a cudaError_t, or -1 (grid cannot be
-// co-resident), -2 (unsupported shape: H past 1024 in f32), -3
-// (shared-memory request refused: H too large).
+// CTA).  geometry: null, or receives the geometry of lstm_bf16_wg_kernel
+// the launch took: 1 Wide, 2 Split, else 0.  Returns 0, a cudaError_t, or
+// -1 (grid cannot be co-resident), -2 (unsupported shape: H past 1024 in
+// f32), -3 (shared-memory request refused: H too large).
 int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
                         void* hbuf, void* flags, int T, int N, int ld_n,
                         int H, int reverse, int is_bf16, void* stream,
-                        int* wide) {
+                        int* geometry) {
   if (T < 1 || N < 1 || N > (is_bf16 ? kGroupRowsBf16 : kGroupRowsF32) ||
       ld_n < N || H < 16 || H % 16 != 0)
     return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned int* ctr = static_cast<unsigned int*>(flags);
   int rc;
-  if (wide) *wide = 0;
+  if (geometry) *geometry = 0;
   if (is_bf16 && N <= kCRows && H % (2 * kCUnits) == 0) {
     const size_t smem = (size_t)H / kCCluster * kCLdW * 2 +
                         (size_t)kCRows * (H / kCCluster + 8) * 2 +
@@ -1089,7 +1263,7 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
   if (is_bf16) {
     WgPlan p;
     if ((rc = wg_choose(N, H, cs != nullptr, &p)) != 0) return rc;
-    if (wide) *wide = p.wide;
+    if (geometry) *geometry = p.code;
     const bf16* a0 = static_cast<const bf16*>(xp);
     const bf16* a1 = static_cast<const bf16*>(w_hh);
     bf16* a2 = static_cast<bf16*>(ys);
@@ -1099,8 +1273,11 @@ int xna_lstm_recurrence(const void* xp, const void* w_hh, void* ys, void* cs,
                     &reverse, &p.subs, &p.stages};
     // cooperative: the whole grid is resident (the CTAs wait on each
     // other's flags)
-    rc = cudaLaunchCooperativeKernel(p.fn, dim3(p.blocks), dim3(p.threads),
-                                     args, p.smem, st);
+    rc = p.depths > 1 ? launch_clusters(p.fn, p.blocks, p.depths, p.threads,
+                                        p.smem, args, st)
+                      : cudaLaunchCooperativeKernel(p.fn, dim3(p.blocks),
+                                                    dim3(p.threads), args,
+                                                    p.smem, st);
   } else {
     if ((rc = lstm_f32_launch(xp, w_hh, ys, cs, hbuf, ctr, T, N, ld_n, H,
                               reverse, st)) != 0)
@@ -1127,14 +1304,15 @@ int xna_lstm_f32_geometry(int N, int H, int* out) {
 
 // The bf16 route's geometry for a launch of kCRows < N <=
 // kGroupRowsBf16 rows of width H on the current card (K1; K3a's is the
-// same): out[0..4] = 1 for the wide geometry (else 0), rows a tile, CTAs,
-// columns a chunk of h, ring stages.  0 or an error code as above.
+// same): out[0..4] = the geometry as xna_lstm_recurrence reports it (1
+// Wide, 2 Split, else 0), rows a tile, CTAs, columns a chunk of h, ring
+// stages.  0 or an error code as above.
 int xna_lstm_bf16_geometry(int N, int H, int* out) {
   if (N <= kCRows || N > kGroupRowsBf16 || H < 16 || H % 16 != 0) return -2;
   WgPlan p;
   const int rc = wg_choose(N, H, false, &p);
   if (rc != 0) return rc;
-  out[0] = p.wide;
+  out[0] = p.code;
   out[1] = p.rows;
   out[2] = p.blocks;
   out[3] = p.subs * kHChunk;

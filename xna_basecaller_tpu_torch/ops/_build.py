@@ -135,15 +135,17 @@ class Entry(NamedTuple):
     source: str                 # csrc/<source>.cu
     argtypes: list
     messages: dict[int, str]    # its own (negative) return codes
-    path: str | None = None     # what the launch's last argument reports
+    paths: tuple[str, ...] = ()  # what the launch's last argument reports
 
 
 # Every C entry point the port calls.  A launch's arguments end with the
-# stream and, where it reports the path it took, an int it sets to 1 on
-# that path; the size queries return sizes, not codes.
+# stream and, where it reports the path it took, an int it sets to i + 1
+# on its path ``paths[i]`` (0 on its first path); the size queries return
+# sizes, not codes.
 ENTRY_POINTS = {
     "xna_lstm_recurrence": Entry(
-        "lstm_recurrence", [_P] * 6 + [_I] * 6 + [_P, _OUT], _LSTM, "wide"),
+        "lstm_recurrence", [_P] * 6 + [_I] * 6 + [_P, _OUT], _LSTM,
+        ("wide", "split")),
     "xna_lstm_backward": Entry(
         "lstm_backward", [_P] * 9 + [_I] * 6 + [_P],
         {**_LSTM, -2: "shape not supported by the kernel (H must be a "
@@ -159,13 +161,13 @@ ENTRY_POINTS = {
     "xna_lstm_bf16_geometry": Entry("lstm_recurrence", [_I, _I, _OUT], _LSTM),
     "xna_lstm_f32_geometry": Entry("lstm_recurrence", [_I, _I, _OUT], _LSTM),
     "xna_crf_backward": Entry(
-        "crf_decode", [_P, _P] + [_I] * 4 + [_P, _OUT], _DECODE, "wide"),
+        "crf_decode", [_P, _P] + [_I] * 4 + [_P, _OUT], _DECODE, ("wide",)),
     "xna_crf_fwd_viterbi": Entry(
-        "crf_decode", [_P] * 5 + [_I] * 4 + [_P, _OUT], _DECODE, "wide"),
+        "crf_decode", [_P] * 5 + [_I] * 4 + [_P, _OUT], _DECODE, ("wide",)),
     "xna_crf_fwd_viterbi_qual": Entry(
         "crf_decode", [_P] * 6 + [_I] * 4 + [_P], {**_CRF, **_UNALIGNED}),
     "xna_crf_traceback": Entry(
-        "crf_decode", [_P] * 3 + [_I] * 4 + [_P, _OUT], _DECODE, "wide"),
+        "crf_decode", [_P] * 3 + [_I] * 4 + [_P, _OUT], _DECODE, ("wide",)),
     "xna_crf_traceback_qual": Entry(
         "crf_decode", [_P] * 5 + [_I] * 4 + [_P], _CRF),
     "xna_crf_beam": Entry(
@@ -184,12 +186,12 @@ ENTRY_POINTS = {
                      ctypes.c_float, ctypes.c_float, _I, _P, _OUT],
         {-2: "shape not supported by the CRF head's kernel (rows, columns "
              "and n_base >= 1; with a blank score, columns a multiple of "
-             "n_base; at most 2^31 - 1 blocks of 256 units)"}, "tiled"),
+             "n_base; at most 2^31 - 1 blocks of 256 units)"}, ("tiled",)),
 }
 
 # Kernel launches by wrapper (``launches["backward_scan"]``), and those
 # that took a path the launch reports, by wrapper and path
-# (``launches["backward_scan.wide"]``).
+# (``launches["backward_scan.wide"]``, ``launches["lstm_recurrence.split"]``).
 launches: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
 
@@ -237,20 +239,20 @@ def launch(wrapper: str, name: str, *args, also: str | None = None) -> None:
     """Launch the entry point ``name`` on the current stream with ``args``
     (a tensor passes its data pointer), the stream and, where the entry
     point reports a path, the int it sets; raise on a non-zero return;
-    count ``launches[wrapper]``, on the reported path
+    count ``launches[wrapper]``, on a reported path
     ``launches[f"{wrapper}.{path}"]``, and ``launches[f"{wrapper}.{also}"]``
     for a path the wrapper chose itself."""
-    path = ENTRY_POINTS[name].path
+    paths = ENTRY_POINTS[name].paths
     took = ctypes.c_int(0)
     rc = entry(name)(
         *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
         torch.cuda.current_stream().cuda_stream,
-        *((ctypes.byref(took),) if path else ()))
+        *((ctypes.byref(took),) if paths else ()))
     check(name, rc, wrapper)
     with _count_lock:
         launches[wrapper] += 1
         if took.value:
-            launches[f"{wrapper}.{path}"] += 1
+            launches[f"{wrapper}.{paths[took.value - 1]}"] += 1
         if also:
             launches[f"{wrapper}.{also}"] += 1
 

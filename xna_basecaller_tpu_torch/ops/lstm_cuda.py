@@ -29,9 +29,12 @@ copies (TMA) into an mbarrier ring and multiplies them on wgmma in index
 order, so that every call adds the gates' partial products in one order
 and gives the same bits; its CTAs take 128-row tiles wherever that grid
 fits the card, else 192-row tiles (257-384 rows at H=768), so that a bf16
-batch of up to 384 rows is one launch.  K1 and K3a in f32 (duplex's transition
-posteriors) keep each CTA's W_hh columns in registers, split by depth over
-every lane, with the same ready flags.  K7 and K3b's f32 path keep a grid
+batch of up to 384 rows is one launch; at H=1024 (up to 256 rows) the
+CTAs come in clusters of 2 that split W_hh's depth, each bringing in
+half of h, and add their partial gates through distributed shared
+memory.  K1 and K3a in f32 (duplex's transition posteriors) keep each
+CTA's W_hh columns in registers, split by depth over every lane, with the
+same ready flags.  K7 and K3b's f32 path keep a grid
 barrier.  The reverse direction is read in reverse time inside the
 kernels instead of flipping the tensors.
 
@@ -43,8 +46,10 @@ Each wrapper takes the plain version (``ops/lstm.py``) for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for anything else;
 ``_build.launches[<wrapper>]`` counts its launches (one per group of batch
 rows; K3b's group is one launch of its gate recompute and one of its
-recursion), ``launches["lstm_recurrence.f32"]`` K1's in f32 once more, and
-``launches["<wrapper>.wide"]`` those of K1 and K3a on the 192-row tiles.
+recursion), ``launches["lstm_recurrence.f32"]`` K1's in f32 once more,
+``launches["<wrapper>.wide"]`` those of K1 and K3a on the 192-row tiles
+and ``launches["<wrapper>.split"]`` those on the clusters that split the
+depth.
 """
 
 from __future__ import annotations
@@ -74,16 +79,23 @@ def group_rows(source: str, dtype: torch.dtype) -> int:
     return _build.size("xna_lstm_group_rows", int(dtype == torch.bfloat16))
 
 
+BF16_GEOMETRIES = ("narrow", "wide", "split")
+
+
 def bf16_geometry(rows: int, H: int) -> dict:
     """The geometry of a bf16 launch of K1 over 65-384 ``rows`` of width
-    ``H`` on the current card: whether it takes the wide geometry, rows a
-    tile, CTAs, columns a chunk of h, ring stages (for tests and tools;
-    the launch itself reports whether it took the wide geometry)."""
+    ``H`` on the current card (for tests and tools; the launch itself
+    reports the one it took): ``geometry``, one of ``BF16_GEOMETRIES``
+    (``narrow``: 128-row tiles; ``wide``: 192-row tiles; ``split``:
+    128-row tiles, clusters of 2 CTAs that split W_hh's depth, each
+    reading half of h), rows a tile, CTAs, columns a chunk of h, ring
+    stages."""
     out = (ctypes.c_int * 5)()
     name = "xna_lstm_bf16_geometry"
     _build.check(name, _build.entry(name)(rows, H, out),
                  "lstm_recurrence geometry")
-    return dict(zip(("wide", "rows", "ctas", "chunk_cols", "stages"), out))
+    return dict(zip(("geometry", "rows", "ctas", "chunk_cols", "stages"),
+                    (BF16_GEOMETRIES[out[0]], *out[1:])))
 
 
 def _dims(what: str, xp: torch.Tensor, w: torch.Tensor,

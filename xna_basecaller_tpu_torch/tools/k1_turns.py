@@ -3,8 +3,10 @@ another tree's K1 and against variants of either tree's design, in turns,
 and hold each to bit-repeatability.
 
 bf16 (the default), at the basecall batches of ``--rows`` (default 256,
-ONT's and the port's, and 384, the XNA model's: xp [720, N, 3072], H=768),
-both directions, random inputs from a seed:
+ONT's and the port's, and 384, the XNA model's: xp [720, N, 3072], H=768;
+``--width`` and ``--steps`` set H and T: R10.4.1 sup's layer is
+``--width 1024 --steps 2000 --rows 256``), both directions, random inputs
+from a seed:
 
   1. print the card's name and power limit; build this tree's K1, the
      variants of this tree's source in ``VARIANTS`` and, with
@@ -13,22 +15,25 @@ both directions, random inputs from a seed:
      DIR's K1, each with nvcc (a variant is a list of text edits of the
      source); each tree's K1 is called as its wrapper calls it, once per
      group of the rows a launch of that tree takes (256 before the wide
-     geometry: 256 + 128 at N=384), and this tree's geometry is printed;
+     geometry: 256 + 128 at N=384), and each tree's geometry is printed;
   2. call each kernel 6 times on the same inputs and print the share of ys
-     elements that differ from the first call (0 means bit-repeatable);
-     fail if this tree's kernel is not bit-repeatable; print each one's
-     largest difference from this tree's ys;
+     elements that differ from the first call (0 means bit-repeatable)
+     and its largest difference from the plain version's ys
+     (``ops/lstm.py::lstm_recurrence`` on the card) and from this tree's;
+     fail if this tree's kernel is not bit-repeatable or differs from the
+     plain version by more than bf16's 2e-2;
   3. time them in turns (a, b, c, c, b, a, ...): the median of 21 calls
      each, by CUDA events, in each direction, beside the bound of the
      layer's recurrence (2 T N H 4H operations over 989 TFLOP/s).
 
 ``--dtype f32`` (K1's f32 route, which duplex's transition posteriors
-run): for each N of ``--rows`` (default 8, 16, 32, 64, 128, 256) at T=720,
-H=768, in both directions, this tree's K1, the variants of its source in
-``F32_VARIANTS`` and, with ``--baseline DIR``, DIR's, each called 6 times (this tree's must be bit-repeatable) and held
+run): for each N of ``--rows`` (default 8, 16, 32, 64, 128, 256) at T and
+H (default 720 and 768), in both directions, this tree's K1, the
+variants of its source in ``F32_VARIANTS`` and, with ``--baseline DIR``,
+DIR's, each called 6 times (this tree's must be bit-repeatable) and held
 to the plain version (``ops/lstm.py::lstm_recurrence``, max-abs 1e-4),
 then timed in turns with this tree's input projection + K1 and cuDNN's
-``torch.nn.LSTM(768, 768)`` in f32 on the same layer's weights (the
+``torch.nn.LSTM(H, H)`` in f32 on the same layer's weights (the
 projection included; TF32 off for cuDNN and for matrix products, and
 stated), medians of 21; and the bound of the layer's recurrence at that
 N: 2 T N H 4H operations over the card's f32 peak outside the tensor
@@ -37,7 +42,8 @@ over 3.35 TB/s, whichever is larger.
 
 Run from the repository root:
     python -m xna_basecaller_tpu_torch.tools.k1_turns [--baseline DIR]
-        [--rows 256,384] [--dtype f32 [--rows 8,16,...]]
+        [--rows 256,384] [--width H] [--steps T] [--dtype f32
+        [--rows 8,16,...]]
 """
 
 from __future__ import annotations
@@ -54,19 +60,25 @@ import torch
 
 from xna_basecaller_tpu_torch.ops import _build
 
-T, H, SEED, REPEATS, REPS = 720, 768, 0, 6, 21
+STEPS, WIDTH, SEED, REPEATS, REPS = 720, 768, 0, 6, 21
 BF16_ROWS = (256, 384)
 F32_ROWS = (8, 16, 32, 64, 128, 256)
 F32_TOL = 1e-4               # max-abs against the plain version
+BF16_TOL = 2e-2
 # H100 SXM: bf16 and f32 FLOP/s, HBM bytes/s
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 # name -> edits of this tree's source, timed with bf16
+_SPLIT = "constexpr int kSplitMinH = 1024;"
 VARIANTS = {
     # 64-column chunks: the wide geometry on 5 stages, fetched as their
     # writers finish within a window of 4 (the narrow one on 8, window 7)
     "64-column chunks": [("constexpr int kMaxSubs = 4;",
                           "constexpr int kMaxSubs = 1;")],
+    # the geometry rule's threshold moved: Split at every H that is a
+    # multiple of 128, or nowhere (Narrow, else Wide)
+    "Split at every width": [(_SPLIT, _SPLIT.replace("1024", "128"))],
+    "no Split": [(_SPLIT, _SPLIT.replace("1024", "(1 << 30)"))],
 }
 # name -> edits of this tree's source, timed with --dtype f32: the f32
 # route with a lane's product over 1 or 2 batch rows at once (this tree's:
@@ -172,8 +184,8 @@ def kernel(lib: ctypes.CDLL, tag: str):
             return "not exported"
         out = (ctypes.c_int * 5)()
         rc = bf16_geo(n, h, out)
-        return dict(zip(("wide", "rows a tile", "CTAs", "columns a chunk",
-                         "ring stages"), out)) \
+        return dict(zip(("geometry (1 wide, 2 split)", "rows a tile", "CTAs",
+                         "columns a chunk", "ring stages"), out)) \
             if rc == 0 else rc
     run.bf16_geometry = bf16_geometry
 
@@ -240,7 +252,7 @@ def repeatable(fn, xp, w_hh, reverse, name) -> tuple:
     return first, worst
 
 
-def f32_turns(kernels: dict, rows, card: str) -> None:
+def f32_turns(kernels: dict, rows, card: str, T: int, H: int) -> None:
     """``--dtype f32``: the rows sweep of K1's f32 route beside the port's
     projection + K1, cuDNN's f32 LSTM and the bound (module docstring)."""
     from xna_basecaller_tpu_torch.ops import lstm
@@ -329,7 +341,16 @@ def main(argv=None) -> int:
                          f"{','.join(map(str, BF16_ROWS))} in bf16, "
                          f"{','.join(map(str, F32_ROWS))} in f32; f32 at "
                          "most 256)")
+    ap.add_argument("--width", type=int, default=WIDTH,
+                    help=f"the hidden width H (default {WIDTH}; a multiple of "
+                         "16, at most 1024)")
+    ap.add_argument("--steps", type=int, default=STEPS,
+                    help=f"the time steps T of the layer (default {STEPS})")
     args = ap.parse_args(argv)
+    T, H = args.steps, args.width
+    if not (16 <= H <= 1024 and H % 16 == 0) or T < 1:
+        raise SystemExit("k1_turns: --width takes a multiple of 16 up to "
+                         "1024, --steps at least 1")
     if not torch.cuda.is_available():
         raise SystemExit("k1_turns: no CUDA device")
     f32 = args.dtype == "f32"
@@ -354,9 +375,11 @@ def main(argv=None) -> int:
     kernels = {name: kernel(lib, name)
                for name, lib in build_all(builds).items()}
     if f32:
-        f32_turns(kernels, rows, card)
+        f32_turns(kernels, rows, card, T, H)
         torch.cuda.synchronize()
         return 0
+
+    from xna_basecaller_tpu_torch.ops import lstm
 
     gen = torch.Generator().manual_seed(SEED)
     w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / H ** 0.5).to(
@@ -370,17 +393,22 @@ def main(argv=None) -> int:
         bound_ms = 2.0 * T * n * H * 4 * H / PEAK_BF16 * 1e3
         for reverse in (False, True):
             ys = {}
+            with torch.inference_mode():
+                plain = lstm.lstm_recurrence(xp, w_hh, reverse).float()
             for name, fn in kernels.items():
                 ys[name], worst = repeatable(fn, xp, w_hh, reverse, name)
                 diff = (ys[name].float() - ys["this tree"].float()).abs()
+                err = (ys[name].float() - plain).abs().max().item()
                 print(f"K1 [{T}, {n}, {4 * H}] reverse={reverse}, {name}: "
                       f"{REPEATS} calls, at most {100 * worst:.3f} % of ys "
-                      f"differ from the first call; max_abs against this "
-                      f"tree's {diff.max().item():.3e}")
-                if name == "this tree" and worst:
+                      f"differ from the first call; max_abs against the "
+                      f"plain version {err:.3e} (tolerance {BF16_TOL}), "
+                      f"against this tree's {diff.max().item():.3e}")
+                if name == "this tree" and (worst or err > BF16_TOL):
                     raise SystemExit("k1_turns: this tree's K1 is not "
-                                     "bit-repeatable")
-            del ys
+                                     "bit-repeatable or disagrees with its "
+                                     "plain version")
+            del ys, plain
             times = in_turns({k: (lambda fn=fn: fn(xp, w_hh, reverse))
                               for k, fn in kernels.items()})
             for name, ms in times.items():
